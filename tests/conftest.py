@@ -21,3 +21,9 @@ import jax  # noqa: E402
 # as long as it runs before any backend is initialised.
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (tpcg_torch kernel tests); "
+        "skips without one")

@@ -1,0 +1,216 @@
+"""Execution-path selection for stencil CG solves (counterpart of ``tpcg/ops/auto.py``, first slice).
+
+Two paths are ported; each maps to a planner path of the JAX package:
+
+  l2-coef : JAX's ``vmem-coef``.  The whole fixed-iteration solve in one
+            launch of the hand-written CUDA kernel
+            (``tpcg_torch.ops.fused_cg.fused_cg_stencil``).  On the H100 the
+            coefficient planes and the CG state stay resident in the 50 MB
+            L2 during that launch, where on the TPU they sat in VMEM.  The
+            default for complex grids up to 512^2 nodes with at most two
+            RHS on a CUDA device, as JAX picks ``vmem-coef``.
+  eager   : JAX's ``xla``.  Plain PyTorch: ``block_cg_planes_chunked`` over
+            float32 planes for complex stencils on a CUDA device, and
+            ``block_cg`` in the stencil's own dtype otherwise.  The default
+            on the CPU, for larger complex batches, and for real stencils
+            below JAX's real-streaming size.
+
+The planner dispatches on the torch device of the stencil's coefficients.
+On a CUDA device, a stencil that JAX would send to one of its tiers that
+are not ported yet (``vmem-const``, ``stream``, ``stream-coef``,
+``stream-real``, or a row-padded ``pad->`` tier) raises
+``NotImplementedError`` naming the ROADMAP item; it never runs silently on
+the plain path instead.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..cg import block_cg
+from .cplx import block_cg_planes_chunked, make_pair_operator
+from .fused_cg import fused_cg_stencil_chunked, prepare_coef3
+
+# JAX's _VMEM_NODES: complex grids up to here take the whole-solve kernel
+_L2_NODES = 512 * 512
+# JAX's _REAL_STREAM_NODES: real grids from here take the stream-real tier
+_REAL_STREAM_NODES = 1024 * 1024
+# JAX's _FUSED_BATCH_MAX: larger complex batches take the plain path
+_FUSED_BATCH_MAX = 2
+
+_PORTED = ("l2-coef", "eager")
+# JAX planner paths with no port yet -> where the ROADMAP queues them
+_NOT_PORTED = {
+    "vmem-const": "ROADMAP queue 2 item 2 (fused_cg_const)",
+    "stream": "ROADMAP queue 1 item 11 (queue 2 items 6-21)",
+    "stream-coef": "ROADMAP queue 1 item 11 (queue 2 items 6-21)",
+    "stream-real": "ROADMAP queue 1 item 11 (queue 2 items 14, 17, 20)",
+}
+
+
+def _not_ported(jax_paths, grid) -> NotImplementedError:
+    return NotImplementedError(
+        f"grid {grid}: the JAX planner sends this to its "
+        f"{' / '.join(jax_paths)} tier, which tpcg_torch has not ported "
+        f"yet: {_NOT_PORTED[jax_paths[0]]}")
+
+
+def _norm_b(b, nv, nh):
+    # squeeze only for inputs WITHOUT a batch axis: an (Nv, Nh) grid or
+    # a flat (Nv*Nh,) vector.  Anything else -- explicit (B, Nv, Nh),
+    # flat (B*Nv*Nh,), column-stacked (B, Nv*Nh) -- keeps its batch axis
+    # in the output (tpcg/ops/auto.py::_norm_b).
+    b = np.asarray(b)
+    squeeze = (b.shape == (nv, nh)
+               or (b.ndim == 1 and b.size == nv * nh))
+    B = b.reshape(-1, nv, nh)
+    return B, squeeze
+
+
+@dataclass
+class StencilCGPlan:
+    """A chosen execution path for one (stencil, n_iterations) pair."""
+    path: str        # l2-coef | eager
+    grid: tuple
+    n_iterations: int
+    _solve: Callable = field(repr=False)
+    _solve_planes: Callable = field(repr=False)
+
+    def solve(self, b, x0=None):
+        """b, x0 : complex (Nv, Nh) or (B, Nv, Nh) numpy arrays (or any
+        shape ``_norm_b`` accepts).
+
+        Returns numpy ``(x, history)``: x shaped like b (complex64 on the
+        float32 paths, the stencil's dtype on the CPU eager path) and
+        history ``(n_iterations+1,)`` for a single RHS, else
+        ``(n_iterations+1, B)``.  Each call uploads b and downloads x;
+        repeated device-resident solves use :meth:`solve_planes`.
+        """
+        return self._solve(b, x0)
+
+    def solve_planes(self, bp: torch.Tensor,
+                     x0p: Optional[torch.Tensor] = None):
+        """Device-resident surface: ``bp``/``x0p`` are float32 re/im plane
+        tensors on the plan's device, (2, Nv, Nh) or (2, B, Nv, Nh).
+        Returns device tensors ``(x_planes, history)`` shaped like
+        :meth:`solve`'s, with no host round trip."""
+        squeeze = bp.dim() == 3
+        if squeeze:
+            bp = bp[:, None]
+            x0p = None if x0p is None else x0p[:, None]
+        if x0p is None:
+            x0p = torch.zeros_like(bp)
+        x, hist = self._solve_planes(bp, x0p)
+        if squeeze:
+            return x[:, 0], hist[:, 0]
+        return x, hist
+
+
+def plan_stencil_cg(stencil, n_iterations: int, nb: int = 1,
+                    path: Optional[str] = None) -> StencilCGPlan:
+    """Pick and prepare the CG path for ``stencil`` on its device.
+
+    nb   : planned RHS batch size (every path takes any batch at solve time).
+    path : force ``"l2-coef"`` or ``"eager"``.  On a CPU device ``l2-coef``
+           runs the kernel's plain version.
+    """
+    nv, nh = stencil.grid
+    n = nv * nh
+    is_complex = stencil.coef.is_complex()
+    on_cuda = stencil.device.type == "cuda"
+    if path is None:
+        path = "eager"
+        if on_cuda and is_complex:
+            if n > _L2_NODES:
+                # JAX: stream (constant interior) or stream-coef, directly
+                # or after row padding
+                raise _not_ported(("stream", "stream-coef"), stencil.grid)
+            if nb <= _FUSED_BATCH_MAX:
+                path = "l2-coef"
+        elif on_cuda and n >= _REAL_STREAM_NODES:
+            raise _not_ported(("stream-real",), stencil.grid)
+    elif path in _NOT_PORTED:
+        raise _not_ported((path,), stencil.grid)
+    elif path not in _PORTED:
+        raise ValueError(f"unknown path {path!r}; ported: {_PORTED}")
+    solve, solve_planes = _build_solver(stencil, n_iterations, path)
+    return StencilCGPlan(path=path, grid=(nv, nh), n_iterations=n_iterations,
+                         _solve=solve, _solve_planes=solve_planes)
+
+
+def stencil_cg(stencil, b, x0=None, n_iterations: int = 10,
+               path: Optional[str] = None):
+    """One-shot convenience: plan + solve (see :func:`plan_stencil_cg`)."""
+    nv, nh = stencil.grid
+    nb = np.asarray(b).size // (nv * nh)
+    plan = plan_stencil_cg(stencil, n_iterations, nb=nb, path=path)
+    return plan.solve(b, x0)
+
+
+def _grid_planes(B, dev):
+    """(B, Nv, Nh) complex numpy -> (2, B, Nv, Nh) float32 planes on dev."""
+    return torch.from_numpy(
+        np.stack([B.real, B.imag]).astype(np.float32)).to(dev)
+
+
+def _build_solver(stencil, n_iterations, path):
+    nv, nh = stencil.grid
+    n = nv * nh
+    dev = stencil.device
+
+    if path == "l2-coef":
+        coef3 = prepare_coef3(stencil)
+
+        def solve_planes(bp, x0p):
+            return fused_cg_stencil_chunked(stencil.offsets, coef3, bp, x0p,
+                                            n_iterations)
+    else:
+        pair = make_pair_operator(stencil, dtype=torch.float32)
+
+        def solve_planes(bp, x0p):
+            nb = bp.shape[1]
+            res = block_cg_planes_chunked(
+                pair, bp.reshape(2, nb, n).transpose(1, 2),
+                x0p.reshape(2, nb, n).transpose(1, 2),
+                n_iterations=n_iterations)
+            return (res.x.transpose(1, 2).reshape(2, nb, nv, nh),
+                    res.residual_history)
+
+    def solve_f32(b, x0):
+        B, squeeze = _norm_b(b, nv, nh)
+        bp = _grid_planes(B, dev)
+        x0p = (torch.zeros_like(bp) if x0 is None
+               else _grid_planes(_norm_b(x0, nv, nh)[0], dev))
+        x, hist = solve_planes(bp, x0p)
+        x = x.cpu().numpy()
+        hist = hist.cpu().numpy()
+        xc = (x[0] + 1j * x[1]).astype(np.complex64)
+        if squeeze:
+            return xc[0], hist[:, 0]
+        return xc, hist
+
+    if path == "l2-coef" or (stencil.coef.is_complex()
+                             and dev.type == "cuda"):
+        return solve_f32, solve_planes
+
+    # CPU (or a real stencil): block_cg in the stencil's dtype promoted to
+    # at least single precision, as JAX's xla path does
+    dt = torch.promote_types(
+        stencil.dtype,
+        torch.complex64 if stencil.coef.is_complex() else torch.float32)
+
+    def solve(b, x0):
+        B, squeeze = _norm_b(b, nv, nh)
+        bm = torch.from_numpy(B.reshape(-1, n).T.copy()).to(dev, dt)
+        x0m = (torch.from_numpy(np.asarray(x0).reshape(-1, n).T.copy())
+               .to(dev, dt) if x0 is not None else None)
+        res = block_cg(stencil, bm, x0m, n_iterations=n_iterations)
+        x = res.x.T.reshape(-1, nv, nh).cpu().numpy()
+        hist = res.residual_history.cpu().numpy()
+        if squeeze:
+            return x[0], hist[:, 0]
+        return x, hist
+    return solve, solve_planes
