@@ -137,7 +137,11 @@ def test_solve_planes_shapes(path):
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, tpcg_torch, tpcg_torch.ops, tpcg_torch.convert; "
+    code = ("import sys, tpcg_torch, tpcg_torch.ops, tpcg_torch.convert, "
+            "tpcg_torch.api, tpcg_torch.io, tpcg_torch.cli, "
+            "tpcg_torch.ops.stream_cg_dia, tpcg_torch.ops.fused_cg_dia, "
+            "tpcg_torch.native.mtx_native; "
+            "tpcg_torch.native.mtx_native.available(); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'tpcg.')) or m == 'tpcg'); "
             "assert not bad, bad")

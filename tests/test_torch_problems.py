@@ -41,3 +41,55 @@ def test_stencil_entry_for_entry(name):
 @pytest.mark.parametrize("name", sorted(GRIDS))
 def test_rhs_entry_for_entry(name):
     np.testing.assert_array_equal(GRIDS[name](tp), GRIDS[name](jp))
+
+
+def _bench(name):
+    """Load a benchmarks/ module by path (it imports JAX only inside its
+    functions)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent.parent / "benchmarks" / name
+    spec = importlib.util.spec_from_file_location(f"_bench_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("which", ["banded_spd", "banded_complex",
+                                   "parabolic"])
+def test_fig5_standins_equal_the_benchmark_generators(which):
+    """tpcg_torch.problems.banded copies the JAX benchmarks' generators of
+    the banded Fig. 5 classes (at a reduced size here)."""
+    import scipy.sparse as sp
+    from tpcg_torch.problems import (banded_complex, banded_spd,
+                                     parabolic_stencil)
+    if which == "banded_spd":
+        want = _bench("bench_general_sparse.py").banded_spd(3000, 6, seed=3)
+        got = banded_spd(3000, 6, seed=3)
+    elif which == "banded_complex":
+        want = _bench("bench_fig5.py").banded_complex(500, range(0, 9),
+                                                      seed=2)
+        got = banded_complex(500, range(0, 9), seed=2)
+    else:
+        # bench_fig5.py:198-209 builds this stencil inline in main(): the
+        # same offsets and coefficient planes, literally, at Ng = 9
+        from tpcg.sparse import Stencil2D
+        Ng = 9
+        offs = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0), (1, 1),
+                (-1, -1))
+        coef = np.empty((7, Ng, Ng), np.float32)
+        coef[0] = 8.0
+        for s in range(1, 7):
+            coef[s] = -1.0
+        coef[1][:, -1] = 0; coef[2][:, 0] = 0
+        coef[3][-1, :] = 0; coef[4][0, :] = 0
+        coef[5][-1, :] = 0; coef[5][:, -1] = 0
+        coef[6][0, :] = 0; coef[6][:, 0] = 0
+        want = Stencil2D(offs, coef, (Ng, Ng)).to_scipy()
+        S = parabolic_stencil(Ng)
+        assert S.offsets == offs
+        np.testing.assert_array_equal(S.coef.numpy(), coef)
+        got = S.to_scipy()
+        assert (got != got.T).nnz == 0
+    assert got.shape == want.shape
+    assert abs(sp.csr_matrix(got) - sp.csr_matrix(want)).max() == 0

@@ -1,7 +1,9 @@
 """tpcg_torch.sparse against tpcg.sparse: matvecs in float64 to 1e-12,
-scipy forms equal, and from_tpcg carrying operators across."""
+scipy forms equal, to_device_matrix's choices equal, and from_tpcg
+carrying operators across."""
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import tpcg.sparse as jsp
@@ -9,7 +11,8 @@ from tpcg.ops.fused_cg import prepare_coef3 as jax_prepare_coef3
 from tpcg.problems import helm_fe, poisson
 from tpcg_torch.convert import coef3_from_numpy, from_tpcg
 from tpcg_torch.ops.fused_cg import prepare_coef3
-from tpcg_torch.sparse import DiaMatrix, Stencil2D, _shift2d
+from tpcg_torch.sparse import (DiaMatrix, EllMatrix, Stencil2D, _shift2d,
+                               to_device_matrix)
 
 
 def _operator(kind):
@@ -112,3 +115,83 @@ def test_to_device_is_explicit():
     T = from_tpcg(poisson(4))
     assert T.to("cpu").coef.device.type == "cpu"
     assert T.device.type == "cpu"
+
+
+def _random_sparse(n, per_row, seed, cplx=False):
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), per_row)
+    cols = rng.integers(0, n, n * per_row)
+    vals = rng.standard_normal(n * per_row)
+    if cplx:
+        vals = vals + 1j * rng.standard_normal(n * per_row)
+    A = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
+    return sp.csr_matrix(A + A.T + sp.eye(n) * per_row)
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+@pytest.mark.parametrize("nb", [1, 3])
+def test_ell_matches_jax(cplx, nb):
+    """EllMatrix.from_scipy / from_csr_arrays: the same padded (n, L) layout
+    as JAX (padding slots point at their own row), the same matvec."""
+    A = _random_sparse(70, 4, seed=nb, cplx=cplx)
+    je = jsp.EllMatrix.from_scipy(A)
+    te = EllMatrix.from_scipy(A)
+    np.testing.assert_array_equal(te.cols.numpy(), np.asarray(je.cols))
+    np.testing.assert_array_equal(te.vals.numpy(), np.asarray(je.vals))
+    te2 = EllMatrix.from_csr_arrays(70, A.data, A.indptr, A.indices)
+    np.testing.assert_array_equal(te2.vals.numpy(), te.vals.numpy())
+    x = _vectors(np.random.default_rng(9),
+                 (70, nb) if nb > 1 else (70,), "complex")
+    got = te.matvec(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(je.matvec(x)), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(got, A @ x, rtol=1e-12, atol=1e-12)
+    back = from_tpcg(je)
+    assert isinstance(back, EllMatrix) and back.n == 70
+    np.testing.assert_array_equal(back.cols.numpy(), te.cols.numpy())
+
+
+def _shuffled_band(n, seed):
+    A = sp.csr_matrix(sp.diags([np.full(n - 2, -0.5), -np.ones(n - 1),
+                                4 * np.ones(n), -np.ones(n - 1),
+                                np.full(n - 2, -0.5)], [-2, -1, 0, 1, 2]))
+    p = np.random.default_rng(seed).permutation(n)
+    return sp.csr_matrix(A[p][:, p])
+
+
+@pytest.mark.parametrize("kind", ["band", "shuffled", "unstructured"])
+@pytest.mark.parametrize("reorder", [False, True])
+def test_to_device_matrix_matches_jax(kind, reorder):
+    """The same container class, offsets, data and RCM perm as
+    tpcg.sparse.to_device_matrix."""
+    A = {"band": sp.csr_matrix(helm_fe(7, 3.0, eps=3.0).to_scipy()),
+         "shuffled": _shuffled_band(120, 3),
+         "unstructured": _random_sparse(90, 5, seed=4)}[kind]
+    jr = jsp.to_device_matrix(A, reorder=reorder)
+    tr = to_device_matrix(A, reorder=reorder)
+    if reorder:
+        (jm, jp), (tm, tp) = jr, tr
+        assert (jp is None) == (tp is None)
+        if jp is not None:
+            np.testing.assert_array_equal(tp, jp)
+    else:
+        jm, tm = jr, tr
+    assert type(tm).__name__ == type(jm).__name__
+    if isinstance(tm, DiaMatrix):
+        assert tm.offsets == tuple(jm.offsets)
+        np.testing.assert_array_equal(tm.data.numpy(), np.asarray(jm.data))
+    else:
+        np.testing.assert_array_equal(tm.vals.numpy(), np.asarray(jm.vals))
+    assert kind != "shuffled" or not reorder or isinstance(tm, DiaMatrix)
+
+
+def test_route_fallback_refuses_on_cuda_and_returns_ell_on_cpu():
+    A = _random_sparse(90, 5, seed=4)
+    M, perm = to_device_matrix(A, route_fallback=True)
+    assert isinstance(M, EllMatrix) and perm is None
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        to_device_matrix(A, route_fallback=True, device="cuda")
+    # a complex unstructured matrix has no route fallback in JAX either
+    Mc, _ = to_device_matrix(_random_sparse(90, 5, seed=4, cplx=True),
+                             route_fallback=True)
+    assert isinstance(Mc, EllMatrix)

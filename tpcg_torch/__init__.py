@@ -8,8 +8,10 @@ the same function beside it.
 """
 
 from .cg import block_cg, cg_solve, udot, CGResult            # noqa: F401
+from .api import cg, cg_matrix                                # noqa: F401
 from .ops.auto import plan_stencil_cg, stencil_cg             # noqa: F401
-from .sparse import DiaMatrix, Stencil2D                      # noqa: F401
+from .sparse import (DiaMatrix, EllMatrix, Stencil2D,         # noqa: F401
+                     to_device_matrix)
 from . import reference                                       # noqa: F401
 from . import problems                                        # noqa: F401
 

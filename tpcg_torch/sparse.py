@@ -9,6 +9,11 @@
     Row-oriented padded-diagonal storage for banded matrices; its matvec is
     a sum of zero-filled 1-D shifts.
 
+``EllMatrix``
+    Padded-row (ELLPACK) storage for general sparse matrices; its matvec is
+    a gather.  ``to_device_matrix`` picks between the two for a scipy
+    matrix, with reverse Cuthill-McKee reordering into a band.
+
 Coefficients are torch tensors on an explicit device: the containers never
 move data on their own, ``.to(device)`` returns a copy on another device.
 scipy CSR stays the host interchange format (``to_scipy`` / ``from_scipy``).
@@ -122,6 +127,76 @@ class DiaMatrix:
 
 
 @dataclasses.dataclass(frozen=True)
+class EllMatrix:
+    """ELLPACK: rows padded to the max row degree L.
+
+    ``vals[i, l]`` with column ``cols[i, l]``; padding slots have
+    ``vals == 0`` and ``cols`` pointing at row ``i`` itself, so the gather
+    stays in range, as in ``tpcg.sparse.EllMatrix``.
+    """
+    cols: torch.Tensor       # (n, L) int32
+    vals: torch.Tensor       # (n, L)
+    n: int
+
+    @property
+    def shape(self):
+        return (self.n, self.n)
+
+    @property
+    def dtype(self):
+        return self.vals.dtype
+
+    @property
+    def device(self):
+        return self.vals.device
+
+    def to(self, device) -> "EllMatrix":
+        return dataclasses.replace(self, cols=self.cols.to(device),
+                                   vals=self.vals.to(device))
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A @ x.  ``x``: (n,) or (n, nrhs)."""
+        L = self.cols.shape[1]
+        gathered = torch.index_select(x, 0, self.cols.reshape(-1))
+        gathered = gathered.reshape((self.n, L) + x.shape[1:])
+        vals = self.vals
+        if x.dim() > 1:
+            vals = vals.reshape(vals.shape + (1,) * (x.dim() - 1))
+        return torch.sum(vals * gathered, dim=1)
+
+    def __matmul__(self, x):
+        return self.matvec(x)
+
+    @staticmethod
+    def from_scipy(A, dtype=None, device="cpu") -> "EllMatrix":
+        import scipy.sparse as sp
+        A = sp.csr_matrix(A)
+        return EllMatrix.from_csr_arrays(A.shape[0], A.data, A.indptr,
+                                         A.indices, dtype=dtype,
+                                         device=device)
+
+    @staticmethod
+    def from_csr_arrays(n, a_values, a_pointers, a_cols, dtype=None,
+                        device="cpu") -> "EllMatrix":
+        """Build from raw CSR arrays (the ``clcg::cg`` input surface),
+        scattered into the padded (n, L) layout as JAX does."""
+        a_pointers = np.asarray(a_pointers)
+        a_cols = np.asarray(a_cols)
+        a_values = np.asarray(a_values)
+        deg = np.diff(a_pointers)
+        L = max(int(deg.max()), 1)
+        nnz = len(a_values)
+        rows = np.repeat(np.arange(n), deg)
+        lane = np.arange(nnz) - np.repeat(a_pointers[:-1], deg)
+        cols = np.tile(np.arange(n, dtype=np.int32)[:, None], (1, L))
+        vals = np.zeros((n, L), dtype=dtype or a_values.dtype)
+        cols[rows, lane] = a_cols
+        vals[rows, lane] = a_values
+        return EllMatrix(torch.from_numpy(cols).to(device),
+                         torch.from_numpy(vals).to(device), n)
+
+
+@dataclasses.dataclass(frozen=True)
 class Stencil2D:
     """2-D grid-stencil operator on an (Nv, Nh) node grid.
 
@@ -196,3 +271,53 @@ class Stencil2D:
 
     def to_scipy(self):
         return self.to_dia().to_scipy()
+
+
+def _dia_worthwhile(A, prefer_dia_band: int) -> bool:
+    import scipy.sparse as sp
+    coo = sp.coo_matrix(A)
+    offs = np.unique(coo.col - coo.row)
+    n = A.shape[0]
+    return (len(offs) * n <= max(4 * A.nnz, 16 * n)
+            and len(offs) <= prefer_dia_band)
+
+
+def to_device_matrix(A, prefer_dia_band: int = 4096, reorder: bool = False,
+                     route_fallback: bool = False, device="cpu"):
+    """Pick the device container for a scipy sparse matrix, on ``device``
+    (``tpcg.sparse.to_device_matrix``).
+
+    A matrix with a modest number of distinct diagonals (``ndiag * n``
+    within ~4x of ``nnz``) becomes a ``DiaMatrix``; anything else an
+    ``EllMatrix``.  ``reorder=True`` also tries symmetric reverse
+    Cuthill-McKee (scipy's, so the permutation is JAX's) and returns
+    ``(container, perm)``: the container holds ``A[perm][:, perm]``, so
+    solve with ``b[perm]`` and un-permute; ``perm`` is None when the
+    natural order is kept.
+
+    ``route_fallback=True`` (implies the ``reorder`` return convention):
+    where JAX builds its routing-network operand for a real matrix that no
+    ordering makes banded, the port has none yet (ROADMAP queue 1 item 13).
+    On a CUDA device that raises ``NotImplementedError``, and never takes
+    the ELL gather instead; on the CPU it returns the ``EllMatrix``.
+    """
+    import scipy.sparse as sp
+    A = sp.csr_matrix(A)
+    if _dia_worthwhile(A, prefer_dia_band):
+        M = DiaMatrix.from_scipy(A, device=device)
+        return (M, None) if (reorder or route_fallback) else M
+    if reorder or route_fallback:
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+        perm = np.asarray(reverse_cuthill_mckee(A, symmetric_mode=True))
+        Ap = A[perm][:, perm]
+        if _dia_worthwhile(Ap, prefer_dia_band):
+            return DiaMatrix.from_scipy(Ap, device=device), perm
+        if (route_fallback and not np.iscomplexobj(A.data)
+                and torch.device(device).type == "cuda"):
+            raise NotImplementedError(
+                f"unstructured {A.shape[0]}x{A.shape[1]} matrix "
+                f"(nnz={A.nnz}): JAX routes it through its routing-network "
+                "SpMV, which tpcg_torch has not ported yet: ROADMAP queue 1 "
+                "item 13 (queue 2 item 22)")
+        return EllMatrix.from_scipy(A, device=device), None
+    return EllMatrix.from_scipy(A, device=device)
