@@ -51,7 +51,37 @@ Phases, in order; the first failure exits non-zero:
      the plain version over 20 iterations, and prints over 100 iterations
      the spread of the kernel, two plain float32 versions and complex128
      on one of them;
-  8. a JSON line of the kernels, the card line, and the result line.
+  8. the streaming constant-tap kernel (``stream_cg_const_planes``) against
+     its plain version on the card, 40 iterations, seeded x0: a square
+     grid, a non-square grid, an odd height (1031 x 1024) and a width that
+     is not a multiple of 128 (x within 2e-3 max|x|, the live history within
+     rel 1e-2, two launches bit-equal); a 2-RHS ``stream`` plan whose columns
+     equal their single-RHS launches bit for bit; 2 I over 400 iterations,
+     which must freeze at the iteration its plain version freezes and stay
+     finite;
+  9. the planner's ``stream`` path at full size: helm_fe(N, 12, eps=12) on
+     the card through ``plan_stencil_cg(...).solve`` at N=1024 x 5000
+     iterations, N=2048, 2896 and 4096 x 1000, and N=1024 with B=2 x 1000,
+     each with the launch counts set to 0 just before and read just after
+     (the path must be ``stream`` and only ``stream_cg`` may move).  For
+     each: the host seconds of the assembly and of ``prepare_stream``, a
+     100-iteration gate of the kernel against its plain version on the plane
+     wave (the tolerances of phase 8), the float64 relative residual of the
+     final x (finite; printed, not gated), the median of 5 CUDA-event
+     timings of the device-resident solve, GFLOPS by report Table II, the
+     plain version's time over the gate, and the kernel's bound;
+ 10. a JSON line of the kernels (each with its launches on the main paths,
+     its largest x error against its plain version, its time, its plain
+     version's time, its bound and what sets it, and ``library_ms`` null: no
+     single PyTorch call computes a fixed-iteration COCG solve), the card
+     line, and the result line.
+
+Bounds (``bound_ms``): the larger of the bytes the solve must move, each
+input read once and each output written once, over 3.35 TB/s, and its
+floating-point operations by report Table II over the 67 TFLOP/s float32
+rate of an H100 SXM (no tensor cores).  Phase 9 also prints the state
+streaming floor of the ``stream`` path: an iterate that does not fit on
+chip must at least read and write x, r and d every iteration (48 B a node).
 
 It drives only ``tpcg_torch`` and imports nothing of JAX.
 """
@@ -107,6 +137,18 @@ def fused_close(xk, hk, xp, hp):
     ok = (bool(torch.isfinite(xk).all() and torch.isfinite(hk).all())
           and err <= lim and excess <= 0)
     return ok, err, lim, excess
+
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+F32_FLOP_PER_S = 67e12         # H100 SXM float32, outside the tensor cores
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def card_line():
@@ -304,10 +346,15 @@ def phase_main(dev, N, iters, check_residual):
               f"fused_cg_stencil_plain "
               f"{np.abs(x.reshape(-1) - xp).max() / np.abs(xp).max():.3e}")
     gflops = iters * (8 * nnz + 16 * n + 24 * n) / (ms * 1e-3) / 1e9
+    bound_ms, bound_by = bound(
+        4 * (coef3.numel() + 3 * bp.numel() + iters + 1),
+        iters * (8 * nnz + 16 * n + 24 * n))
     print(f"time N={N} {iters} it: kernel {ms:.3f} ms "
           f"({ms * 1e3 / iters:.3f} us/it, {gflops:.2f} GFLOPS Table II); "
-          f"plain fused_cg_stencil_plain {plain_ms:.3f} ms (one run)")
-    return dict(ms=ms, plain_ms=plain_ms, launches=launches)
+          f"plain fused_cg_stencil_plain {plain_ms:.3f} ms (one run); bound "
+          f"{bound_ms:.3f} ms ({bound_by})")
+    return dict(ms=ms, plain_ms=plain_ms, launches=launches,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def dia_close(xk, hk, xp, hp):
@@ -431,18 +478,23 @@ def phase_dia_compare(dev):
     return worst
 
 
-def reset_counts():
+def wrappers():
+    """kernel name -> the wrapper that counts its launches."""
     from tpcg_torch.ops.fused_cg import fused_cg_stencil
-    wrappers = [fused_cg_stencil] + [k[0] for k in dia_kernels().values()]
-    for w in wrappers:
+    from tpcg_torch.ops.stream_cg import stream_cg_const_planes
+    out = {"fused_cg_stencil": fused_cg_stencil,
+           "stream_cg": stream_cg_const_planes}
+    out.update({k: v[0] for k, v in dia_kernels().items()})
+    return out
+
+
+def reset_counts():
+    for w in wrappers().values():
         w.launches = 0
 
 
 def moved_counts():
-    from tpcg_torch.ops.fused_cg import fused_cg_stencil
-    counts = {"fused_cg_stencil": fused_cg_stencil.launches}
-    counts.update({k: v[0].launches for k, v in dia_kernels().items()})
-    return {k: v for k, v in counts.items() if v}
+    return {k: w.launches for k, w in wrappers().items() if w.launches}
 
 
 def csr_args(A):
@@ -562,16 +614,22 @@ def phase_fig5_class(dev, label, A, nrhs, iters, kernel, route, also=None,
     nnz = A.nnz
     flop = (8 * nnz + 40 * n) if cplx else (2 * nnz + 10 * n)
     gflops = nrhs * iters * flop / (ms * 1e-3) / 1e9
+    # values and offsets read once, b and x0 read and x written once
+    bound_ms, bound_by = bound(
+        4 * (vals.numel() + len(offsets) + 3 * bp.numel()
+             + (iters + 1) * nrhs), nrhs * iters * flop)
     print(f"time {label} B={nrhs} {iters} it: kernel {ms:.3f} ms "
           f"({ms * 1e3 / iters:.3f} us/it, {gflops:.2f} GFLOPS Table II, all "
-          f"RHS); plain {plain_ms:.3f} ms (one run, {iters} it)")
+          f"RHS); plain {plain_ms:.3f} ms (one run, {iters} it); bound "
+          f"{bound_ms:.3f} ms ({bound_by})")
     if also:
         other = dia_kernels()[also][0]
         ms2, _ = median_ms(lambda: other(offsets, vals, bp, x0, iters),
                            reps=5)
         print(f"time {label} B={nrhs} {iters} it: {also} (off the main "
               f"path) {ms2:.3f} ms ({ms2 * 1e3 / iters:.3f} us/it)")
-    return dict(ms=ms, plain_ms=plain_ms, launches=launches, err=worst)
+    return dict(ms=ms, plain_ms=plain_ms, launches=launches, err=worst,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_helm_random(dev):
@@ -657,6 +715,199 @@ def phase_fig5(dev):
     return out
 
 
+def stream_case(dev, nv, nh, seed, direction=None):
+    """local_rect(max(nv, nh), 12) cut to nv x nh (helm_fe when square), with
+    its operands for the streaming kernel, the square grid's plane wave cut
+    to size, and a seeded 0.1 N(0, 1) initial guess."""
+    from tpcg_torch.ops.stream_cg import prepare_stream
+    from tpcg_torch.problems import local_rect, plane_wave_rhs
+    N = max(nv, nh)
+    S = local_rect(N, K_WAVE, K_WAVE, eta=K_WAVE, Nvert=nv, Nhoriz=nh,
+                   device=dev)
+    taps, strips = prepare_stream(S)
+    b = plane_wave_rhs(N, K_WAVE, direction)[:nv, :nh]
+    x0 = 0.1 * random_guess(b.shape, seed)
+    return S, taps, strips, planes(b[None], dev)[:, 0], planes(x0[None],
+                                                              dev)[:, 0]
+
+
+def phase_stream_compare(dev):
+    """The streaming kernel against its plain version on the card; returns
+    the max |x err|."""
+    import tpcg_torch
+    from tpcg_torch.ops import stream_cg as tsc
+    from tpcg_torch.problems import helm_fe
+    from tpcg_torch.sparse import Stencil2D
+    worst = 0.0
+    for nv, nh, seed in ((256, 256, 1), (300, 700, 2), (1031, 1024, 3),
+                         (600, 1000, 4)):
+        S, taps, strips, bp, x0p = stream_case(dev, nv, nh, seed)
+        args = (S.offsets, S.grid, taps, strips, bp, x0p, 40)
+        xk, hk = tsc.stream_cg_const_planes(*args)
+        xk2, hk2 = tsc.stream_cg_const_planes(*args)
+        xp, hp = tsc.stream_cg_const_planes_plain(*args)
+        torch.cuda.synchronize()
+        ok, err, lim, rel = dia_close(xk, hk, xp, hp)
+        same = torch.equal(xk, xk2) and torch.equal(hk, hk2)
+        print(f"compare stream_cg {nv}x{nh} 40 it: max|x err| {err:.3e} "
+              f"(limit {lim:.3e}), hist max rel {rel:.3e} (limit 1e-2), "
+              f"repeat bit-equal {same}")
+        if not (ok and same):
+            fail(f"stream_cg disagrees with its plain version ({nv}x{nh})")
+        worst = max(worst, err)
+
+    # a 2-RHS plan: two launches, each column its single-RHS launch's bits
+    S, taps, strips, b1, x1 = stream_case(dev, 520, 520, 5)
+    _, _, _, b2, x2 = stream_case(dev, 520, 520, 6, direction=(0.6, 0.8))
+    plan = tpcg_torch.plan_stencil_cg(S, 40, nb=2)
+    xb, hb = plan.solve_planes(torch.stack([b1, b2], dim=1),
+                               torch.stack([x1, x2], dim=1))
+    same = plan.path == "stream"
+    for c, (b, x0) in enumerate(((b1, x1), (b2, x2))):
+        xs, hs = tsc.stream_cg_const_planes(S.offsets, S.grid, taps, strips,
+                                            b, x0, 40)
+        same = same and torch.equal(xb[:, c], xs) and torch.equal(hb[:, c],
+                                                                  hs)
+    print(f"stream plan 520x520 B=2 40 it: path {plan.path}, each column "
+          f"bit-equal to its single-RHS launch {same}")
+    if not same:
+        fail("a 2-RHS stream plan differs from its single-RHS launches")
+
+    # 2 I on the helm_fe offsets: converges in one iteration, then frozen
+    A = helm_fe(64, 5.0, eps=5.0, device=dev)
+    coef = torch.zeros_like(A.coef)
+    coef[0] = 2.0
+    S = Stencil2D(A.offsets, coef, A.grid)
+    taps, strips = tsc.prepare_stream(S)
+    b = torch.zeros((2, 64, 64), device=dev)
+    b[0] = 1.0
+    args = (S.offsets, S.grid, taps, strips, b, torch.zeros_like(b), 400)
+    xk, hk = tsc.stream_cg_const_planes(*args)
+    xp, hp = tsc.stream_cg_const_planes_plain(*args)
+    hk, hp = hk.cpu().numpy(), hp.cpu().numpy()
+    zk, zp = np.where(hk == 0)[0], np.where(hp == 0)[0]
+    frozen = (len(zk) > 0 and len(zp) > 0 and zk[0] == zp[0]
+              and bool(np.all(hk[zk[0]:] == 0)))
+    finite = bool(torch.isfinite(xk).all() and np.isfinite(hk).all())
+    print(f"freeze stream_cg 2 I 64x64 400 it: finite {finite}, frozen "
+          f"{frozen} (first zero at {zk[0] if len(zk) else None}, plain "
+          f"{zp[0] if len(zp) else None}), x == plain {torch.equal(xk, xp)}")
+    if not (finite and frozen):
+        fail("stream_cg did not freeze as its plain version does")
+    return worst
+
+
+def phase_stream_main(dev, N, iters, nb=1, plain_full=False, spread=False):
+    """The planner's stream path at full size; returns its numbers.
+
+    plain_full: also time one run of the plain version over all the
+    iterations (the JSON line's plain_ms).  spread: print beside the
+    kernel's residual those of its plain version and of a complex128 solve
+    over the same iterations (as phase 5 does at N=512: this indefinite
+    system need not converge, and past a few hundred iterations float32
+    orders drift apart)."""
+    import tpcg_torch
+    from tpcg_torch.ops import stream_cg as tsc
+    from tpcg_torch.problems import helm_fe, plane_wave_rhs
+    t0 = time.perf_counter()
+    A = helm_fe(N, K_WAVE, eps=K_WAVE, device=dev)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    n = N * N
+    nnz = int(torch.count_nonzero(A.coef))
+    t0 = time.perf_counter()
+    taps, strips = tsc.prepare_stream(A)
+    t_prep = time.perf_counter() - t0
+    B = np.stack([plane_wave_rhs(N, K_WAVE),
+                  plane_wave_rhs(N, K_WAVE, (0.6, 0.8))][:nb])
+
+    reset_counts()
+    t0 = time.perf_counter()
+    plan = tpcg_torch.plan_stencil_cg(A, iters, nb=nb)
+    x, hist = plan.solve(B if nb > 1 else B[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = moved_counts()
+    launches = counts.get("stream_cg", 0)
+    print(f"stream N={N} B={nb}: n={n} nnz={nnz} path={plan.path} kernel "
+          f"launches {counts}; host s: assembly {t_asm:.3f}, prepare_stream "
+          f"{t_prep:.3f}, plan + solve {wall:.3f} (plan runs prepare_stream "
+          "again; solve uploads b and downloads x)")
+    if plan.path != "stream" or set(counts) != {"stream_cg"} or launches != nb:
+        fail(f"N={N}: the stream path did not run its kernel once per RHS")
+
+    X = np.asarray(x).reshape(nb, N, N)
+    H = np.asarray(hist).reshape(iters + 1, nb)
+    for c in range(nb):
+        xt = torch.from_numpy(X[c].astype(np.complex128)).to(dev)
+        bt = torch.from_numpy(B[c]).to(dev)
+        res = float(torch.linalg.norm(bt - A.apply_grid(xt))
+                    / torch.linalg.norm(bt))
+        finite = bool(np.isfinite(X[c]).all() and np.isfinite(H[:, c]).all())
+        print(f"stream N={N} B={nb} rhs {c} {iters} it: finite {finite}, "
+              f"hist[0] {H[0, c]:.4e}, hist[-1] {H[-1, c]:.4e}, relative "
+              f"residual (f64) {res:.3e}")
+        if not finite:
+            fail(f"non-finite stream solve at N={N}")
+
+    # the 100-iteration gate on the plane wave, and the plain version's time
+    bp = planes(B, dev)
+    b0 = bp[:, 0].contiguous()
+    x0 = torch.zeros_like(b0)
+    args = (A.offsets, A.grid, taps, strips, b0, x0)
+    xk, hk = tsc.stream_cg_const_planes(*args, 100)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    xp, hp = tsc.stream_cg_const_planes_plain(*args, 100)
+    end.record()
+    torch.cuda.synchronize()
+    gate_plain_ms = start.elapsed_time(end)
+    ok, err, lim, rel = dia_close(xk, hk, xp, hp)
+    print(f"stream N={N}: gate 100 it vs plain: max|x err| {err:.3e} (limit "
+          f"{lim:.3e}), hist max rel {rel:.3e} (limit 1e-2); plain "
+          f"{gate_plain_ms:.3f} ms")
+    if not ok:
+        fail(f"stream_cg disagrees with its plain version at N={N}")
+
+    ms, _ = median_ms(lambda: plan.solve_planes(bp if nb > 1 else b0),
+                      reps=5)
+    flop = 8 * nnz + 16 * n + 24 * n
+    gflops = nb * iters * flop / (ms * 1e-3) / 1e9
+    # strips read once; per RHS b and x0 read and x and the history written
+    bound_ms, bound_by = bound(
+        4 * (strips.numel() + nb * (3 * 2 * n + iters + 1)),
+        nb * iters * flop)
+    floor_ms = nb * iters * 48 * n / HBM_BYTES_PER_S * 1e3
+    plain_ms = None
+    if plain_full:
+        start.record()
+        tsc.stream_cg_const_planes_plain(*args, iters)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+    if spread:
+        from tpcg_torch.cg import block_cg
+
+        def rel_residual(xc):
+            r = bt - A.apply_grid(xc.to(torch.complex128).reshape(N, N))
+            return float(torch.linalg.norm(r) / torch.linalg.norm(bt))
+        bt = torch.from_numpy(B[0]).to(dev)
+        xs, _ = tsc.stream_cg_const_planes_plain(*args, iters)
+        x128 = block_cg(A, bt.reshape(-1), n_iterations=iters).x
+        print(f"spread stream N={N} {iters} it: rel residual (f64) of the "
+              f"plain version (f32) {rel_residual(torch.complex(*xs)):.3e}, "
+              f"of complex128 block_cg {rel_residual(x128):.3e}")
+    print(f"time stream N={N} B={nb} {iters} it: kernel {ms:.3f} ms "
+          f"({ms * 1e3 / (nb * iters):.3f} us/it per RHS, {gflops:.2f} GFLOPS "
+          f"Table II, all RHS); bound {bound_ms:.3f} ms ({bound_by}); state "
+          f"streaming floor {floor_ms:.3f} ms"
+          + (f"; plain {plain_ms:.3f} ms (one run, {iters} it)"
+             if plain_ms is not None else ""))
+    return dict(ms=ms, plain_ms=plain_ms, launches=launches, err=err,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -670,12 +921,20 @@ def main():
     phase_main(dev, 512, 1000, check_residual=False)
     dia_err = phase_dia_compare(dev)
     fig5 = phase_fig5(dev)
+    stream_err = phase_stream_compare(dev)
+    stream = [phase_stream_main(dev, 1024, 5000, spread=True),
+              phase_stream_main(dev, 2048, 1000),
+              phase_stream_main(dev, 2896, 1000),
+              phase_stream_main(dev, 4096, 1000, plain_full=True),
+              phase_stream_main(dev, 1024, 1000, nb=2)]
     kernels = [{
         "name": "fused_cg_stencil", "route": "cuda",
         "source": "tpcg_torch/csrc/fused_cg.cu",
         "replaces": "tpcg/ops/fused_cg.py:215",
         "launches": head["launches"], "max_abs_err": max_err,
-        "ms": head["ms"], "plain_ms": head["plain_ms"]}]
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None}]
     # each kernel's headline cell, and the classes whose path launched it
     for name, cell, paths in (
             ("stream_cg_dia", "m_t1 B=1", ("m_t1 B=1", "m_t1 B=8",
@@ -689,7 +948,20 @@ def main():
             "launches": sum(fig5[p]["launches"] for p in paths),
             "max_abs_err": max([dia_err[name]]
                                + [fig5[p]["err"] for p in paths]),
-            "ms": fig5[cell]["ms"], "plain_ms": fig5[cell]["plain_ms"]})
+            "ms": fig5[cell]["ms"], "plain_ms": fig5[cell]["plain_ms"],
+            "bound_ms": fig5[cell]["bound_ms"],
+            "bound_by": fig5[cell]["bound_by"], "library_ms": None})
+    # the stream kernel's headline cell: N=4096, 1000 iterations
+    kernels.append({
+        "name": "stream_cg", "route": "cuda",
+        "source": "tpcg_torch/csrc/stream_cg.cu",
+        "replaces": "tpcg/ops/stream_cg.py:166; tpcg/ops/stream_cg.py:387; "
+                    "tpcg/ops/stream_cg_v4.py:73; tpcg/ops/stream_cg_v5.py:77",
+        "launches": sum(r["launches"] for r in stream),
+        "max_abs_err": max([stream_err] + [r["err"] for r in stream]),
+        "ms": stream[3]["ms"], "plain_ms": stream[3]["plain_ms"],
+        "bound_ms": stream[3]["bound_ms"], "bound_by": stream[3]["bound_by"],
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,14 +13,18 @@ import tpcg
 import tpcg_torch
 from tpcg.problems import helm_fe, plane_wave_rhs, poisson
 from tpcg_torch.convert import from_tpcg
+from tpcg_torch.ops import auto
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 
-def _fake_cuda_stencil(grid, dtype):
+def _fake_cuda_stencil(grid, dtype, coef=None):
     """Enough of a Stencil2D on a CUDA device for the planner's choice,
-    which happens before anything touches the coefficients' data."""
-    coef = torch.empty((7,) + grid, dtype=dtype, device="meta")
+    which happens before anything moves to the device.  Without ``coef``
+    the coefficients are on the meta device, for choices that do not read
+    them."""
+    if coef is None:
+        coef = torch.empty((7,) + grid, dtype=dtype, device="meta")
     return types.SimpleNamespace(grid=grid, coef=coef,
                                  device=torch.device("cuda", 0),
                                  offsets=((0, 0),) * 7)
@@ -36,19 +40,37 @@ def test_planner_on_cpu_takes_the_plain_path():
 
 
 @pytest.mark.parametrize("grid,dtype,jax_tier", [
-    ((1024, 1024), torch.complex128, "stream-coef"),
-    ((600, 520), torch.complex64, "stream-coef"),
+    ((24, 24), torch.complex128, "stream-coef"),
+    ((29, 24), torch.complex64, "stream-coef"),
     ((1024, 1024), torch.float64, "stream-real"),
 ])
-def test_planner_on_cuda_refuses_tiers_not_ported(grid, dtype, jax_tier):
+def test_planner_on_cuda_refuses_tiers_not_ported(monkeypatch, grid, dtype,
+                                                  jax_tier):
+    """Variable-coefficient complex grids past the whole-solve size (its
+    threshold lowered here): JAX's stream-coef, and pad->stream-coef for a
+    prime height; a real grid from JAX's real-streaming size."""
+    monkeypatch.setattr(auto, "_L2_NODES", 256)
+    coef = None
+    if dtype.is_complex:
+        nv, nh = grid
+        C = 1.0 + 0.5 * np.random.default_rng(4).random((nv - 1, nh - 1))
+        coef = tpcg_torch.problems.helm_fe_var(nv, 12.0, C, rho=0.1,
+                                               Nhoriz=nh, Nvert=nv).coef
+        coef = coef.to(dtype)
     with pytest.raises(NotImplementedError, match=jax_tier):
-        tpcg_torch.plan_stencil_cg(_fake_cuda_stencil(grid, dtype), 10)
+        tpcg_torch.plan_stencil_cg(_fake_cuda_stencil(grid, dtype, coef), 10)
 
 
 @pytest.mark.parametrize("path", ["vmem-const", "stream", "stream-coef",
                                   "stream-real"])
 def test_explicit_unported_path_raises(path):
+    """Forcing a path the port lacks raises naming its ROADMAP item; so does
+    forcing ``stream`` on a variable-coefficient stencil, which JAX sends to
+    stream-coef."""
     S = from_tpcg(helm_fe(8, 3.0, eps=3.0))
+    if path == "stream":
+        C = 1.0 + 0.5 * np.random.default_rng(4).random((7, 7))
+        S = tpcg_torch.problems.helm_fe_var(8, 3.0, C, rho=0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpcg_torch.plan_stencil_cg(S, 5, path=path)
     with pytest.raises(ValueError):
@@ -140,6 +162,7 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, tpcg_torch, tpcg_torch.ops, tpcg_torch.convert, "
             "tpcg_torch.api, tpcg_torch.io, tpcg_torch.cli, "
             "tpcg_torch.ops.stream_cg_dia, tpcg_torch.ops.fused_cg_dia, "
+            "tpcg_torch.ops.stream_cg, tpcg_torch.ops.fused_cg_const, "
             "tpcg_torch.native.mtx_native; "
             "tpcg_torch.native.mtx_native.available(); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "

@@ -124,8 +124,12 @@ def test_planner_on_card_takes_the_kernel_path(dev):
     x, hist = plan.solve(plane_wave_rhs(16, 5.0))
     assert tfc.fused_cg_stencil.launches == before + 1
     assert np.isfinite(x).all() and hist.shape == (11,)
-    with pytest.raises(NotImplementedError):
-        tpcg_torch.plan_stencil_cg(helm_fe(513, 5.0, eps=5.0, device=dev), 5)
+    # past the whole-solve size: a constant-tap grid takes the streaming
+    # kernel; a prime height, which JAX row-pads, raises
+    assert tpcg_torch.plan_stencil_cg(
+        helm_fe(513, 5.0, eps=5.0, device=dev), 5).path == "stream"
+    with pytest.raises(NotImplementedError, match="pad->"):
+        tpcg_torch.plan_stencil_cg(helm_fe(521, 5.0, eps=5.0, device=dev), 5)
 
 
 def test_eager_path_on_card_matches_kernel_path(dev):
@@ -403,3 +407,113 @@ def test_api_cg_launches_each_dia_kernel(dev):
     with pytest.raises(NotImplementedError, match="item 13"):
         tpcg_torch.cg_matrix(R, bR, n_iterations=5, routing="tables.npz",
                              device=dev)
+
+
+# ---- streaming constant-tap kernel (csrc/stream_cg.cu) ----
+# x within 2e-3 max|x| and the history on its live entries within rel 1e-2
+# (the DIA checks' tolerances): the kernel applies A bit for bit as the plain
+# version does and differs only in the order of its float32 dot products;
+# over at most 100 iterations with a smooth RHS that stays far inside these
+# limits.
+
+tsc = importlib.import_module("tpcg_torch.ops.stream_cg")
+
+
+def _stream_case(dev, nv, nh, x0_seed=None, k=12.0):
+    """local_rect(max(nv, nh), k) cut to nv x nh (helm_fe when square), the
+    plane wave of the square grid cut to size, and a seeded 0.1 N(0, 1)
+    initial guess (or zero)."""
+    from tpcg_torch.problems import local_rect
+    N = max(nv, nh)
+    S = local_rect(N, k, k, eta=k, Nvert=nv, Nhoriz=nh, device=dev)
+    taps, strips = tsc.prepare_stream(S)
+    b = plane_wave_rhs(N, k)[:nv, :nh]
+    x0 = np.zeros_like(b)
+    if x0_seed is not None:
+        rng = np.random.default_rng(x0_seed)
+        x0 = 0.1 * (rng.standard_normal(b.shape)
+                    + 1j * rng.standard_normal(b.shape))
+
+    def planes(z):
+        return torch.from_numpy(
+            np.stack([z.real, z.imag]).astype(np.float32)).to(dev)
+    return S, taps, strips, planes(b), planes(x0)
+
+
+# the smoke's geometries: square, non-square, an odd height, a width that is
+# not a multiple of 128 (40 iterations, seeded x0), and helm_fe at the first
+# two main-path sizes (100 iterations, plane wave)
+@pytest.mark.parametrize("nv,nh,seed,iters", [
+    (256, 256, 1, 40), (300, 700, 2, 40), (1031, 1024, 3, 40),
+    (600, 1000, 4, 40), (1024, 1024, None, 100), (2048, 2048, None, 100)])
+def test_stream_kernel_matches_plain(dev, nv, nh, seed, iters):
+    S, taps, strips, bp, x0p = _stream_case(dev, nv, nh, seed)
+    before = tsc.stream_cg_const_planes.launches
+    xk, hk = _run_twice(tsc.stream_cg_const_planes, S.offsets, S.grid, taps,
+                        strips, bp, x0p, iters)
+    assert tsc.stream_cg_const_planes.launches == before + 2
+    xp, hp = tsc.stream_cg_const_planes_plain(S.offsets, S.grid, taps, strips,
+                                              bp, x0p, iters)
+    _assert_dia_close(xk, hk, xp, hp)
+
+
+def test_stream_kernel_applies_the_operator(dev):
+    """Zero iterations give r0 = b - A x0 only: x = x0 and hist[0] from the
+    plain operator's residual, on a grid with all four corners in play."""
+    S, taps, strips, bp, x0p = _stream_case(dev, 37, 45, x0_seed=5)
+    x, h = tsc.stream_cg_const_planes(S.offsets, S.grid, taps, strips, bp,
+                                      x0p, 0)
+    assert torch.equal(x, x0p)
+    r = bp - tsc.apply_const_planes(S.offsets, taps, strips, x0p)
+    dl = torch.stack([torch.sum(r[0] * r[0] - r[1] * r[1]),
+                      2.0 * torch.sum(r[0] * r[1])])
+    h0 = torch.sqrt(torch.sqrt(dl[0] ** 2 + dl[1] ** 2))
+    assert torch.allclose(h[0], h0, rtol=1e-5)
+
+
+def test_stream_plan_batch_columns_equal_single_launches(dev):
+    """B=3 through the plan: three launches, each column bit-equal to its
+    single-RHS launch, and the counter moves through plan.solve too."""
+    S, taps, strips, bp, _ = _stream_case(dev, 520, 520)
+    rng = np.random.default_rng(6)
+    cols = [bp] + [bp + 0.1 * torch.from_numpy(
+        rng.standard_normal(bp.shape).astype(np.float32)).to(dev)
+        for _ in range(2)]
+    B = torch.stack(cols, dim=1)
+    plan = tpcg_torch.plan_stencil_cg(S, 30, nb=3)
+    assert plan.path == "stream"
+    before = tsc.stream_cg_const_planes.launches
+    xb, hb = plan.solve_planes(B)
+    assert tsc.stream_cg_const_planes.launches == before + 3
+    for c in range(3):
+        x1, h1 = plan.solve_planes(cols[c])
+        assert torch.equal(xb[:, c], x1) and torch.equal(hb[:, c], h1)
+    b = plane_wave_rhs(520, 12.0)
+    before = tsc.stream_cg_const_planes.launches
+    x, hist = plan.solve(b)
+    assert tsc.stream_cg_const_planes.launches == before + 1
+    assert np.isfinite(x).all() and hist.shape == (31,)
+    np.testing.assert_array_equal(hist, hb[:, 0].cpu().numpy())
+
+
+def test_stream_kernel_freezes(dev):
+    """2 I on the helm_fe offsets converges in one iteration; over 400
+    iterations the kernel reads 0 from iteration 1, as the plain version
+    does, stays finite, and gives x = b / 2."""
+    from tpcg_torch.sparse import Stencil2D
+    N = 64
+    A = helm_fe(N, 5.0, eps=5.0, device=dev)
+    coef = torch.zeros_like(A.coef)
+    coef[0] = 2.0
+    S = Stencil2D(A.offsets, coef, A.grid)
+    taps, strips = tsc.prepare_stream(S)
+    bp = torch.zeros((2, N, N), device=dev)
+    bp[0] = 1.0
+    x0p = torch.zeros_like(bp)
+    xk, hk = tsc.stream_cg_const_planes(S.offsets, S.grid, taps, strips, bp,
+                                        x0p, 400)
+    xp, hp = tsc.stream_cg_const_planes_plain(S.offsets, S.grid, taps,
+                                              strips, bp, x0p, 400)
+    assert torch.isfinite(xk).all() and torch.isfinite(hk).all()
+    assert hk[0] == hp[0] and torch.all(hk[1:] == 0) and torch.all(hp[1:] == 0)
+    assert torch.equal(xk, xp) and torch.all(xk[0] == 0.5)

@@ -4,7 +4,8 @@
 ``EllMatrix`` into the port's counterpart.  It reads only ``.offsets``,
 ``.grid`` / ``.n`` and ``np.asarray`` of the array fields, so it needs no
 JAX import: the tests build both sides of a comparison from one object
-with it.
+with it.  ``coef3_from_numpy`` and ``stream_operands_from_tpcg`` do the
+same for the operands the JAX kernels take.
 """
 from __future__ import annotations
 
@@ -42,3 +43,17 @@ def coef3_from_numpy(np_coef3, device="cpu") -> torch.Tensor:
     if c.ndim != 4 or c.shape[0] != 3:
         raise ValueError(f"coef3 must be (3, noff, Nv, Nh), got {c.shape}")
     return torch.from_numpy(np.array(c, dtype=np.float32)).to(device)
+
+
+def stream_operands_from_tpcg(taps, strips2, device="cpu"):
+    """The output of ``tpcg.ops.stream_cg.prepare_stream`` -> the port's
+    ``(taps, strips)``: the six tap tuples as python floats, and the
+    (2, noff, 1, Nh) bottom / top strip pair (numpy via ``np.asarray``) as
+    one (2, 2, noff, Nh) float32 tensor."""
+    taps = tuple(tuple(float(v) for v in t) for t in taps)
+    sb, st = (np.asarray(s) for s in strips2)
+    if sb.ndim != 4 or sb.shape[2] != 1 or st.shape != sb.shape:
+        raise ValueError(f"strips must be two (2, noff, 1, Nh) arrays, got "
+                         f"{sb.shape} and {st.shape}")
+    planes = np.stack([sb[:, :, 0], st[:, :, 0]]).astype(np.float32)
+    return taps, torch.from_numpy(planes).to(device)

@@ -6,6 +6,9 @@ from .fused_cg import (fused_cg, fused_cg_stencil,               # noqa: F401
                        fused_cg_stencil_chunked, fused_cg_stencil_plain,
                        prepare_coef3)
 from .auto import plan_stencil_cg, stencil_cg, StencilCGPlan     # noqa: F401
+from .stream_cg import (stream_cg_const, stream_cg_const_planes,  # noqa: F401
+                        stream_cg_const_planes_plain, prepare_stream,
+                        apply_const_planes)
 # stream_cg_dia() itself is not re-exported: it would hide its module
 from .stream_cg_dia import (stream_cg_dia_block,                 # noqa: F401
                             stream_cg_dia_cplx, stream_cg_dia_cplx_block,

@@ -1,6 +1,6 @@
-"""Execution-path selection for stencil CG solves (counterpart of ``tpcg/ops/auto.py``, first slice).
+"""Execution-path selection for stencil CG solves (counterpart of ``tpcg/ops/auto.py``).
 
-Two paths are ported; each maps to a planner path of the JAX package:
+Three paths are ported; each maps to a planner path of the JAX package:
 
   l2-coef : JAX's ``vmem-coef``.  The whole fixed-iteration solve in one
             launch of the hand-written CUDA kernel
@@ -9,6 +9,14 @@ Two paths are ported; each maps to a planner path of the JAX package:
             L2 during that launch, where on the TPU they sat in VMEM.  The
             default for complex grids up to 512^2 nodes with at most two
             RHS on a CUDA device, as JAX picks ``vmem-coef``.
+  stream  : JAX's ``stream``.  Complex stencils past 512^2 nodes whose
+            interior and edge taps are constant (``prepare_stream``
+            succeeds) and whose height JAX streams without row padding:
+            one launch of the hand-written CUDA kernel
+            ``tpcg_torch.ops.stream_cg.stream_cg_const_planes`` per RHS, the
+            state in device memory.  Several RHS run as sequential
+            single-RHS solves queued on one stream, as JAX's ``lax.map``
+            runs them; any batch size.
   eager   : JAX's ``xla``.  Plain PyTorch: ``block_cg_planes_chunked`` over
             float32 planes for complex stencils on a CUDA device, and
             ``block_cg`` in the stencil's own dtype otherwise.  The default
@@ -17,10 +25,9 @@ Two paths are ported; each maps to a planner path of the JAX package:
 
 The planner dispatches on the torch device of the stencil's coefficients.
 On a CUDA device, a stencil that JAX would send to one of its tiers that
-are not ported yet (``vmem-const``, ``stream``, ``stream-coef``,
-``stream-real``, or a row-padded ``pad->`` tier) raises
-``NotImplementedError`` naming the ROADMAP item; it never runs silently on
-the plain path instead.
+are not ported yet (``stream-coef``, ``stream-real``, a row-padded
+``pad->`` plan; ``vmem-const`` when forced) raises ``NotImplementedError``
+naming the ROADMAP item; it never runs silently on the plain path instead.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import torch
 from ..cg import block_cg
 from .cplx import block_cg_planes_chunked, make_pair_operator
 from .fused_cg import fused_cg_stencil_chunked, prepare_coef3
+from .stream_cg import _streamable, prepare_stream, stream_cg_const_planes
 
 # JAX's _VMEM_NODES: complex grids up to here take the whole-solve kernel
 _L2_NODES = 512 * 512
@@ -41,21 +49,23 @@ _REAL_STREAM_NODES = 1024 * 1024
 # JAX's _FUSED_BATCH_MAX: larger complex batches take the plain path
 _FUSED_BATCH_MAX = 2
 
-_PORTED = ("l2-coef", "eager")
+_PORTED = ("l2-coef", "stream", "eager")
 # JAX planner paths with no port yet -> where the ROADMAP queues them
 _NOT_PORTED = {
     "vmem-const": "ROADMAP queue 2 item 2 (fused_cg_const)",
-    "stream": "ROADMAP queue 1 item 11 (queue 2 items 6-21)",
-    "stream-coef": "ROADMAP queue 1 item 11 (queue 2 items 6-21)",
-    "stream-real": "ROADMAP queue 1 item 11 (queue 2 items 14, 17, 20)",
+    "stream-coef": "ROADMAP queue 1 item 11, stream-coef (queue 2 items 8, "
+                   "9, 12, 13, the coefficient variant of 16, 18, 21)",
+    "stream-real": "ROADMAP queue 1 item 11, stream-real (queue 2 items 14, "
+                   "17, 20)",
+    "pad->": "ROADMAP queue 1 item 11, the row-padded pad-> plans",
 }
 
 
-def _not_ported(jax_paths, grid) -> NotImplementedError:
+def _not_ported(jax_path, grid) -> NotImplementedError:
+    key = "pad->" if jax_path.startswith("pad->") else jax_path
     return NotImplementedError(
-        f"grid {grid}: the JAX planner sends this to its "
-        f"{' / '.join(jax_paths)} tier, which tpcg_torch has not ported "
-        f"yet: {_NOT_PORTED[jax_paths[0]]}")
+        f"grid {grid}: the JAX planner sends this to its {jax_path} tier, "
+        f"which tpcg_torch has not ported yet: {_NOT_PORTED[key]}")
 
 
 def _norm_b(b, nv, nh):
@@ -73,7 +83,7 @@ def _norm_b(b, nv, nh):
 @dataclass
 class StencilCGPlan:
     """A chosen execution path for one (stencil, n_iterations) pair."""
-    path: str        # l2-coef | eager
+    path: str        # l2-coef | stream | eager
     grid: tuple
     n_iterations: int
     _solve: Callable = field(repr=False)
@@ -109,34 +119,61 @@ class StencilCGPlan:
         return x, hist
 
 
+def _pick_path(stencil, nb: int, on_cuda: bool):
+    """The planner's default choice: ``(path, prepared)``, where
+    ``prepared`` is ``prepare_stream``'s result on the ``stream`` path.
+
+    ``on_cuda`` says whether the solve runs on a card; off the card every
+    stencil takes ``eager``.  On the card the rule is JAX's on an
+    accelerator (``tpcg/ops/auto.py::plan_stencil_cg``), and a tier the port
+    does not have raises."""
+    nv, nh = stencil.grid
+    n = nv * nh
+    if not on_cuda:
+        return "eager", None
+    if stencil.coef.is_complex():
+        if n <= _L2_NODES:
+            return ("l2-coef" if nb <= _FUSED_BATCH_MAX else "eager"), None
+        if not _streamable(nv):
+            # JAX row-pads to a multiple of 128; the padded operator's
+            # interior is not constant, so it lands on stream-coef
+            raise _not_ported("pad->stream-coef", stencil.grid)
+        try:
+            return "stream", prepare_stream(stencil)
+        except ValueError:
+            raise _not_ported("stream-coef", stencil.grid) from None
+    if n >= _REAL_STREAM_NODES:
+        raise _not_ported("stream-real" if _streamable(nv)
+                          else "pad->stream-real", stencil.grid)
+    return "eager", None
+
+
 def plan_stencil_cg(stencil, n_iterations: int, nb: int = 1,
                     path: Optional[str] = None) -> StencilCGPlan:
     """Pick and prepare the CG path for ``stencil`` on its device.
 
     nb   : planned RHS batch size (every path takes any batch at solve time).
-    path : force ``"l2-coef"`` or ``"eager"``.  On a CPU device ``l2-coef``
-           runs the kernel's plain version.
+    path : force ``"l2-coef"``, ``"stream"`` or ``"eager"``.  On a CPU device
+           ``l2-coef`` and ``stream`` run their kernels' plain versions.
+           Forcing ``stream`` on a stencil ``prepare_stream`` refuses raises
+           ``NotImplementedError`` (JAX's ``stream-coef``).
     """
     nv, nh = stencil.grid
-    n = nv * nh
-    is_complex = stencil.coef.is_complex()
-    on_cuda = stencil.device.type == "cuda"
+    prepared = None
     if path is None:
-        path = "eager"
-        if on_cuda and is_complex:
-            if n > _L2_NODES:
-                # JAX: stream (constant interior) or stream-coef, directly
-                # or after row padding
-                raise _not_ported(("stream", "stream-coef"), stencil.grid)
-            if nb <= _FUSED_BATCH_MAX:
-                path = "l2-coef"
-        elif on_cuda and n >= _REAL_STREAM_NODES:
-            raise _not_ported(("stream-real",), stencil.grid)
-    elif path in _NOT_PORTED:
-        raise _not_ported((path,), stencil.grid)
+        path, prepared = _pick_path(stencil, nb,
+                                    stencil.device.type == "cuda")
+    elif path in _NOT_PORTED or path.startswith("pad->"):
+        raise _not_ported(path, stencil.grid)
     elif path not in _PORTED:
         raise ValueError(f"unknown path {path!r}; ported: {_PORTED}")
-    solve, solve_planes = _build_solver(stencil, n_iterations, path)
+    elif path == "stream":
+        try:
+            prepared = prepare_stream(stencil)
+        except ValueError:
+            raise _not_ported("stream-coef", stencil.grid) from None
+    solve, solve_planes = _build_solver(stencil, n_iterations, path,
+                                        prepared)
     return StencilCGPlan(path=path, grid=(nv, nh), n_iterations=n_iterations,
                          _solve=solve, _solve_planes=solve_planes)
 
@@ -156,7 +193,7 @@ def _grid_planes(B, dev):
         np.stack([B.real, B.imag]).astype(np.float32)).to(dev)
 
 
-def _build_solver(stencil, n_iterations, path):
+def _build_solver(stencil, n_iterations, path, prepared=None):
     nv, nh = stencil.grid
     n = nv * nh
     dev = stencil.device
@@ -167,6 +204,18 @@ def _build_solver(stencil, n_iterations, path):
         def solve_planes(bp, x0p):
             return fused_cg_stencil_chunked(stencil.offsets, coef3, bp, x0p,
                                             n_iterations)
+    elif path == "stream":
+        taps, strips = prepared
+
+        def solve_planes(bp, x0p):
+            # one launch per RHS, queued back to back on the current
+            # stream; no host sync between them
+            runs = [stream_cg_const_planes(stencil.offsets, stencil.grid,
+                                           taps, strips, bp[:, c], x0p[:, c],
+                                           n_iterations)
+                    for c in range(bp.shape[1])]
+            return (torch.stack([x for x, _ in runs], dim=1),
+                    torch.stack([h for _, h in runs], dim=1))
     else:
         pair = make_pair_operator(stencil, dtype=torch.float32)
 
@@ -192,8 +241,8 @@ def _build_solver(stencil, n_iterations, path):
             return xc[0], hist[:, 0]
         return xc, hist
 
-    if path == "l2-coef" or (stencil.coef.is_complex()
-                             and dev.type == "cuda"):
+    if path != "eager" or (stencil.coef.is_complex()
+                           and dev.type == "cuda"):
         return solve_f32, solve_planes
 
     # CPU (or a real stencil): block_cg in the stencil's dtype promoted to

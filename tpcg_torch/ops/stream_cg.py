@@ -1,0 +1,308 @@
+"""Fixed-iteration COCG on constant-tap complex stencils beyond the whole-solve size (counterpart of ``tpcg/ops/stream_cg.py``, the planner's ``stream`` path).
+
+``stream_cg_const_planes`` runs ``n_iterations`` of single-RHS complex COCG
+on a stencil whose interior taps are constant, with the CG state (x, r, the
+direction d and q = A d) in device memory.  On a CUDA tensor it launches the
+hand-written kernel ``tpcg_torch/csrc/stream_cg.cu`` (one persistent
+cooperative launch per solve; see the note at the top of that file) and
+raises if the kernel cannot run.  On a CPU tensor it runs
+:func:`stream_cg_const_planes_plain`, the same function in plain PyTorch,
+which is also what the kernel is compared with on the card.
+
+The operator (``prepare_stream``) is the JAX package's: constant interior
+taps, constant left/right edge taps applied to columns 0 and Nh-1 of every
+row, and the bottom/top row strips, corner-adjusted so that the edge taps'
+application on rows 0 and Nv-1 is cancelled where it does not belong.  A
+neighbour outside the grid reads 0.
+
+One Hopper kernel takes the place of the JAX package's tiers for this
+function (v2 ``_build_kernels`` + ``_make_k2``, v4 ``_build_resident``, v5
+``_build_v5``): their VMEM budgets, row-block sizes, 128-lane column
+padding (``cpos``, ``pad_strips``) and q-residency modes exist for the TPU.
+``_pick_block_rows`` is kept only so that the planner picks ``stream``
+exactly where JAX does; no kernel here uses row blocks.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+from .fused_cg import _cdiv, _hist_row, _pad_for, _rr_grid, _udot_grid
+from .fused_cg_const import split_const_stencil
+
+
+def prepare_stream(stencil):
+    """Host preprocessing of a constant-tap stencil for the streaming path.
+
+    Returns ``(taps, strips)``:
+      taps   : (cr, ci, lcr, lci, rcr, rci), six tuples of ``noff`` python
+               floats: the interior taps and the left/right edge taps, as the
+               JAX package's ``prepare_stream`` gives them (float64 values;
+               the kernel and the plain version compute with their float32
+               roundings, as the JAX kernels do with these scalars).
+      strips : float32 tensor (2, 2, noff, Nh) on the stencil's device:
+               [bottom, top] x [re, im] row corrections for rows 0 and Nv-1,
+               adjusted at columns 0 and Nh-1 by the edge taps.
+    Raises ValueError when the interior is not constant or an edge is not
+    constant (the JAX planner then takes ``stream-coef``).
+    """
+    consts, strips = split_const_stencil(stencil)
+    nh = stencil.grid[1]
+
+    def _edge_const(a, name):
+        if not np.allclose(a, a[:, :1], rtol=1e-12, atol=1e-14):
+            raise ValueError(f"{name} edge coefficients not constant")
+        return a[:, 0].copy()
+
+    lc = _edge_const(strips["left"], "left")     # (noff,) complex
+    rc = _edge_const(strips["right"], "right")
+    sb = strips["bot"].copy()                    # (noff, Nh) complex
+    st = strips["top"].copy()
+    sb[:, 0] -= lc
+    sb[:, nh - 1] -= rc
+    st[:, 0] -= lc
+    st[:, nh - 1] -= rc
+    taps = (tuple(float(v) for v in consts.real),
+            tuple(float(v) for v in consts.imag),
+            tuple(float(v) for v in lc.real),
+            tuple(float(v) for v in lc.imag),
+            tuple(float(v) for v in rc.real),
+            tuple(float(v) for v in rc.imag))
+    planes = np.stack([np.stack([sb.real, sb.imag]),
+                       np.stack([st.real, st.imag])]).astype(np.float32)
+    return taps, torch.from_numpy(planes).to(stencil.device)
+
+
+def _pick_block_rows(nv: int) -> int:
+    """The JAX package's row-block choice (``tpcg/ops/stream_cg.py``); the
+    planner's streamability rule reads it."""
+    for bv in (128, 64, 256, 32, 16, 8):
+        if nv % bv == 0 and nv // bv >= 2:
+            return bv
+    for bv in range(min(nv // 2, 256), 0, -1):
+        if nv % bv == 0:
+            return bv
+    return nv
+
+
+def _streamable(nv: int) -> bool:
+    """JAX's rule for a grid height its streaming kernels take; other
+    heights it row-pads to a multiple of 128 (the ``pad->`` plans)."""
+    bv = _pick_block_rows(nv)
+    return nv // bv >= 2 and bv >= 8
+
+
+def _taps32(taps):
+    """The six tap tuples as float32 values (python floats)."""
+    return [[float(np.float32(v)) for v in t] for t in taps]
+
+
+def _check_args(offsets, grid, taps, strips, b, x0, n_iterations):
+    nv, nh = grid
+    noff = len(offsets)
+    if len(taps) != 6 or any(len(t) != noff for t in taps):
+        raise ValueError(f"taps must be six tuples of {noff} values")
+    if tuple(strips.shape) != (2, 2, noff, nh):
+        raise ValueError(f"strips must be (2, 2, {noff}, {nh}), got "
+                         f"{tuple(strips.shape)}")
+    if tuple(b.shape) != (2, nv, nh):
+        raise ValueError(f"b must be (2, {nv}, {nh}), got {tuple(b.shape)}")
+    if x0.shape != b.shape:
+        raise ValueError(f"x0 {tuple(x0.shape)} != b {tuple(b.shape)}")
+    for name, t in (("strips", strips), ("b", b), ("x0", x0)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != b.device:
+            raise ValueError(f"{name} is on {t.device}, b on {b.device}")
+    if n_iterations < 0:
+        raise ValueError(f"n_iterations must be >= 0, got {n_iterations}")
+
+
+def _edge_sum(cr, ci, xs, sel):
+    """sum_s (cr_s + i ci_s) * x_s[sel], accumulated from 0 in tap order;
+    cr_s / ci_s are python floats or tensors broadcasting against
+    x_s[sel]."""
+    ar = ai = 0.0
+    for s, (xr, xi) in enumerate(xs):
+        xr, xi = xr[sel], xi[sel]
+        ar = ar + cr[s] * xr - ci[s] * xi
+        ai = ai + cr[s] * xi + ci[s] * xr
+    return ar, ai
+
+
+def apply_const_planes(offsets, taps, strips, xp):
+    """q = A x on (2, Nv, Nh) float32 planes, with the operator of
+    :func:`prepare_stream` (the counterpart of
+    ``tpcg/ops/stream_cg_v5.py::apply_const_planes_xla`` without ``cpos``).
+
+    The kernel's order of operations, step for step: the interior taps in
+    tap order; then, each summed from 0 over the taps and added to q, the
+    left edge taps on column 0, the right edge taps on column Nh-1, the
+    bottom strip on row 0 and the top strip on row Nv-1.
+    """
+    cr, ci, lcr, lci, rcr, rci = _taps32(taps)
+    _, nv, nh = xp.shape
+    P = _pad_for(offsets)
+    xpad = torch.nn.functional.pad(xp, (P, P, P, P))
+    xs = [(xpad[0, P + dm:P + dm + nv, P + dj:P + dj + nh],
+           xpad[1, P + dm:P + dm + nv, P + dj:P + dj + nh])
+          for dm, dj in offsets]
+    qr = torch.zeros_like(xp[0])
+    qi = torch.zeros_like(xp[0])
+    for s, (xr, xi) in enumerate(xs):
+        qr = qr + cr[s] * xr - ci[s] * xi
+        qi = qi + cr[s] * xi + ci[s] * xr
+    col0, coln = (slice(None), 0), (slice(None), nh - 1)
+    for sel, (er, ei) in ((col0, (lcr, lci)), (coln, (rcr, rci))):
+        ar, ai = _edge_sum(er, ei, xs, sel)
+        qr[sel] = qr[sel] + ar
+        qi[sel] = qi[sel] + ai
+    for sel, k in (((0, slice(None)), 0), ((nv - 1, slice(None)), 1)):
+        ar, ai = _edge_sum(strips[k, 0], strips[k, 1], xs, sel)
+        qr[sel] = qr[sel] + ar
+        qi[sel] = qi[sel] + ai
+    return torch.stack([qr, qi])
+
+
+def stream_cg_const_planes_plain(offsets: Sequence[Tuple[int, int]], grid,
+                                 taps, strips: torch.Tensor,
+                                 bp: torch.Tensor, x0p: torch.Tensor,
+                                 n_iterations: int):
+    """Plain PyTorch version of the kernel: the v2 iteration of the JAX
+    package, step for step.
+
+    r0 = b - A x0; then per iteration d = r + beta d, q = A d,
+    alpha = delta / <d,q>, x += alpha d, r -= alpha q, delta' = <r,r>,
+    beta = delta' / delta, with unconjugated dots, Smith division, and the
+    freeze guard ``done = (delta == 0) | (<d,q> == 0)`` (both parts),
+    evaluated afresh every iteration, zeroing alpha and beta.  History
+    ``sqrt(sqrt(delta_r^2 + delta_i^2))``, n_iterations + 1 rows.
+    """
+    _check_args(offsets, grid, taps, strips, bp, x0p, n_iterations)
+
+    def apply(v):
+        return apply_const_planes(offsets, taps, strips, v)
+
+    x = x0p.clone()
+    r = bp - apply(x0p)
+    d = torch.zeros_like(bp)
+    delta = _rr_grid(r)
+    hist = [_hist_row(delta)]
+    beta = torch.zeros_like(delta)
+    zero = torch.zeros_like(delta[0])
+    for _ in range(n_iterations):
+        d = torch.stack([r[0] + beta[0] * d[0] - beta[1] * d[1],
+                         r[1] + beta[0] * d[1] + beta[1] * d[0]])
+        q = apply(d)
+        dq = _udot_grid(d, q)
+        done = ((delta[0] == 0) & (delta[1] == 0)) \
+            | ((dq[0] == 0) & (dq[1] == 0))
+        a_r, a_i = _cdiv(delta[0], delta[1], torch.where(done, 1.0, dq[0]),
+                         torch.where(done, 0.0, dq[1]))
+        a_r, a_i = torch.where(done, zero, a_r), torch.where(done, zero, a_i)
+        x = torch.stack([x[0] + a_r * d[0] - a_i * d[1],
+                         x[1] + a_r * d[1] + a_i * d[0]])
+        r = torch.stack([r[0] - (a_r * q[0] - a_i * q[1]),
+                         r[1] - (a_r * q[1] + a_i * q[0])])
+        dn = _rr_grid(r)
+        hist.append(_hist_row(dn))
+        b_r, b_i = _cdiv(dn[0], dn[1], torch.where(done, 1.0, delta[0]),
+                         torch.where(done, 0.0, delta[1]))
+        beta = torch.stack([torch.where(done, zero, b_r),
+                            torch.where(done, zero, b_i)])
+        delta = dn
+    return x, torch.stack(hist)
+
+
+def kernel_limits() -> Tuple[int, int]:
+    """(max taps, max stencil pad) of the CUDA kernel."""
+    taps, pad = ctypes.c_int(), ctypes.c_int()
+    _build.check(_build.load().tpcg_stream_cg_limits(ctypes.byref(taps),
+                                                     ctypes.byref(pad)),
+                 "tpcg_stream_cg_limits")
+    return taps.value, pad.value
+
+
+def _launch(offsets, grid, taps, strips, bp, x0p, n_iterations):
+    """Launch the CUDA kernel on the current stream of bp's device."""
+    lib = _build.load()
+    nv, nh = grid
+    noff = len(offsets)
+    P = _pad_for(offsets)
+    max_taps, max_pad = kernel_limits()
+    if noff > max_taps or P > max_pad:
+        raise ValueError(f"kernel takes at most {max_taps} taps within "
+                         f"{max_pad} nodes, got {noff} taps within {P}")
+    strips, bp, x0p = strips.contiguous(), bp.contiguous(), x0p.contiguous()
+    dev = bp.device
+    with torch.cuda.device(dev):
+        blocks = ctypes.c_int()
+        _build.check(lib.tpcg_stream_cg_grid(nv, nh, P, ctypes.byref(blocks)),
+                     "tpcg_stream_cg_grid")
+        f32 = dict(dtype=torch.float32, device=dev)
+        x = torch.empty_like(bp)
+        hist = torch.empty((n_iterations + 1,), **f32)
+        r = torch.empty_like(bp)
+        q = torch.empty_like(bp)
+        d = torch.empty((2, 2, nv, nh), **f32)
+        part = torch.empty((2, blocks.value, 2), **f32)
+        offs = (ctypes.c_int * (2 * noff))(
+            *[int(v) for tap in offsets for v in tap])
+        tap_vals = (ctypes.c_float * (6 * noff))(
+            *[v for t in _taps32(taps) for v in t])
+        err = lib.tpcg_stream_cg(
+            bp.data_ptr(), x0p.data_ptr(), strips.data_ptr(), x.data_ptr(),
+            hist.data_ptr(), r.data_ptr(), q.data_ptr(), d.data_ptr(),
+            part.data_ptr(), nv, nh, noff, offs, tap_vals, P, n_iterations,
+            blocks.value, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "tpcg_stream_cg")
+    stream_cg_const_planes.launches += 1
+    return x, hist
+
+
+def stream_cg_const_planes(offsets: Sequence[Tuple[int, int]], grid, taps,
+                           strips: torch.Tensor, bp: torch.Tensor,
+                           x0p: torch.Tensor, n_iterations: int):
+    """Fixed-iteration single-RHS complex COCG on a constant-tap stencil.
+
+    offsets : stencil offsets ((dm, dj), ...).
+    grid    : (Nv, Nh).
+    taps, strips : from :func:`prepare_stream`.
+    bp, x0p : (2, Nv, Nh) float32 RHS / initial-guess planes.
+    Returns (x_planes (2, Nv, Nh), residual_history (n_iterations+1,)).
+
+    CUDA tensors launch the kernel (``stream_cg_const_planes.launches``
+    counts the launches); CPU tensors run
+    :func:`stream_cg_const_planes_plain`.
+    """
+    _check_args(offsets, grid, taps, strips, bp, x0p, n_iterations)
+    if bp.device.type == "cuda":
+        return _launch(offsets, grid, taps, strips, bp, x0p, n_iterations)
+    if bp.device.type == "cpu":
+        return stream_cg_const_planes_plain(offsets, grid, taps, strips, bp,
+                                            x0p, n_iterations)
+    raise ValueError(f"no stream_cg_const_planes for device {bp.device}")
+
+
+stream_cg_const_planes.launches = 0
+
+
+def stream_cg_const(stencil, b, x0=None, n_iterations: int = 10):
+    """Convenience wrapper: a complex (Nv, Nh) numpy grid in, device planes
+    out, on the stencil's device (see :func:`stream_cg_const_planes`)."""
+    nv, nh = stencil.grid
+    dev = stencil.device
+    taps, strips = prepare_stream(stencil)
+
+    def planes(z):
+        z = np.asarray(z).reshape(nv, nh)
+        return torch.from_numpy(
+            np.stack([z.real, z.imag]).astype(np.float32)).to(dev)
+    bp = planes(b)
+    x0p = torch.zeros_like(bp) if x0 is None else planes(x0)
+    return stream_cg_const_planes(stencil.offsets, stencil.grid, taps, strips,
+                                  bp, x0p, n_iterations)
