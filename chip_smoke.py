@@ -70,7 +70,18 @@ Phases, in order; the first failure exits non-zero:
      final x (finite; printed, not gated), the median of 5 CUDA-event
      timings of the device-resident solve, GFLOPS by report Table II, the
      plain version's time over the gate, and the kernel's bound;
- 10. a JSON line of the kernels (each with its launches on the main paths,
+ 10. the streaming symmetric-coefficient kernel (``stream_cg_sym_planes``)
+     against its plain version on the card, as phase 8: helm_fe_var(N, 40,
+     C, rho=0.1) cut to 256 x 256, 300 x 700, 1031 x 1024 and 600 x 1000
+     (C = 1 + 0.5 U(0, 1) from seed 0), 40 iterations, seeded x0; a 2-RHS
+     ``stream-coef`` plan; 2 I over 400 iterations;
+ 11. the planner's ``stream-coef`` path at full size, as phase 9: the
+     variable-coefficient benchmark configuration helm_fe_var(N, 40, C,
+     rho=0.1) and plane_wave_rhs(N, 40) (benchmarks/exp_stream4sym.py:28-38,
+     exp_stream5sym.py:45-54) at N=1024 (with the complex128 spread line),
+     2048, 2049 (a height JAX row-pads), 2896 and 4096 x 1000 iterations,
+     and N=1024 with B=2; only ``stream_cg_sym`` may move;
+ 12. a JSON line of the kernels (each with its launches on the main paths,
      its largest x error against its plain version, its time, its plain
      version's time, its bound and what sets it, and ``library_ms`` null: no
      single PyTorch call computes a fixed-iteration COCG solve), the card
@@ -79,9 +90,10 @@ Phases, in order; the first failure exits non-zero:
 Bounds (``bound_ms``): the larger of the bytes the solve must move, each
 input read once and each output written once, over 3.35 TB/s, and its
 floating-point operations by report Table II over the 67 TFLOP/s float32
-rate of an H100 SXM (no tensor cores).  Phase 9 also prints the state
-streaming floor of the ``stream`` path: an iterate that does not fit on
-chip must at least read and write x, r and d every iteration (48 B a node).
+rate of an H100 SXM (no tensor cores).  Phases 9 and 11 also print the
+state streaming floor: an iterate that does not fit on chip must at least
+read and write x, r and d every iteration (48 B a node), and on
+``stream-coef`` read the half coefficient planes once (32 B more).
 
 It drives only ``tpcg_torch`` and imports nothing of JAX.
 """
@@ -99,6 +111,9 @@ import numpy as np
 import torch
 
 K_WAVE = 12.0
+# the variable-coefficient benchmark configuration's omega
+# (benchmarks/exp_stream4sym.py:28-38, exp_stream5sym.py:45-54)
+OMEGA_VAR = 40.0
 
 
 def fail(msg):
@@ -482,8 +497,10 @@ def wrappers():
     """kernel name -> the wrapper that counts its launches."""
     from tpcg_torch.ops.fused_cg import fused_cg_stencil
     from tpcg_torch.ops.stream_cg import stream_cg_const_planes
+    from tpcg_torch.ops.stream_cg_sym import stream_cg_sym_planes
     out = {"fused_cg_stencil": fused_cg_stencil,
-           "stream_cg": stream_cg_const_planes}
+           "stream_cg": stream_cg_const_planes,
+           "stream_cg_sym": stream_cg_sym_planes}
     out.update({k: v[0] for k, v in dia_kernels().items()})
     return out
 
@@ -797,8 +814,132 @@ def phase_stream_compare(dev):
     return worst
 
 
-def phase_stream_main(dev, N, iters, nb=1, plain_full=False, spread=False):
-    """The planner's stream path at full size; returns its numbers.
+def wave_speeds(nv, nh):
+    """The benchmark configuration's wave speeds, C = 1 + 0.5 U(0, 1) from
+    seed 0 (benchmarks/exp_stream4sym.py:28-38), one per grid square."""
+    return 1.0 + 0.5 * np.random.default_rng(0).random((nv - 1, nh - 1))
+
+
+def sym_case(dev, nv, nh, seed, direction=None):
+    """helm_fe_var(max(nv, nh), 40, C, rho=0.1) on an nv x nh grid, its half
+    planes, the square grid's plane wave cut to size, and a seeded
+    0.1 N(0, 1) initial guess."""
+    from tpcg_torch.ops.stream_cg_sym import prepare_stream_sym
+    from tpcg_torch.problems import helm_fe_var, plane_wave_rhs
+    N = max(nv, nh)
+    S = helm_fe_var(N, OMEGA_VAR, wave_speeds(nv, nh), rho=0.1, Nhoriz=nh,
+                    Nvert=nv, device=dev)
+    half, cplanes = prepare_stream_sym(S)
+    b = plane_wave_rhs(N, OMEGA_VAR, direction)[:nv, :nh]
+    x0 = 0.1 * random_guess(b.shape, seed)
+    return S, half, cplanes, planes(b[None], dev)[:, 0], planes(x0[None],
+                                                               dev)[:, 0]
+
+
+def phase_sym_compare(dev):
+    """The streaming symmetric-coefficient kernel against its plain version
+    on the card; returns the max |x err|."""
+    import tpcg_torch
+    from tpcg_torch.ops import stream_cg_sym as tss
+    from tpcg_torch.problems import helm_fe
+    from tpcg_torch.sparse import Stencil2D
+    worst = 0.0
+    for nv, nh, seed in ((256, 256, 1), (300, 700, 2), (1031, 1024, 3),
+                         (600, 1000, 4)):
+        S, half, cplanes, bp, x0p = sym_case(dev, nv, nh, seed)
+        args = (half, cplanes, bp, x0p, 40)
+        xk, hk = tss.stream_cg_sym_planes(*args)
+        xk2, hk2 = tss.stream_cg_sym_planes(*args)
+        xp, hp = tss.stream_cg_sym_planes_plain(*args)
+        torch.cuda.synchronize()
+        ok, err, lim, rel = dia_close(xk, hk, xp, hp)
+        same = torch.equal(xk, xk2) and torch.equal(hk, hk2)
+        print(f"compare stream_cg_sym {nv}x{nh} 40 it: max|x err| {err:.3e} "
+              f"(limit {lim:.3e}), hist max rel {rel:.3e} (limit 1e-2), "
+              f"repeat bit-equal {same}, x and history bit-equal to plain "
+              f"{torch.equal(xk, xp) and torch.equal(hk, hp)}")
+        if not (ok and same):
+            fail(f"stream_cg_sym disagrees with its plain version "
+                 f"({nv}x{nh})")
+        worst = max(worst, err)
+
+    # a 2-RHS plan: two launches, each column its single-RHS launch's bits
+    S, half, cplanes, b1, x1 = sym_case(dev, 520, 520, 5)
+    _, _, _, b2, x2 = sym_case(dev, 520, 520, 6, direction=(0.6, 0.8))
+    plan = tpcg_torch.plan_stencil_cg(S, 40, nb=2)
+    xb, hb = plan.solve_planes(torch.stack([b1, b2], dim=1),
+                               torch.stack([x1, x2], dim=1))
+    same = plan.path == "stream-coef"
+    for c, (b, x0) in enumerate(((b1, x1), (b2, x2))):
+        xs, hs = tss.stream_cg_sym_planes(half, cplanes, b, x0, 40)
+        same = same and torch.equal(xb[:, c], xs) and torch.equal(hb[:, c],
+                                                                  hs)
+    print(f"stream-coef plan 520x520 B=2 40 it: path {plan.path}, each "
+          f"column bit-equal to its single-RHS launch {same}")
+    if not same:
+        fail("a 2-RHS stream-coef plan differs from its single-RHS launches")
+
+    # 2 I on the helm_fe offsets: converges in one iteration, then frozen
+    A = helm_fe(64, 5.0, eps=5.0, device=dev)
+    coef = torch.zeros_like(A.coef)
+    coef[0] = 2.0
+    half, cplanes = tss.prepare_stream_sym(Stencil2D(A.offsets, coef, A.grid))
+    b = torch.zeros((2, 64, 64), device=dev)
+    b[0] = 1.0
+    args = (half, cplanes, b, torch.zeros_like(b), 400)
+    xk, hk = tss.stream_cg_sym_planes(*args)
+    xp, hp = tss.stream_cg_sym_planes_plain(*args)
+    hk, hp = hk.cpu().numpy(), hp.cpu().numpy()
+    zk, zp = np.where(hk == 0)[0], np.where(hp == 0)[0]
+    frozen = (len(zk) > 0 and len(zp) > 0 and zk[0] == zp[0]
+              and bool(np.all(hk[zk[0]:] == 0)))
+    finite = bool(torch.isfinite(xk).all() and np.isfinite(hk).all())
+    print(f"freeze stream_cg_sym 2 I 64x64 400 it: finite {finite}, frozen "
+          f"{frozen} (first zero at {zk[0] if len(zk) else None}, plain "
+          f"{zp[0] if len(zp) else None}), x == plain {torch.equal(xk, xp)}")
+    if not (finite and frozen):
+        fail("stream_cg_sym did not freeze as its plain version does")
+    return worst
+
+
+def stream_spec(sym):
+    """What the two streaming paths' full-size phases (9 and 11) vary: the
+    problem, the preparation, the path, the kernel and its plain version,
+    and the state streaming floor per node and iteration (x, r and d read
+    and written once, 48 B; plus the half coefficient planes read once,
+    32 B, on stream-coef)."""
+    from tpcg_torch.ops import stream_cg as tsc
+    from tpcg_torch.ops import stream_cg_sym as tss
+    from tpcg_torch.problems import helm_fe, helm_fe_var
+    if sym:
+        return dict(
+            label="stream-coef", path="stream-coef", kernel="stream_cg_sym",
+            k=OMEGA_VAR, prep_name="prepare_stream_sym",
+            build=lambda N, dev: helm_fe_var(N, OMEGA_VAR, wave_speeds(N, N),
+                                             rho=0.1, device=dev),
+            prepare=tss.prepare_stream_sym,
+            lead=lambda A, prep: tuple(prep),
+            wrap=tss.stream_cg_sym_planes,
+            plain=tss.stream_cg_sym_planes_plain, floor_bytes=80,
+            # a second plain version, its dot products summed in float32:
+            # the witness of how far two float32 orders part on this class
+            plain32=lambda half, cplanes, b, x0, n: tsc.cocg_planes_plain(
+                lambda v: tss.apply_sym_planes(half, cplanes, v), b, x0, n))
+    return dict(
+        label="stream", path="stream", kernel="stream_cg", k=K_WAVE,
+        prep_name="prepare_stream",
+        build=lambda N, dev: helm_fe(N, K_WAVE, eps=K_WAVE, device=dev),
+        prepare=tsc.prepare_stream,
+        lead=lambda A, prep: (A.offsets, A.grid) + tuple(prep),
+        wrap=tsc.stream_cg_const_planes,
+        plain=tsc.stream_cg_const_planes_plain, floor_bytes=48)
+
+
+def phase_stream_main(dev, N, iters, nb=1, plain_full=False, spread=False,
+                      sym=False):
+    """A streaming path at full size; returns its numbers.  ``sym`` False:
+    the ``stream`` path on helm_fe(N, 12, eps=12); True: the
+    ``stream-coef`` path on helm_fe_var(N, 40, C, rho=0.1).
 
     plain_full: also time one run of the plain version over all the
     iterations (the JSON line's plain_ms).  spread: print beside the
@@ -807,19 +948,21 @@ def phase_stream_main(dev, N, iters, nb=1, plain_full=False, spread=False):
     system need not converge, and past a few hundred iterations float32
     orders drift apart)."""
     import tpcg_torch
-    from tpcg_torch.ops import stream_cg as tsc
-    from tpcg_torch.problems import helm_fe, plane_wave_rhs
+    from tpcg_torch.problems import plane_wave_rhs
+    spec = stream_spec(sym)
+    label, kname = spec["label"], spec["kernel"]
     t0 = time.perf_counter()
-    A = helm_fe(N, K_WAVE, eps=K_WAVE, device=dev)
+    A = spec["build"](N, dev)
     torch.cuda.synchronize()
     t_asm = time.perf_counter() - t0
     n = N * N
     nnz = int(torch.count_nonzero(A.coef))
     t0 = time.perf_counter()
-    taps, strips = tsc.prepare_stream(A)
+    prep = spec["prepare"](A)
+    torch.cuda.synchronize()
     t_prep = time.perf_counter() - t0
-    B = np.stack([plane_wave_rhs(N, K_WAVE),
-                  plane_wave_rhs(N, K_WAVE, (0.6, 0.8))][:nb])
+    B = np.stack([plane_wave_rhs(N, spec["k"]),
+                  plane_wave_rhs(N, spec["k"], (0.6, 0.8))][:nb])
 
     reset_counts()
     t0 = time.perf_counter()
@@ -828,13 +971,14 @@ def phase_stream_main(dev, N, iters, nb=1, plain_full=False, spread=False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = moved_counts()
-    launches = counts.get("stream_cg", 0)
-    print(f"stream N={N} B={nb}: n={n} nnz={nnz} path={plan.path} kernel "
-          f"launches {counts}; host s: assembly {t_asm:.3f}, prepare_stream "
-          f"{t_prep:.3f}, plan + solve {wall:.3f} (plan runs prepare_stream "
-          "again; solve uploads b and downloads x)")
-    if plan.path != "stream" or set(counts) != {"stream_cg"} or launches != nb:
-        fail(f"N={N}: the stream path did not run its kernel once per RHS")
+    launches = counts.get(kname, 0)
+    print(f"{label} N={N} B={nb}: n={n} nnz={nnz} path={plan.path} kernel "
+          f"launches {counts}; host s: assembly {t_asm:.3f}, "
+          f"{spec['prep_name']} {t_prep:.3f}, plan + solve {wall:.3f} (plan "
+          f"runs {spec['prep_name']} again; solve uploads b and downloads x)")
+    if plan.path != spec["path"] or set(counts) != {kname} or launches != nb:
+        fail(f"N={N}: the {spec['path']} path did not run its kernel once "
+             "per RHS")
 
     X = np.asarray(x).reshape(nb, N, N)
     H = np.asarray(hist).reshape(iters + 1, nb)
@@ -844,45 +988,53 @@ def phase_stream_main(dev, N, iters, nb=1, plain_full=False, spread=False):
         res = float(torch.linalg.norm(bt - A.apply_grid(xt))
                     / torch.linalg.norm(bt))
         finite = bool(np.isfinite(X[c]).all() and np.isfinite(H[:, c]).all())
-        print(f"stream N={N} B={nb} rhs {c} {iters} it: finite {finite}, "
+        print(f"{label} N={N} B={nb} rhs {c} {iters} it: finite {finite}, "
               f"hist[0] {H[0, c]:.4e}, hist[-1] {H[-1, c]:.4e}, relative "
               f"residual (f64) {res:.3e}")
         if not finite:
-            fail(f"non-finite stream solve at N={N}")
+            fail(f"non-finite {label} solve at N={N}")
 
     # the 100-iteration gate on the plane wave, and the plain version's time
     bp = planes(B, dev)
     b0 = bp[:, 0].contiguous()
     x0 = torch.zeros_like(b0)
-    args = (A.offsets, A.grid, taps, strips, b0, x0)
-    xk, hk = tsc.stream_cg_const_planes(*args, 100)
+    args = spec["lead"](A, prep) + (b0, x0)
+    xk, hk = spec["wrap"](*args, 100)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    xp, hp = tsc.stream_cg_const_planes_plain(*args, 100)
+    xp, hp = spec["plain"](*args, 100)
     end.record()
     torch.cuda.synchronize()
     gate_plain_ms = start.elapsed_time(end)
     ok, err, lim, rel = dia_close(xk, hk, xp, hp)
-    print(f"stream N={N}: gate 100 it vs plain: max|x err| {err:.3e} (limit "
-          f"{lim:.3e}), hist max rel {rel:.3e} (limit 1e-2); plain "
+    print(f"{label} N={N}: gate 100 it vs plain: max|x err| {err:.3e} (limit "
+          f"{lim:.3e}), hist max rel {rel:.3e} (limit 1e-2), bit-equal "
+          f"{torch.equal(xk, xp) and torch.equal(hk, hp)}; plain "
           f"{gate_plain_ms:.3f} ms")
+    if "plain32" in spec:
+        x32, _ = spec["plain32"](*args, 100)
+        print(f"{label} N={N}: spread 100 it, max|x| distance / max|x| of the "
+              f"plain version with float32 dot sums: "
+              f"{float((x32 - xp).abs().max() / xp.abs().max()):.3e}")
     if not ok:
-        fail(f"stream_cg disagrees with its plain version at N={N}")
+        fail(f"{kname} disagrees with its plain version at N={N}")
 
     ms, _ = median_ms(lambda: plan.solve_planes(bp if nb > 1 else b0),
                       reps=5)
     flop = 8 * nnz + 16 * n + 24 * n
     gflops = nb * iters * flop / (ms * 1e-3) / 1e9
-    # strips read once; per RHS b and x0 read and x and the history written
+    # the prepared operand (strips or half planes) read once; per RHS b and
+    # x0 read and x and the history written
     bound_ms, bound_by = bound(
-        4 * (strips.numel() + nb * (3 * 2 * n + iters + 1)),
+        4 * (prep[1].numel() + nb * (3 * 2 * n + iters + 1)),
         nb * iters * flop)
-    floor_ms = nb * iters * 48 * n / HBM_BYTES_PER_S * 1e3
+    ops_ms = nb * iters * flop / F32_FLOP_PER_S * 1e3
+    floor_ms = nb * iters * spec["floor_bytes"] * n / HBM_BYTES_PER_S * 1e3
     plain_ms = None
     if plain_full:
         start.record()
-        tsc.stream_cg_const_planes_plain(*args, iters)
+        spec["plain"](*args, iters)
         end.record()
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(end)
@@ -893,15 +1045,16 @@ def phase_stream_main(dev, N, iters, nb=1, plain_full=False, spread=False):
             r = bt - A.apply_grid(xc.to(torch.complex128).reshape(N, N))
             return float(torch.linalg.norm(r) / torch.linalg.norm(bt))
         bt = torch.from_numpy(B[0]).to(dev)
-        xs, _ = tsc.stream_cg_const_planes_plain(*args, iters)
+        xs, _ = spec["plain"](*args, iters)
         x128 = block_cg(A, bt.reshape(-1), n_iterations=iters).x
-        print(f"spread stream N={N} {iters} it: rel residual (f64) of the "
+        print(f"spread {label} N={N} {iters} it: rel residual (f64) of the "
               f"plain version (f32) {rel_residual(torch.complex(*xs)):.3e}, "
               f"of complex128 block_cg {rel_residual(x128):.3e}")
-    print(f"time stream N={N} B={nb} {iters} it: kernel {ms:.3f} ms "
+    print(f"time {label} N={N} B={nb} {iters} it: kernel {ms:.3f} ms "
           f"({ms * 1e3 / (nb * iters):.3f} us/it per RHS, {gflops:.2f} GFLOPS "
-          f"Table II, all RHS); bound {bound_ms:.3f} ms ({bound_by}); state "
-          f"streaming floor {floor_ms:.3f} ms"
+          f"Table II, all RHS); bound {bound_ms:.3f} ms ({bound_by}; "
+          f"operations {ops_ms:.3f} ms); state streaming floor "
+          f"({spec['floor_bytes']} B a node) {floor_ms:.3f} ms"
           + (f"; plain {plain_ms:.3f} ms (one run, {iters} it)"
              if plain_ms is not None else ""))
     return dict(ms=ms, plain_ms=plain_ms, launches=launches, err=err,
@@ -927,6 +1080,13 @@ def main():
               phase_stream_main(dev, 2896, 1000),
               phase_stream_main(dev, 4096, 1000, plain_full=True),
               phase_stream_main(dev, 1024, 1000, nb=2)]
+    sym_err = phase_sym_compare(dev)
+    sym = [phase_stream_main(dev, 1024, 1000, spread=True, sym=True),
+           phase_stream_main(dev, 2048, 1000, sym=True),
+           phase_stream_main(dev, 2049, 1000, sym=True),
+           phase_stream_main(dev, 2896, 1000, sym=True),
+           phase_stream_main(dev, 4096, 1000, plain_full=True, sym=True),
+           phase_stream_main(dev, 1024, 1000, nb=2, sym=True)]
     kernels = [{
         "name": "fused_cg_stencil", "route": "cuda",
         "source": "tpcg_torch/csrc/fused_cg.cu",
@@ -961,6 +1121,18 @@ def main():
         "max_abs_err": max([stream_err] + [r["err"] for r in stream]),
         "ms": stream[3]["ms"], "plain_ms": stream[3]["plain_ms"],
         "bound_ms": stream[3]["bound_ms"], "bound_by": stream[3]["bound_by"],
+        "library_ms": None})
+    # the sym kernel's headline cell: N=4096, 1000 iterations
+    kernels.append({
+        "name": "stream_cg_sym", "route": "cuda",
+        "source": "tpcg_torch/csrc/stream_cg_sym.cu",
+        "replaces": "tpcg/ops/stream_cg.py:461; tpcg/ops/stream_cg_v3.py:56; "
+                    "tpcg/ops/stream_cg_v4_sym.py:104; "
+                    "tpcg/ops/stream_cg_v5_sym.py:67",
+        "launches": sum(r["launches"] for r in sym),
+        "max_abs_err": max([sym_err] + [r["err"] for r in sym]),
+        "ms": sym[4]["ms"], "plain_ms": sym[4]["plain_ms"],
+        "bound_ms": sym[4]["bound_ms"], "bound_by": sym[4]["bound_by"],
         "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)

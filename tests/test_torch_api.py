@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
+import torch
 
 import tpcg
 import tpcg_torch
@@ -58,7 +59,7 @@ def test_cg_csr_single_rhs():
     b = np.random.default_rng(1).standard_normal(40)
     xj = tpcg.cg(40, *csr_args(A)[:2], b, *csr_args(A)[2:], n_iterations=30)
     xt = tpcg_torch.cg(40, *csr_args(A)[:2], b, *csr_args(A)[2:],
-                       n_iterations=30)
+                       n_iterations=30, device="cpu")
     assert xt.dtype == np.float64
     np.testing.assert_allclose(xt, np.asarray(xj), rtol=1e-9)
 
@@ -73,7 +74,7 @@ def test_cg_column_major_multi_rhs():
     xj, hj = tpcg.cg(n, nnz, data, b, ptr, idx, n_rhs=nrhs, n_iterations=25,
                      record_history=True)
     xt, ht = tpcg_torch.cg(n, nnz, data, b, ptr, idx, n_rhs=nrhs,
-                           n_iterations=25, record_history=True)
+                           n_iterations=25, record_history=True, device="cpu")
     assert xt.shape == (n * nrhs,) and ht.shape == (26, nrhs)
     np.testing.assert_allclose(xt, np.asarray(xj), rtol=1e-9)
     # these constant RHS converge to ~1e-33 by iteration 25: below 1e-12
@@ -91,7 +92,7 @@ def test_cg_complex_helm_fe():
     xj, hj = tpcg.cg(n, nnz, data, b, ptr, idx, n_iterations=20,
                      record_history=True)
     xt, ht = tpcg_torch.cg(n, nnz, data, b, ptr, idx, n_iterations=20,
-                           record_history=True)
+                           record_history=True, device="cpu")
     assert xt.dtype == np.complex128
     np.testing.assert_allclose(xt, np.asarray(xj), rtol=1e-9)
     np.testing.assert_allclose(ht, np.asarray(hj), rtol=1e-9)
@@ -102,7 +103,7 @@ def test_cg_float32_dtype():
     b = np.ones(32, dtype=np.float32)
     xj = tpcg.cg(32, *csr_args(A)[:2], b, *csr_args(A)[2:], n_iterations=10)
     xt = tpcg_torch.cg(32, *csr_args(A)[:2], b, *csr_args(A)[2:],
-                       n_iterations=10)
+                       n_iterations=10, device="cpu")
     assert xt.dtype == np.float32 == np.asarray(xj).dtype
     np.testing.assert_allclose(xt, np.asarray(xj), rtol=1e-5)
 
@@ -113,7 +114,7 @@ def test_cg_matrix_wrapper_and_initial_guess():
     b = rng.standard_normal(30)
     x0 = 0.1 * rng.standard_normal(30)
     xj = tpcg.cg_matrix(A, b, x=x0, n_iterations=20)
-    xt = tpcg_torch.cg_matrix(A, b, x=x0, n_iterations=20)
+    xt = tpcg_torch.cg_matrix(A, b, x=x0, n_iterations=20, device="cpu")
     np.testing.assert_allclose(xt, np.asarray(xj), rtol=1e-9)
 
 
@@ -133,7 +134,7 @@ def test_rcm_shuffled_band_takes_the_same_perm():
     assert Mt.offsets == tuple(Mj.offsets)
     b = rng.standard_normal(100)
     xj = tpcg.cg_matrix(Ashuf, b, n_iterations=60)
-    xt = tpcg_torch.cg_matrix(Ashuf, b, n_iterations=60)
+    xt = tpcg_torch.cg_matrix(Ashuf, b, n_iterations=60, device="cpu")
     np.testing.assert_allclose(xt, np.asarray(xj), rtol=1e-9, atol=1e-12)
 
 
@@ -151,7 +152,7 @@ def test_unstructured_on_cpu_runs_ell_like_jax():
     b = rng.standard_normal(n)
     xj = tpcg.cg(n, *csr_args(A)[:2], b, *csr_args(A)[2:], n_iterations=30)
     xt = tpcg_torch.cg(n, *csr_args(A)[:2], b, *csr_args(A)[2:],
-                       n_iterations=30)
+                       n_iterations=30, device="cpu")
     np.testing.assert_allclose(xt, np.asarray(xj), rtol=1e-9)
 
 
@@ -184,7 +185,7 @@ def test_card_branch_complex_band_fused_then_streaming(card_branch,
          + 1j * rng.standard_normal((n, nrhs))).astype(np.complex64)
     b = B.T.reshape(-1)
     x = tpcg_torch.cg(n, *csr_args(As)[:2], b, *csr_args(As)[2:],
-                      n_rhs=nrhs, n_iterations=iters)
+                      n_rhs=nrhs, n_iterations=iters, device="cpu")
     assert card_branch == ["fused_cg_dia_cplx_block"]
     assert x.dtype == np.complex64
     X = x.reshape(nrhs, n).T
@@ -206,7 +207,7 @@ def test_card_branch_real_band_streaming(card_branch):
     As = sp.csr_matrix(banded_cplx_sym(n, 4, seed=5).real).astype(np.float32)
     b = rng.standard_normal(n * nrhs).astype(np.float32)
     x = tpcg_torch.cg(n, *csr_args(As)[:2], b, *csr_args(As)[2:],
-                      n_rhs=nrhs, n_iterations=iters)
+                      n_rhs=nrhs, n_iterations=iters, device="cpu")
     assert card_branch == ["stream_cg_dia_block"]
     assert x.dtype == np.float32
     X, B = x.reshape(nrhs, n).T, b.reshape(nrhs, n).T
@@ -224,9 +225,10 @@ def test_card_branch_float64_and_complex_rhs_stay_eager(card_branch):
     As = sp.csr_matrix(banded_cplx_sym(n, 2, seed=1).real, dtype=np.float64)
     b = np.random.default_rng(2).standard_normal(n)
     x = tpcg_torch.cg(n, *csr_args(As)[:2], b, *csr_args(As)[2:],
-                      n_iterations=30)
+                      n_iterations=30, device="cpu")
     bc = (b + 1j * b[::-1]).astype(np.complex64)
-    xc = tpcg_torch.cg_matrix(As.astype(np.float32), bc, n_iterations=30)
+    xc = tpcg_torch.cg_matrix(As.astype(np.float32), bc, n_iterations=30,
+                              device="cpu")
     assert card_branch == []
     assert x.dtype == np.float64 and xc.dtype == np.complex64
     xs = spla.spsolve(As.tocsc(), bc.astype(np.complex128))
@@ -245,12 +247,48 @@ def test_card_branch_refuses_unstructured_and_routing(card_branch):
     b = rng.standard_normal(n).astype(np.float32)
     with pytest.raises(NotImplementedError, match="item 13"):
         tpcg_torch.cg(n, *csr_args(A)[:2], b, *csr_args(A)[2:],
-                      n_iterations=5)
+                      n_iterations=5, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
-        tpcg_torch.cg_matrix(A.astype(np.complex64), b, n_iterations=5)
+        tpcg_torch.cg_matrix(A.astype(np.complex64), b, n_iterations=5,
+                             device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         tpcg_torch.cg(n, *csr_args(A)[:2], b, *csr_args(A)[2:],
-                      n_iterations=5, routing="tables.npz")
+                      n_iterations=5, routing="tables.npz", device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         tpcg_torch.to_device_matrix(A, route_fallback=True, device="cuda")
     assert card_branch == []
+
+
+_DEFAULTS = {
+    "cg": lambda **kw: tpcg_torch.cg(30, *csr_args(spd(30))[:2], np.ones(30),
+                                     *csr_args(spd(30))[2:], n_iterations=3,
+                                     **kw),
+    "cg_matrix": lambda **kw: tpcg_torch.cg_matrix(spd(30), np.ones(30),
+                                                   n_iterations=3, **kw),
+    "helm_fe": lambda **kw: tpcg_torch.problems.helm_fe(8, 3.0, eps=3.0, **kw),
+    "helm_fe_var": lambda **kw: tpcg_torch.problems.helm_fe_var(
+        8, 3.0, np.ones((7, 7)), rho=0.1, **kw),
+    "local_rect": lambda **kw: tpcg_torch.problems.local_rect(
+        8, 3.0, 3.0, eta=3.0, Nvert=5, Nhoriz=8, **kw),
+    "assemble_helmholtz_fe": lambda **kw:
+        tpcg_torch.problems.assemble_helmholtz_fe(
+            0.1, np.full((4, 4), 9.0 + 1j), np.full((4, 4), 3.0), **kw),
+    "poisson": lambda **kw: tpcg_torch.problems.poisson(8, **kw),
+    "parabolic_stencil": lambda **kw:
+        tpcg_torch.problems.parabolic_stencil(8, **kw),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_DEFAULTS))
+def test_default_device_is_the_card(monkeypatch, entry):
+    """The entry points and the problem constructors default to the CUDA
+    device: without a card, a call that names no device raises and returns
+    no CPU result; with ``device="cpu"`` it runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _DEFAULTS[entry]()
+    out = _DEFAULTS[entry](device="cpu")
+    if entry.startswith("cg"):
+        assert isinstance(out, np.ndarray) and np.isfinite(out).all()
+    else:
+        assert out.device.type == "cpu"

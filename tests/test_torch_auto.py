@@ -18,7 +18,7 @@ from tpcg_torch.ops import auto
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 
-def _fake_cuda_stencil(grid, dtype, coef=None):
+def _fake_cuda_stencil(grid, dtype, coef=None, offsets=((0, 0),) * 7):
     """Enough of a Stencil2D on a CUDA device for the planner's choice,
     which happens before anything moves to the device.  Without ``coef``
     the coefficients are on the meta device, for choices that do not read
@@ -27,7 +27,7 @@ def _fake_cuda_stencil(grid, dtype, coef=None):
         coef = torch.empty((7,) + grid, dtype=dtype, device="meta")
     return types.SimpleNamespace(grid=grid, coef=coef,
                                  device=torch.device("cuda", 0),
-                                 offsets=((0, 0),) * 7)
+                                 offsets=offsets)
 
 
 def test_planner_on_cpu_takes_the_plain_path():
@@ -43,36 +43,57 @@ def test_planner_on_cpu_takes_the_plain_path():
     ((24, 24), torch.complex128, "stream-coef"),
     ((29, 24), torch.complex64, "stream-coef"),
     ((1024, 1024), torch.float64, "stream-real"),
+    ((24, 24), torch.complex128, "non-symmetric"),
 ])
 def test_planner_on_cuda_refuses_tiers_not_ported(monkeypatch, grid, dtype,
                                                   jax_tier):
-    """Variable-coefficient complex grids past the whole-solve size (its
-    threshold lowered here): JAX's stream-coef, and pad->stream-coef for a
-    prime height; a real grid from JAX's real-streaming size."""
+    """Past the whole-solve size (its threshold lowered here): a symmetric
+    variable-coefficient complex grid, where JAX takes stream-coef (and
+    pad->stream-coef for the prime height 29), now plans ``stream-coef``
+    on the unpadded grid; a real grid from JAX's real-streaming size, and a
+    non-symmetric variable-coefficient grid, still raise naming their
+    ROADMAP item."""
     monkeypatch.setattr(auto, "_L2_NODES", 256)
-    coef = None
-    if dtype.is_complex:
-        nv, nh = grid
-        C = 1.0 + 0.5 * np.random.default_rng(4).random((nv - 1, nh - 1))
-        coef = tpcg_torch.problems.helm_fe_var(nv, 12.0, C, rho=0.1,
-                                               Nhoriz=nh, Nvert=nv).coef
-        coef = coef.to(dtype)
-    with pytest.raises(NotImplementedError, match=jax_tier):
-        tpcg_torch.plan_stencil_cg(_fake_cuda_stencil(grid, dtype, coef), 10)
+    if not dtype.is_complex:
+        with pytest.raises(NotImplementedError, match=jax_tier):
+            tpcg_torch.plan_stencil_cg(_fake_cuda_stencil(grid, dtype), 10)
+        return
+    nv, nh = grid
+    C = 1.0 + 0.5 * np.random.default_rng(4).random((nv - 1, nh - 1))
+    T = tpcg_torch.problems.helm_fe_var(nv, 12.0, C, rho=0.1, Nhoriz=nh,
+                                        Nvert=nv, device="cpu")
+    coef = T.coef.to(dtype)
+    if jax_tier == "non-symmetric":
+        coef[1] *= 1.5
+    fake = _fake_cuda_stencil(grid, dtype, coef, T.offsets)
+    if jax_tier == "non-symmetric":
+        with pytest.raises(NotImplementedError,
+                           match="stream-coef.*non-symmetric.*ROADMAP"):
+            tpcg_torch.plan_stencil_cg(fake, 10)
+        return
+    plan = tpcg_torch.plan_stencil_cg(fake, 10)
+    assert plan.path == "stream-coef" and plan.grid == grid
 
 
 @pytest.mark.parametrize("path", ["vmem-const", "stream", "stream-coef",
                                   "stream-real"])
 def test_explicit_unported_path_raises(path):
     """Forcing a path the port lacks raises naming its ROADMAP item; so does
-    forcing ``stream`` on a variable-coefficient stencil, which JAX sends to
-    stream-coef."""
+    forcing ``stream-coef`` on a non-symmetric stencil (JAX's general
+    coefficient kernels).  Forcing ``stream`` on a variable-coefficient
+    stencil raises ``prepare_stream``'s ValueError, as JAX's planner does."""
     S = from_tpcg(helm_fe(8, 3.0, eps=3.0))
-    if path == "stream":
+    if path in ("stream", "stream-coef"):
         C = 1.0 + 0.5 * np.random.default_rng(4).random((7, 7))
-        S = tpcg_torch.problems.helm_fe_var(8, 3.0, C, rho=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpcg_torch.plan_stencil_cg(S, 5, path=path)
+        S = tpcg_torch.problems.helm_fe_var(8, 3.0, C, rho=0.1, device="cpu")
+    if path == "stream-coef":
+        S.coef[1] *= 1.5
+    if path == "stream":
+        with pytest.raises(ValueError, match="not constant"):
+            tpcg_torch.plan_stencil_cg(S, 5, path=path)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tpcg_torch.plan_stencil_cg(S, 5, path=path)
     with pytest.raises(ValueError):
         tpcg_torch.plan_stencil_cg(S, 5, path="xla")
 
@@ -121,7 +142,7 @@ def test_slice_end_to_end_n32():
     N, k = 32, 5.0
     S = helm_fe(N, k, eps=k)
     b = plane_wave_rhs(N, k)
-    T = tpcg_torch.problems.helm_fe(N, k, eps=k)
+    T = tpcg_torch.problems.helm_fe(N, k, eps=k, device="cpu")
     xj, hj = tpcg.stencil_cg(S, b, n_iterations=50)
     xt, ht = tpcg_torch.stencil_cg(T, b, n_iterations=50)
     np.testing.assert_allclose(xt, np.asarray(xj), rtol=1e-10,
@@ -163,6 +184,7 @@ def test_import_pulls_in_no_jax():
             "tpcg_torch.api, tpcg_torch.io, tpcg_torch.cli, "
             "tpcg_torch.ops.stream_cg_dia, tpcg_torch.ops.fused_cg_dia, "
             "tpcg_torch.ops.stream_cg, tpcg_torch.ops.fused_cg_const, "
+            "tpcg_torch.ops.stream_cg_sym, tpcg_torch.device, "
             "tpcg_torch.native.mtx_native; "
             "tpcg_torch.native.mtx_native.available(); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "

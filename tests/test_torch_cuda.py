@@ -125,11 +125,12 @@ def test_planner_on_card_takes_the_kernel_path(dev):
     assert tfc.fused_cg_stencil.launches == before + 1
     assert np.isfinite(x).all() and hist.shape == (11,)
     # past the whole-solve size: a constant-tap grid takes the streaming
-    # kernel; a prime height, which JAX row-pads, raises
+    # kernel, at a prime height too (JAX row-pads it; the kernel reads any
+    # height)
     assert tpcg_torch.plan_stencil_cg(
         helm_fe(513, 5.0, eps=5.0, device=dev), 5).path == "stream"
-    with pytest.raises(NotImplementedError, match="pad->"):
-        tpcg_torch.plan_stencil_cg(helm_fe(521, 5.0, eps=5.0, device=dev), 5)
+    assert tpcg_torch.plan_stencil_cg(
+        helm_fe(521, 5.0, eps=5.0, device=dev), 5).path == "stream"
 
 
 def test_eager_path_on_card_matches_kernel_path(dev):
@@ -517,3 +518,114 @@ def test_stream_kernel_freezes(dev):
     assert torch.isfinite(xk).all() and torch.isfinite(hk).all()
     assert hk[0] == hp[0] and torch.all(hk[1:] == 0) and torch.all(hp[1:] == 0)
     assert torch.equal(xk, xp) and torch.all(xk[0] == 0.5)
+
+
+# ---- streaming symmetric variable-coefficient kernel (csrc/stream_cg_sym.cu)
+# The tolerances of the constant-tap kernel's checks above: the kernel
+# applies the half-plane operator bit for bit as the plain version does and
+# differs only in the order of its float32 dot products.
+
+tss = importlib.import_module("tpcg_torch.ops.stream_cg_sym")
+
+
+def _sym_case(dev, nv, nh, x0_seed=None, omega=40.0):
+    """helm_fe_var(max(nv, nh), omega, C, rho=0.1) on an nv x nh grid (C =
+    1 + 0.5 U(0, 1) from seed 0, the benchmark configuration's draw), its
+    half planes, the square grid's plane wave cut to size, and a seeded
+    0.1 N(0, 1) initial guess (or zero)."""
+    from tpcg_torch.problems import helm_fe_var
+    N = max(nv, nh)
+    C = 1.0 + 0.5 * np.random.default_rng(0).random((nv - 1, nh - 1))
+    S = helm_fe_var(N, omega, C, rho=0.1, Nhoriz=nh, Nvert=nv, device=dev)
+    half, cplanes = tss.prepare_stream_sym(S)
+    b = plane_wave_rhs(N, omega)[:nv, :nh]
+    x0 = np.zeros_like(b)
+    if x0_seed is not None:
+        rng = np.random.default_rng(x0_seed)
+        x0 = 0.1 * (rng.standard_normal(b.shape)
+                    + 1j * rng.standard_normal(b.shape))
+
+    def planes(z):
+        return torch.from_numpy(
+            np.stack([z.real, z.imag]).astype(np.float32)).to(dev)
+    return S, half, cplanes, planes(b), planes(x0)
+
+
+# the smoke's geometries (40 iterations, seeded x0), and the first main-path
+# size and the unstreamable height 2049 (100 iterations, plane wave)
+@pytest.mark.parametrize("nv,nh,seed,iters", [
+    (256, 256, 1, 40), (300, 700, 2, 40), (1031, 1024, 3, 40),
+    (600, 1000, 4, 40), (1024, 1024, None, 100), (2049, 2049, None, 100)])
+def test_sym_kernel_matches_plain(dev, nv, nh, seed, iters):
+    S, half, cplanes, bp, x0p = _sym_case(dev, nv, nh, seed)
+    before = tss.stream_cg_sym_planes.launches
+    xk, hk = _run_twice(tss.stream_cg_sym_planes, half, cplanes, bp, x0p,
+                        iters)
+    assert tss.stream_cg_sym_planes.launches == before + 2
+    xp, hp = tss.stream_cg_sym_planes_plain(half, cplanes, bp, x0p, iters)
+    _assert_dia_close(xk, hk, xp, hp)
+
+
+def test_sym_kernel_applies_the_operator(dev):
+    """Zero iterations give r0 = b - A x0 only: x = x0 and hist[0] from the
+    plain operator's residual, on a grid with every edge in play."""
+    S, half, cplanes, bp, x0p = _sym_case(dev, 37, 45, x0_seed=5)
+    x, h = tss.stream_cg_sym_planes(half, cplanes, bp, x0p, 0)
+    assert torch.equal(x, x0p)
+    r = bp - tss.apply_sym_planes(half, cplanes, x0p)
+    dl = torch.stack([torch.sum(r[0] * r[0] - r[1] * r[1]),
+                      2.0 * torch.sum(r[0] * r[1])])
+    h0 = torch.sqrt(torch.sqrt(dl[0] ** 2 + dl[1] ** 2))
+    assert torch.allclose(h[0], h0, rtol=1e-5)
+
+
+def test_sym_plan_batch_columns_equal_single_launches(dev):
+    """B=3 through a stream-coef plan: three launches, each column bit-equal
+    to its single-RHS launch."""
+    S, half, cplanes, bp, _ = _sym_case(dev, 520, 520)
+    rng = np.random.default_rng(6)
+    cols = [bp] + [bp + 0.1 * torch.from_numpy(
+        rng.standard_normal(bp.shape).astype(np.float32)).to(dev)
+        for _ in range(2)]
+    plan = tpcg_torch.plan_stencil_cg(S, 30, nb=3)
+    assert plan.path == "stream-coef"
+    before = tss.stream_cg_sym_planes.launches
+    xb, hb = plan.solve_planes(torch.stack(cols, dim=1))
+    assert tss.stream_cg_sym_planes.launches == before + 3
+    for c in range(3):
+        x1, h1 = tss.stream_cg_sym_planes(half, cplanes, cols[c],
+                                          torch.zeros_like(bp), 30)
+        assert torch.equal(xb[:, c], x1) and torch.equal(hb[:, c], h1)
+
+
+def test_sym_kernel_freezes(dev):
+    """2 I on the helm_fe offsets: over 400 iterations the kernel reads 0
+    from iteration 1, as the plain version does, stays finite, and gives
+    x = b / 2."""
+    from tpcg_torch.sparse import Stencil2D
+    N = 64
+    A = helm_fe(N, 5.0, eps=5.0, device=dev)
+    coef = torch.zeros_like(A.coef)
+    coef[0] = 2.0
+    half, cplanes = tss.prepare_stream_sym(Stencil2D(A.offsets, coef, A.grid))
+    bp = torch.zeros((2, N, N), device=dev)
+    bp[0] = 1.0
+    x0p = torch.zeros_like(bp)
+    xk, hk = tss.stream_cg_sym_planes(half, cplanes, bp, x0p, 400)
+    xp, hp = tss.stream_cg_sym_planes_plain(half, cplanes, bp, x0p, 400)
+    assert torch.isfinite(xk).all() and torch.isfinite(hk).all()
+    assert hk[0] == hp[0] and torch.all(hk[1:] == 0) and torch.all(hp[1:] == 0)
+    assert torch.equal(xk, xp) and torch.all(xk[0] == 0.5)
+
+
+def test_planner_on_card_takes_the_sym_path(dev):
+    """Symmetric variable coefficients past the whole-solve size take
+    stream-coef, at the height 2049 too (JAX row-pads it); a non-symmetric
+    stencil raises naming its ROADMAP item."""
+    from tpcg_torch.sparse import Stencil2D
+    S = _sym_case(dev, 2049, 600)[0]
+    assert tpcg_torch.plan_stencil_cg(S, 5).path == "stream-coef"
+    coef = S.coef.clone()
+    coef[1] *= 1.5
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpcg_torch.plan_stencil_cg(Stencil2D(S.offsets, coef, S.grid), 5)

@@ -8,13 +8,13 @@ import tpcg_torch.problems as tp
 _C = 0.5 + np.random.default_rng(0).random((8, 10))
 
 STENCILS = {
-    "helm_fe": lambda m: m.helm_fe(12, 5.0, eps=5.0),
-    "helm_fe_eps": lambda m: m.helm_fe(9, 4.0, eps=1.5),
-    "local_rect": lambda m: m.local_rect(10, 4.0, 2.0, 3.0, L=0.7,
-                                         Nhoriz=7, Nvert=5),
-    "helm_fe_var": lambda m: m.helm_fe_var(11, 6.0, _C, 0.1, Nhoriz=11,
-                                           Nvert=9),
-    "poisson": lambda m: m.poisson(8),
+    "helm_fe": lambda m, **kw: m.helm_fe(12, 5.0, eps=5.0, **kw),
+    "helm_fe_eps": lambda m, **kw: m.helm_fe(9, 4.0, eps=1.5, **kw),
+    "local_rect": lambda m, **kw: m.local_rect(10, 4.0, 2.0, 3.0, L=0.7,
+                                               Nhoriz=7, Nvert=5, **kw),
+    "helm_fe_var": lambda m, **kw: m.helm_fe_var(11, 6.0, _C, 0.1, Nhoriz=11,
+                                                 Nvert=9, **kw),
+    "poisson": lambda m, **kw: m.poisson(8, **kw),
 }
 
 GRIDS = {
@@ -29,7 +29,7 @@ GRIDS = {
 
 @pytest.mark.parametrize("name", sorted(STENCILS))
 def test_stencil_entry_for_entry(name):
-    js, ts = STENCILS[name](jp), STENCILS[name](tp)
+    js, ts = STENCILS[name](jp), STENCILS[name](tp, device="cpu")
     assert ts.offsets == tuple(js.offsets)
     assert ts.grid == tuple(js.grid)
     assert ts.coef.device.type == "cpu"
@@ -86,7 +86,7 @@ def test_fig5_standins_equal_the_benchmark_generators(which):
         coef[5][-1, :] = 0; coef[5][:, -1] = 0
         coef[6][0, :] = 0; coef[6][:, 0] = 0
         want = Stencil2D(offs, coef, (Ng, Ng)).to_scipy()
-        S = parabolic_stencil(Ng)
+        S = parabolic_stencil(Ng, device="cpu")
         assert S.offsets == offs
         np.testing.assert_array_equal(S.coef.numpy(), coef)
         got = S.to_scipy()

@@ -209,11 +209,15 @@ def _jax_path(S, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["helm_fe", "local_rect", "small",
-                                  "helm_fe_var", "prime_height"])
+                                  "helm_fe_var", "prime_height",
+                                  "prime_height_var"])
 def test_routing_with_a_card_matches_jax(monkeypatch, case):
-    """The port's choice with a card assumed picks ``stream`` exactly where
-    JAX's planner does (thresholds lowered on both sides) and raises, naming
-    the JAX tier, where JAX takes a tier the port lacks."""
+    """The port's choice with a card assumed follows JAX's planner
+    (thresholds lowered on both sides): ``stream`` and ``stream-coef`` where
+    JAX streams, and for a height JAX row-pads (29, prime) the documented
+    mapping of ``pad->stream-coef``: ``stream`` for constant taps,
+    ``stream-coef`` for symmetric variable coefficients, on the unpadded
+    grid."""
     monkeypatch.setattr(auto, "_L2_NODES", 256)
     rng = np.random.default_rng(4)
     S = {"helm_fe": lambda: helm_fe(24, K, eps=K),
@@ -223,18 +227,20 @@ def test_routing_with_a_card_matches_jax(monkeypatch, case):
          "helm_fe_var": lambda: helm_fe_var(
              24, 12.0, 1.0 + 0.5 * rng.random((23, 23)), rho=0.1),
          "prime_height": lambda: local_rect(29, K, K, eta=K, Nvert=29,
-                                            Nhoriz=24)}[case]()
+                                            Nhoriz=24),
+         "prime_height_var": lambda: helm_fe_var(
+             29, 12.0, 1.0 + 0.5 * rng.random((28, 23)), rho=0.1, Nvert=29,
+             Nhoriz=24)}[case]()
     jpath = _jax_path(S, monkeypatch)
     T = from_tpcg(S)
-    if jpath in ("stream", "vmem-coef"):
-        path, prepared = auto._pick_path(T, 1, on_cuda=True)
-        assert path == {"stream": "stream", "vmem-coef": "l2-coef"}[jpath]
-        assert (prepared is not None) == (path == "stream")
+    path, prepared = auto._pick_path(T, 1, on_cuda=True)
+    if jpath == "pad->stream-coef":
+        assert case.startswith("prime_height")
+        assert path == ("stream" if case == "prime_height" else "stream-coef")
     else:
-        assert jpath in ("stream-coef", "pad->stream-coef")
-        with pytest.raises(NotImplementedError) as err:
-            auto._pick_path(T, 1, on_cuda=True)
-        assert jpath in str(err.value) and "ROADMAP" in str(err.value)
+        assert path == {"stream": "stream", "stream-coef": "stream-coef",
+                        "vmem-coef": "l2-coef"}[jpath]
+    assert (prepared is not None) == (path != "l2-coef")
     assert auto._pick_path(T, 1, on_cuda=False) == ("eager", None)
 
 

@@ -3,8 +3,10 @@
 ``cg`` mirrors ``clcg::cg`` (``clcg.h:3-5``): CSR arrays in, solution out,
 with the reference's column-major multi-RHS packing ``v[i + r*size]``.  The
 matrix is converted once into a device container (``to_device_matrix``,
-RCM reordering into a band where that helps) on the ``device`` the caller
-names, and the whole fixed-iteration loop runs there.
+RCM reordering into a band where that helps) on ``device``, and the whole
+fixed-iteration loop runs there.  ``device`` defaults to the CUDA device
+and raises without one; the CPU runs only when the caller passes
+``device="cpu"`` (``tpcg_torch.device.resolve_device``).
 
 Dispatch keys on the torch device (:func:`_on_card`), not on "not CPU":
 
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from .cg import block_cg
+from .device import resolve_device
 from .ops import fused_cg_dia as _fd
 from .ops import stream_cg_dia as _sd
 from .ops.cplx import block_cg_planes_chunked, make_pair_operator
@@ -111,7 +114,7 @@ def _unpermute(X, perm):
 
 def cg(size: int, non_zeros: int, a_values, b, a_pointers, a_cols, x=None,
        n_rhs: int = 1, n_iterations: int = 10, is_complex=None,
-       record_history: bool = False, routing=None, device="cpu"):
+       record_history: bool = False, routing=None, device=None):
     """Solve ``A X = B`` with ``n_iterations`` of block CG on ``device``.
 
     a_values/a_pointers/a_cols : CSR arrays (len nnz / size+1 / nnz).
@@ -120,8 +123,9 @@ def cg(size: int, non_zeros: int, a_values, b, a_pointers, a_cols, x=None,
     is_complex : inferred from dtypes when None (the C API's explicit flag,
            ``clcg.h:5``, is accepted for parity).
     routing : not ported (raises ``NotImplementedError``).
-    device : where the operator lives and the solve runs (``"cpu"`` or a
-           CUDA device); nothing falls back to another device.
+    device : where the operator lives and the solve runs: the CUDA device
+           by default (raises without a card), or ``"cpu"`` only when asked
+           for; nothing falls back to another device.
     Returns the solution with the same packing (and the per-RHS residual
     history (n_iterations+1, n_rhs) when ``record_history``).
     """
@@ -129,6 +133,7 @@ def cg(size: int, non_zeros: int, a_values, b, a_pointers, a_cols, x=None,
 
     if routing is not None:
         raise NotImplementedError(_ROUTING)
+    device = resolve_device(device)
     a_values = np.asarray(a_values)
     b = np.asarray(b)
     if is_complex is None:
@@ -165,9 +170,10 @@ def cg_matrix(A, b, x=None, n_rhs=None, n_iterations=10,
     """Convenience wrapper: a scipy matrix or a port container in, the same
     column-major packing and dispatch as :func:`cg`.
 
-    device : where a scipy matrix is put and solved (default ``"cpu"``); a
-             container is solved on its own device, and naming another
-             device raises.
+    device : where a scipy matrix is put and solved (default: the CUDA
+             device, raising without a card; ``"cpu"`` only when asked
+             for); a container is solved on its own device, and naming
+             another device raises.
     """
     import scipy.sparse as sp
 
@@ -175,7 +181,7 @@ def cg_matrix(A, b, x=None, n_rhs=None, n_iterations=10,
         raise NotImplementedError(_ROUTING)
     perm = None
     if sp.issparse(A):
-        device = "cpu" if device is None else device
+        device = resolve_device(device)
         A, perm = to_device_matrix(sp.csr_matrix(A), reorder=True,
                                    route_fallback=_on_card(device),
                                    device=device)

@@ -4,8 +4,9 @@
 ``EllMatrix`` into the port's counterpart.  It reads only ``.offsets``,
 ``.grid`` / ``.n`` and ``np.asarray`` of the array fields, so it needs no
 JAX import: the tests build both sides of a comparison from one object
-with it.  ``coef3_from_numpy`` and ``stream_operands_from_tpcg`` do the
-same for the operands the JAX kernels take.
+with it.  ``coef3_from_numpy``, ``stream_operands_from_tpcg`` and
+``sym_operands_from_tpcg`` do the same for the operands the JAX kernels
+take.
 """
 from __future__ import annotations
 
@@ -57,3 +58,16 @@ def stream_operands_from_tpcg(taps, strips2, device="cpu"):
                          f"{sb.shape} and {st.shape}")
     planes = np.stack([sb[:, :, 0], st[:, :, 0]]).astype(np.float32)
     return taps, torch.from_numpy(planes).to(device)
+
+
+def sym_operands_from_tpcg(half_offsets, cplanes, device="cpu"):
+    """The output of ``tpcg.ops.stream_cg_v4_sym.prepare_stream_sym`` -> the
+    port's ``(half_offsets, cplanes)``: a list of (dm, dj) int pairs and the
+    (2, nH1, Nv, Nh) float32 half planes (numpy via ``np.asarray``) as a
+    tensor on ``device``."""
+    c = np.asarray(cplanes)
+    if c.ndim != 4 or c.shape[0] != 2 or c.shape[1] != len(half_offsets):
+        raise ValueError(f"cplanes must be (2, {len(half_offsets)}, Nv, Nh), "
+                         f"got {c.shape}")
+    return ([(int(dm), int(dj)) for dm, dj in half_offsets],
+            torch.from_numpy(np.array(c, dtype=np.float32)).to(device))

@@ -9,6 +9,10 @@ from .auto import plan_stencil_cg, stencil_cg, StencilCGPlan     # noqa: F401
 from .stream_cg import (stream_cg_const, stream_cg_const_planes,  # noqa: F401
                         stream_cg_const_planes_plain, prepare_stream,
                         apply_const_planes)
+# stream_cg_sym() is not re-exported here: it would hide its module
+from .stream_cg_sym import (stream_cg_sym_planes,                # noqa: F401
+                            stream_cg_sym_planes_plain, prepare_stream_sym,
+                            reconstruct_coef, apply_sym_planes)
 # stream_cg_dia() itself is not re-exported: it would hide its module
 from .stream_cg_dia import (stream_cg_dia_block,                 # noqa: F401
                             stream_cg_dia_cplx, stream_cg_dia_cplx_block,

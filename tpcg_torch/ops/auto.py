@@ -1,33 +1,47 @@
 """Execution-path selection for stencil CG solves (counterpart of ``tpcg/ops/auto.py``).
 
-Three paths are ported; each maps to a planner path of the JAX package:
+Four paths are ported; each maps to a planner path of the JAX package:
 
-  l2-coef : JAX's ``vmem-coef``.  The whole fixed-iteration solve in one
-            launch of the hand-written CUDA kernel
-            (``tpcg_torch.ops.fused_cg.fused_cg_stencil``).  On the H100 the
-            coefficient planes and the CG state stay resident in the 50 MB
-            L2 during that launch, where on the TPU they sat in VMEM.  The
-            default for complex grids up to 512^2 nodes with at most two
-            RHS on a CUDA device, as JAX picks ``vmem-coef``.
-  stream  : JAX's ``stream``.  Complex stencils past 512^2 nodes whose
-            interior and edge taps are constant (``prepare_stream``
-            succeeds) and whose height JAX streams without row padding:
-            one launch of the hand-written CUDA kernel
-            ``tpcg_torch.ops.stream_cg.stream_cg_const_planes`` per RHS, the
-            state in device memory.  Several RHS run as sequential
-            single-RHS solves queued on one stream, as JAX's ``lax.map``
-            runs them; any batch size.
-  eager   : JAX's ``xla``.  Plain PyTorch: ``block_cg_planes_chunked`` over
-            float32 planes for complex stencils on a CUDA device, and
-            ``block_cg`` in the stencil's own dtype otherwise.  The default
-            on the CPU, for larger complex batches, and for real stencils
-            below JAX's real-streaming size.
+  l2-coef     : JAX's ``vmem-coef``.  The whole fixed-iteration solve in one
+                launch of the hand-written CUDA kernel
+                (``tpcg_torch.ops.fused_cg.fused_cg_stencil``).  On the H100
+                the coefficient planes and the CG state stay resident in the
+                50 MB L2 during that launch, where on the TPU they sat in
+                VMEM.  The default for complex grids up to 512^2 nodes with
+                at most two RHS on a CUDA device, as JAX picks ``vmem-coef``.
+  stream      : JAX's ``stream``.  Complex stencils past 512^2 nodes whose
+                interior and edge taps are constant (``prepare_stream``
+                succeeds): one launch of the hand-written CUDA kernel
+                ``tpcg_torch.ops.stream_cg.stream_cg_const_planes`` per RHS,
+                the state in device memory.
+  stream-coef : JAX's ``stream-coef`` for symmetric stencils.  Complex
+                stencils past 512^2 nodes with variable coefficients that
+                ``prepare_stream_sym`` accepts: one launch of the
+                hand-written CUDA kernel
+                ``tpcg_torch.ops.stream_cg_sym.stream_cg_sym_planes`` per
+                RHS, half of the coefficient planes streamed.
+  eager       : JAX's ``xla``.  Plain PyTorch: ``block_cg_planes_chunked``
+                over float32 planes for complex stencils on a CUDA device,
+                and ``block_cg`` in the stencil's own dtype otherwise.  The
+                default on the CPU, for larger complex batches, and for real
+                stencils below JAX's real-streaming size.
+
+On the streaming paths several RHS run as sequential single-RHS launches
+queued on one stream, as JAX's ``lax.map`` runs them; any batch size.
+
+Heights JAX cannot stream (no row block of at least 8 rows that leaves two
+blocks, e.g. primes): JAX row-pads them to a multiple of 128
+(``_pad_rows``), and the padded operator lands on ``stream-coef``.  Both
+Hopper kernels read any height, so the port does not pad: JAX's
+``pad->stream-coef`` becomes ``stream`` for constant taps and
+``stream-coef`` for symmetric variable coefficients, on the unpadded grid.
 
 The planner dispatches on the torch device of the stencil's coefficients.
-On a CUDA device, a stencil that JAX would send to one of its tiers that
-are not ported yet (``stream-coef``, ``stream-real``, a row-padded
-``pad->`` plan; ``vmem-const`` when forced) raises ``NotImplementedError``
-naming the ROADMAP item; it never runs silently on the plain path instead.
+On a CUDA device, a stencil that JAX would send to a tier that is not
+ported yet (``stream-coef`` for a non-symmetric stencil, ``stream-real`` and
+``pad->stream-real``; ``vmem-const`` when forced) raises
+``NotImplementedError`` naming the ROADMAP item; it never runs silently on
+the plain path instead.
 """
 from __future__ import annotations
 
@@ -41,6 +55,7 @@ from ..cg import block_cg
 from .cplx import block_cg_planes_chunked, make_pair_operator
 from .fused_cg import fused_cg_stencil_chunked, prepare_coef3
 from .stream_cg import _streamable, prepare_stream, stream_cg_const_planes
+from .stream_cg_sym import prepare_stream_sym, stream_cg_sym_planes
 
 # JAX's _VMEM_NODES: complex grids up to here take the whole-solve kernel
 _L2_NODES = 512 * 512
@@ -49,23 +64,26 @@ _REAL_STREAM_NODES = 1024 * 1024
 # JAX's _FUSED_BATCH_MAX: larger complex batches take the plain path
 _FUSED_BATCH_MAX = 2
 
-_PORTED = ("l2-coef", "stream", "eager")
-# JAX planner paths with no port yet -> where the ROADMAP queues them
+_PORTED = ("l2-coef", "stream", "stream-coef", "eager")
+# JAX planner tiers with no port yet -> where the ROADMAP queues them
 _NOT_PORTED = {
     "vmem-const": "ROADMAP queue 2 item 2 (fused_cg_const)",
-    "stream-coef": "ROADMAP queue 1 item 11, stream-coef (queue 2 items 8, "
-                   "9, 12, 13, the coefficient variant of 16, 18, 21)",
+    "stream-coef": "ROADMAP queue 1 item 11, general (non-symmetric) "
+                   "coefficients (queue 2 items 8 general, 9, 12, 13, the "
+                   "coefficient variant of 16)",
     "stream-real": "ROADMAP queue 1 item 11, stream-real (queue 2 items 14, "
                    "17, 20)",
-    "pad->": "ROADMAP queue 1 item 11, the row-padded pad-> plans",
 }
 
 
 def _not_ported(jax_path, grid) -> NotImplementedError:
-    key = "pad->" if jax_path.startswith("pad->") else jax_path
+    key = jax_path.removeprefix("pad->")
+    what = (" for a non-symmetric stencil (its general-coefficient kernels)"
+            if key == "stream-coef" else "")
     return NotImplementedError(
-        f"grid {grid}: the JAX planner sends this to its {jax_path} tier, "
-        f"which tpcg_torch has not ported yet: {_NOT_PORTED[key]}")
+        f"grid {grid}: the JAX planner sends this to its {jax_path} "
+        f"tier{what}, which tpcg_torch has not ported yet: "
+        f"{_NOT_PORTED[key]}")
 
 
 def _norm_b(b, nv, nh):
@@ -83,7 +101,7 @@ def _norm_b(b, nv, nh):
 @dataclass
 class StencilCGPlan:
     """A chosen execution path for one (stencil, n_iterations) pair."""
-    path: str        # l2-coef | stream | eager
+    path: str        # l2-coef | stream | stream-coef | eager
     grid: tuple
     n_iterations: int
     _solve: Callable = field(repr=False)
@@ -119,14 +137,28 @@ class StencilCGPlan:
         return x, hist
 
 
+def _prepare_sym(stencil):
+    """``prepare_stream_sym``, raising the general-coefficient item for a
+    stencil it refuses (JAX's ``stream-coef`` for non-symmetric operators,
+    row-padded where JAX cannot stream the height)."""
+    try:
+        return prepare_stream_sym(stencil)
+    except ValueError:
+        jax_path = ("stream-coef" if _streamable(stencil.grid[0])
+                    else "pad->stream-coef")
+        raise _not_ported(jax_path, stencil.grid) from None
+
+
 def _pick_path(stencil, nb: int, on_cuda: bool):
     """The planner's default choice: ``(path, prepared)``, where
-    ``prepared`` is ``prepare_stream``'s result on the ``stream`` path.
+    ``prepared`` is ``prepare_stream``'s result on the ``stream`` path and
+    ``prepare_stream_sym``'s on ``stream-coef``.
 
     ``on_cuda`` says whether the solve runs on a card; off the card every
     stencil takes ``eager``.  On the card the rule is JAX's on an
-    accelerator (``tpcg/ops/auto.py::plan_stencil_cg``), and a tier the port
-    does not have raises."""
+    accelerator (``tpcg/ops/auto.py::plan_stencil_cg``) without its row
+    padding (see the module note), and a tier the port does not have
+    raises."""
     nv, nh = stencil.grid
     n = nv * nh
     if not on_cuda:
@@ -134,14 +166,10 @@ def _pick_path(stencil, nb: int, on_cuda: bool):
     if stencil.coef.is_complex():
         if n <= _L2_NODES:
             return ("l2-coef" if nb <= _FUSED_BATCH_MAX else "eager"), None
-        if not _streamable(nv):
-            # JAX row-pads to a multiple of 128; the padded operator's
-            # interior is not constant, so it lands on stream-coef
-            raise _not_ported("pad->stream-coef", stencil.grid)
         try:
             return "stream", prepare_stream(stencil)
         except ValueError:
-            raise _not_ported("stream-coef", stencil.grid) from None
+            return "stream-coef", _prepare_sym(stencil)
     if n >= _REAL_STREAM_NODES:
         raise _not_ported("stream-real" if _streamable(nv)
                           else "pad->stream-real", stencil.grid)
@@ -153,25 +181,28 @@ def plan_stencil_cg(stencil, n_iterations: int, nb: int = 1,
     """Pick and prepare the CG path for ``stencil`` on its device.
 
     nb   : planned RHS batch size (every path takes any batch at solve time).
-    path : force ``"l2-coef"``, ``"stream"`` or ``"eager"``.  On a CPU device
-           ``l2-coef`` and ``stream`` run their kernels' plain versions.
-           Forcing ``stream`` on a stencil ``prepare_stream`` refuses raises
-           ``NotImplementedError`` (JAX's ``stream-coef``).
+    path : force ``"l2-coef"``, ``"stream"``, ``"stream-coef"`` or
+           ``"eager"``.  On a CPU device the kernel paths run their kernels'
+           plain versions.  Forcing ``stream`` on a stencil whose taps are
+           not constant raises ``ValueError`` (``prepare_stream``'s), as
+           JAX's planner does; forcing ``stream-coef`` on a non-symmetric
+           stencil raises ``NotImplementedError`` naming its ROADMAP item.
     """
     nv, nh = stencil.grid
     prepared = None
     if path is None:
         path, prepared = _pick_path(stencil, nb,
                                     stencil.device.type == "cuda")
-    elif path in _NOT_PORTED or path.startswith("pad->"):
-        raise _not_ported(path, stencil.grid)
     elif path not in _PORTED:
-        raise ValueError(f"unknown path {path!r}; ported: {_PORTED}")
+        if path in _NOT_PORTED:
+            raise _not_ported(path, stencil.grid)
+        raise ValueError(f"unknown path {path!r}; ported: {_PORTED} (the "
+                         "pad-> plans are not needed: the kernels read any "
+                         "height)")
     elif path == "stream":
-        try:
-            prepared = prepare_stream(stencil)
-        except ValueError:
-            raise _not_ported("stream-coef", stencil.grid) from None
+        prepared = prepare_stream(stencil)
+    elif path == "stream-coef":
+        prepared = _prepare_sym(stencil)
     solve, solve_planes = _build_solver(stencil, n_iterations, path,
                                         prepared)
     return StencilCGPlan(path=path, grid=(nv, nh), n_iterations=n_iterations,
@@ -204,15 +235,25 @@ def _build_solver(stencil, n_iterations, path, prepared=None):
         def solve_planes(bp, x0p):
             return fused_cg_stencil_chunked(stencil.offsets, coef3, bp, x0p,
                                             n_iterations)
-    elif path == "stream":
-        taps, strips = prepared
+    elif path in ("stream", "stream-coef"):
+        if path == "stream":
+            taps, strips = prepared
+
+            def solve_one(b, x0):
+                return stream_cg_const_planes(stencil.offsets, stencil.grid,
+                                              taps, strips, b, x0,
+                                              n_iterations)
+        else:
+            half_offsets, cplanes = prepared
+
+            def solve_one(b, x0):
+                return stream_cg_sym_planes(half_offsets, cplanes, b, x0,
+                                            n_iterations)
 
         def solve_planes(bp, x0p):
             # one launch per RHS, queued back to back on the current
             # stream; no host sync between them
-            runs = [stream_cg_const_planes(stencil.offsets, stencil.grid,
-                                           taps, strips, bp[:, c], x0p[:, c],
-                                           n_iterations)
+            runs = [solve_one(bp[:, c], x0p[:, c])
                     for c in range(bp.shape[1])]
             return (torch.stack([x for x, _ in runs], dim=1),
                     torch.stack([h for _, h in runs], dim=1))

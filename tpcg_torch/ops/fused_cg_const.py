@@ -13,6 +13,7 @@ planner's ``vmem-const`` path) is not ported yet: ROADMAP queue 2 item 2.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def split_const_stencil(stencil):
@@ -26,13 +27,15 @@ def split_const_stencil(stencil):
     Raises ValueError if the interior is not constant or the deviation is
     wider than one ring of nodes.
     """
+    # the interior test runs on the stencil's device, before the host copy:
+    # on a card a variable-coefficient stencil is refused in milliseconds
+    interior = stencil.coef[:, 2:-2, 2:-2]
+    if not torch.allclose(interior, interior[:, :1, :1], rtol=1e-12,
+                          atol=1e-14):
+        raise ValueError("stencil interior is not constant-coefficient")
     c = stencil.coef.cpu().numpy()    # a host copy when on a card
     noff, nv, nh = c.shape
-    interior = c[:, 2:-2, 2:-2]
-    consts = interior[:, 0, 0].copy()
-    if not np.allclose(interior, consts[:, None, None], rtol=1e-12,
-                       atol=1e-14):
-        raise ValueError("stencil interior is not constant-coefficient")
+    consts = c[:, 2, 2].copy()
     # D = c - const.  Where a tap would leave the grid the assembly stores
     # 0, so D there is -const; harmless, because both the constant apply
     # and the strip correction read zero for such taps.

@@ -168,12 +168,13 @@ def apply_const_planes(offsets, taps, strips, xp):
     return torch.stack([qr, qi])
 
 
-def stream_cg_const_planes_plain(offsets: Sequence[Tuple[int, int]], grid,
-                                 taps, strips: torch.Tensor,
-                                 bp: torch.Tensor, x0p: torch.Tensor,
-                                 n_iterations: int):
-    """Plain PyTorch version of the kernel: the v2 iteration of the JAX
-    package, step for step.
+def cocg_planes_plain(apply, bp: torch.Tensor, x0p: torch.Tensor,
+                      n_iterations: int, dot_dtype=torch.float32):
+    """The v2 iteration of the JAX package, step for step, for any operator
+    ``apply`` on (2, Nv, Nh) float32 planes: the plain version of the
+    streaming kernels.  ``dot_dtype`` is the type the dot products are
+    summed in before they are rounded to float32 (float64 for the
+    symmetric-coefficient kernel, float32 for the constant-tap one).
 
     r0 = b - A x0; then per iteration d = r + beta d, q = A d,
     alpha = delta / <d,q>, x += alpha d, r -= alpha q, delta' = <r,r>,
@@ -182,15 +183,16 @@ def stream_cg_const_planes_plain(offsets: Sequence[Tuple[int, int]], grid,
     evaluated afresh every iteration, zeroing alpha and beta.  History
     ``sqrt(sqrt(delta_r^2 + delta_i^2))``, n_iterations + 1 rows.
     """
-    _check_args(offsets, grid, taps, strips, bp, x0p, n_iterations)
+    def udot(a, b):
+        return _udot_grid(a.to(dot_dtype), b.to(dot_dtype)).to(bp.dtype)
 
-    def apply(v):
-        return apply_const_planes(offsets, taps, strips, v)
+    def rr(r):
+        return _rr_grid(r.to(dot_dtype)).to(bp.dtype)
 
     x = x0p.clone()
     r = bp - apply(x0p)
     d = torch.zeros_like(bp)
-    delta = _rr_grid(r)
+    delta = rr(r)
     hist = [_hist_row(delta)]
     beta = torch.zeros_like(delta)
     zero = torch.zeros_like(delta[0])
@@ -198,7 +200,7 @@ def stream_cg_const_planes_plain(offsets: Sequence[Tuple[int, int]], grid,
         d = torch.stack([r[0] + beta[0] * d[0] - beta[1] * d[1],
                          r[1] + beta[0] * d[1] + beta[1] * d[0]])
         q = apply(d)
-        dq = _udot_grid(d, q)
+        dq = udot(d, q)
         done = ((delta[0] == 0) & (delta[1] == 0)) \
             | ((dq[0] == 0) & (dq[1] == 0))
         a_r, a_i = _cdiv(delta[0], delta[1], torch.where(done, 1.0, dq[0]),
@@ -208,7 +210,7 @@ def stream_cg_const_planes_plain(offsets: Sequence[Tuple[int, int]], grid,
                          x[1] + a_r * d[1] + a_i * d[0]])
         r = torch.stack([r[0] - (a_r * q[0] - a_i * q[1]),
                          r[1] - (a_r * q[1] + a_i * q[0])])
-        dn = _rr_grid(r)
+        dn = rr(r)
         hist.append(_hist_row(dn))
         b_r, b_i = _cdiv(dn[0], dn[1], torch.where(done, 1.0, delta[0]),
                          torch.where(done, 0.0, delta[1]))
@@ -216,6 +218,18 @@ def stream_cg_const_planes_plain(offsets: Sequence[Tuple[int, int]], grid,
                             torch.where(done, zero, b_i)])
         delta = dn
     return x, torch.stack(hist)
+
+
+def stream_cg_const_planes_plain(offsets: Sequence[Tuple[int, int]], grid,
+                                 taps, strips: torch.Tensor,
+                                 bp: torch.Tensor, x0p: torch.Tensor,
+                                 n_iterations: int):
+    """Plain PyTorch version of the kernel: :func:`cocg_planes_plain` with
+    the operator of :func:`apply_const_planes`."""
+    _check_args(offsets, grid, taps, strips, bp, x0p, n_iterations)
+    return cocg_planes_plain(
+        lambda v: apply_const_planes(offsets, taps, strips, v), bp, x0p,
+        n_iterations)
 
 
 def kernel_limits() -> Tuple[int, int]:

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..sparse import Stencil2D
 
 
@@ -63,11 +64,13 @@ def banded_complex(n, offsets, seed=0):
     return (A + A.T) * 0.5
 
 
-def parabolic_stencil(Ng=725, device="cpu") -> Stencil2D:
+def parabolic_stencil(Ng=725, device=None) -> Stencil2D:
     """benchmarks/bench_fig5.py:195-217: the parabolic_fem class as an
     Ng x Ng 7-point float32 stencil (diagonal 8, six -1 neighbours, taps
     that leave the grid zeroed); ``.to_dia()`` gives offsets 0, +-1,
-    +-Ng, +-(Ng+1)."""
+    +-Ng, +-(Ng+1).  ``device`` defaults to the CUDA device (raising
+    without one)."""
+    device = resolve_device(device)
     offs = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (-1, -1))
     coef = np.empty((7, Ng, Ng), np.float32)
     coef[0] = 8.0

@@ -2,7 +2,8 @@
 
 The PyTorch port's copy of ``tpcg/problems/helmholtz.py``: the assembly is
 the same numpy code, and it returns ``tpcg_torch.sparse.Stencil2D`` with the
-coefficients as a torch tensor on ``device``.
+coefficients as a torch tensor on ``device`` (default: the CUDA device,
+raising without one; ``device="cpu"`` for the CPU).
 
 One vectorized assembler covers all three FE matrices of the reference:
 
@@ -45,6 +46,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..sparse import Stencil2D
 
 # neighbour offsets (dm, dj): node (m, j), flat index m*Nh + j.
@@ -75,7 +77,7 @@ def _pad_square_fields(sq, nv, nh):
 
 
 def assemble_helmholtz_fe(h: float, mass_sq: np.ndarray, bnd_sq: np.ndarray,
-                          dtype=np.complex128, device="cpu") -> Stencil2D:
+                          dtype=np.complex128, device=None) -> Stencil2D:
     """Assemble S = K - M - i*B on an (nv, nh) node grid.
 
     h       : mesh width (``1/(N-1)`` for the unit square;
@@ -85,6 +87,7 @@ def assemble_helmholtz_fe(h: float, mass_sq: np.ndarray, bnd_sq: np.ndarray,
     bnd_sq  : (nv-1, nh-1) boundary/impedance coefficient per square
               (``omega/c`` or ``eta``).
     """
+    device = resolve_device(device)
     mass_sq = np.asarray(mass_sq, dtype=dtype)
     bnd_sq = np.asarray(bnd_sq, dtype=dtype)
     nv, nh = mass_sq.shape[0] + 1, mass_sq.shape[1] + 1
@@ -164,7 +167,7 @@ def assemble_helmholtz_fe(h: float, mass_sq: np.ndarray, bnd_sq: np.ndarray,
 
 def helm_fe_var(N: int, omega: float, C: np.ndarray, rho: float,
                 Nhoriz=None, Nvert=None, dtype=np.complex128,
-                device="cpu") -> Stencil2D:
+                device=None) -> Stencil2D:
     """Variable-wave-speed Helmholtz FE matrix (``helmFE_var.py:9-331``).
 
     C : (Nvert-1, Nhoriz-1) wave speeds per square; k = omega / C.
@@ -182,7 +185,7 @@ def helm_fe_var(N: int, omega: float, C: np.ndarray, rho: float,
 
 def local_rect(N: int, k: float, eps: float, eta: float, L: float = 1.0,
                Nhoriz: int = None, Nvert: int = None,
-               dtype=np.complex128, device="cpu") -> Stencil2D:
+               dtype=np.complex128, device=None) -> Stencil2D:
     """Constant-coefficient Helmholtz FE block on an (Nvert x Nhoriz)
     sub-rectangle with mesh width ``h = L/(N-1)``
     (``p_h-PY_C-CL-multi-GPU.py:1434-1634``).  With ``eta = k`` this is the
@@ -197,7 +200,7 @@ def local_rect(N: int, k: float, eps: float, eta: float, L: float = 1.0,
 
 
 def helm_fe(N: int, k: float, eps: float, dtype=np.complex128,
-            device="cpu") -> Stencil2D:
+            device=None) -> Stencil2D:
     """Constant-coefficient global Helmholtz FE matrix
     (``p_h-PY_C-CL-multi-GPU.py:91-613``, sans the shared/own row split)."""
     return local_rect(N, k, eps, eta=k, L=1.0, Nhoriz=N, Nvert=N, dtype=dtype,

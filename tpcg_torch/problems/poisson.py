@@ -5,19 +5,22 @@ Debug/alternative problem selected by the reference's ``Use_Poisson`` flag
 scaling (pure homogeneous-Dirichlet interior stencil on an N x N node grid).
 
 The PyTorch port's copy of ``tpcg/problems/poisson.py``; it returns
-``tpcg_torch.sparse.Stencil2D`` on ``device``.
+``tpcg_torch.sparse.Stencil2D`` on ``device`` (default: the CUDA device,
+raising without one; ``device="cpu"`` for the CPU).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..sparse import Stencil2D
 
 OFFSETS = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0))
 
 
-def poisson(N: int, dtype=np.float64, device="cpu") -> Stencil2D:
+def poisson(N: int, dtype=np.float64, device=None) -> Stencil2D:
+    device = resolve_device(device)
     diag = np.full((N, N), 4.0, dtype=dtype)
     east = np.full((N, N), -1.0, dtype=dtype)
     east[:, -1] = 0.0
