@@ -81,10 +81,31 @@ Phases, in order; the first failure exits non-zero:
      exp_stream5sym.py:45-54) at N=1024 (with the complex128 spread line),
      2048, 2049 (a height JAX row-pads), 2896 and 4096 x 1000 iterations,
      and N=1024 with B=2; only ``stream_cg_sym`` may move;
- 12. a JSON line of the kernels (each with its launches on the main paths,
+ 12. the streaming real kernel (``stream_cg_real_planes``, const and coef
+     mode) against its plain version on the card, as phase 8: Poisson and
+     the 7-point FE stencil (const mode) and Poisson with a variable
+     diagonal (coef mode) cut to 256 x 256, 300 x 700, 1031 x 1024 and
+     600 x 1000, 40 iterations from a seeded x0 and RHS; a 2-RHS
+     ``stream-real`` plan; 2 I over 400 iterations in both modes;
+ 13. the planner's ``stream-real`` path at full size, as phase 9: Poisson
+     (``problems.poisson``) and a seeded normal RHS at N=1024 x 5000 (it
+     converges: the float64 relative residual is gated at 1e-3), 2048, 2049
+     (a height JAX row-pads), 2896 (a width JAX column-pads) and 4096 x 1000
+     and B=2 at N=1024; ``parabolic_stencil(2048)`` x 1000 (the 7-point FE
+     class); Poisson with the variable diagonal c[0] += 0.3 U(0, 1) (coef
+     mode) at N=1024 x 5000 (gated as Poisson) and 4096 x 1000; beside
+     N=2048 the coef kernel on Poisson's own planes, off the main path
+     (JAX's benchmarks/exp_realstream.py:34-74 configuration).  Only
+     ``stream_cg_real`` may move; the bytes rate is the kernel's own ~41 B a
+     node and iteration (plus 4 B a tap in coef mode) over its time;
+ 14. the ``l2-const`` path (forced, as in JAX): helm_fe(N, 12, eps=12) at
+     N=128 x 5000 and N=512 x 1000, B=1 and B=2 (plane waves), with phase
+     4's gates against the plain version (the residual gated at N=128, B=1)
+     and the ``l2-coef`` kernel's time on the same RHS beside it;
+ 15. a JSON line of the kernels (each with its launches on the main paths,
      its largest x error against its plain version, its time, its plain
      version's time, its bound and what sets it, and ``library_ms`` null: no
-     single PyTorch call computes a fixed-iteration COCG solve), the card
+     single PyTorch call computes a fixed-iteration CG solve), the card
      line, and the result line.
 
 Bounds (``bound_ms``): the larger of the bytes the solve must move, each
@@ -93,7 +114,10 @@ floating-point operations by report Table II over the 67 TFLOP/s float32
 rate of an H100 SXM (no tensor cores).  Phases 9 and 11 also print the
 state streaming floor: an iterate that does not fit on chip must at least
 read and write x, r and d every iteration (48 B a node), and on
-``stream-coef`` read the half coefficient planes once (32 B more).
+``stream-coef`` read the half coefficient planes once (32 B more); phase 13
+prints the real one (24 B a node, and 4 B a tap in coef mode).  Real
+stencils count ``2 nnz + 10 n`` operations an iteration
+(benchmarks/exp_realstream4.py:41).
 
 It drives only ``tpcg_torch`` and imports nothing of JAX.
 """
@@ -497,10 +521,14 @@ def wrappers():
     """kernel name -> the wrapper that counts its launches."""
     from tpcg_torch.ops.fused_cg import fused_cg_stencil
     from tpcg_torch.ops.stream_cg import stream_cg_const_planes
+    from tpcg_torch.ops.fused_cg_const import fused_cg_const_planes
+    from tpcg_torch.ops.stream_cg_real import stream_cg_real_planes
     from tpcg_torch.ops.stream_cg_sym import stream_cg_sym_planes
     out = {"fused_cg_stencil": fused_cg_stencil,
+           "fused_cg_const": fused_cg_const_planes,
            "stream_cg": stream_cg_const_planes,
-           "stream_cg_sym": stream_cg_sym_planes}
+           "stream_cg_sym": stream_cg_sym_planes,
+           "stream_cg_real": stream_cg_real_planes}
     out.update({k: v[0] for k, v in dia_kernels().items()})
     return out
 
@@ -748,6 +776,21 @@ def stream_case(dev, nv, nh, seed, direction=None):
                                                               dev)[:, 0]
 
 
+def freeze_check(name, xk, hk, xp, hp):
+    """2 I converges in one iteration: the kernel's history must reach 0 at
+    the iteration its plain version's does and stay there, all finite."""
+    hk, hp = hk.cpu().numpy(), hp.cpu().numpy()
+    zk, zp = np.where(hk == 0)[0], np.where(hp == 0)[0]
+    frozen = (len(zk) > 0 and len(zp) > 0 and zk[0] == zp[0]
+              and bool(np.all(hk[zk[0]:] == 0)))
+    finite = bool(torch.isfinite(xk).all() and np.isfinite(hk).all())
+    print(f"freeze {name} 400 it: finite {finite}, frozen {frozen} (first "
+          f"zero at {zk[0] if len(zk) else None}, plain "
+          f"{zp[0] if len(zp) else None}), x == plain {torch.equal(xk, xp)}")
+    if not (finite and frozen):
+        fail(f"{name} did not freeze as its plain version does")
+
+
 def phase_stream_compare(dev):
     """The streaming kernel against its plain version on the card; returns
     the max |x err|."""
@@ -799,18 +842,8 @@ def phase_stream_compare(dev):
     b = torch.zeros((2, 64, 64), device=dev)
     b[0] = 1.0
     args = (S.offsets, S.grid, taps, strips, b, torch.zeros_like(b), 400)
-    xk, hk = tsc.stream_cg_const_planes(*args)
-    xp, hp = tsc.stream_cg_const_planes_plain(*args)
-    hk, hp = hk.cpu().numpy(), hp.cpu().numpy()
-    zk, zp = np.where(hk == 0)[0], np.where(hp == 0)[0]
-    frozen = (len(zk) > 0 and len(zp) > 0 and zk[0] == zp[0]
-              and bool(np.all(hk[zk[0]:] == 0)))
-    finite = bool(torch.isfinite(xk).all() and np.isfinite(hk).all())
-    print(f"freeze stream_cg 2 I 64x64 400 it: finite {finite}, frozen "
-          f"{frozen} (first zero at {zk[0] if len(zk) else None}, plain "
-          f"{zp[0] if len(zp) else None}), x == plain {torch.equal(xk, xp)}")
-    if not (finite and frozen):
-        fail("stream_cg did not freeze as its plain version does")
+    freeze_check("stream_cg 2 I 64x64", *tsc.stream_cg_const_planes(*args),
+                 *tsc.stream_cg_const_planes_plain(*args))
     return worst
 
 
@@ -887,18 +920,8 @@ def phase_sym_compare(dev):
     b = torch.zeros((2, 64, 64), device=dev)
     b[0] = 1.0
     args = (half, cplanes, b, torch.zeros_like(b), 400)
-    xk, hk = tss.stream_cg_sym_planes(*args)
-    xp, hp = tss.stream_cg_sym_planes_plain(*args)
-    hk, hp = hk.cpu().numpy(), hp.cpu().numpy()
-    zk, zp = np.where(hk == 0)[0], np.where(hp == 0)[0]
-    frozen = (len(zk) > 0 and len(zp) > 0 and zk[0] == zp[0]
-              and bool(np.all(hk[zk[0]:] == 0)))
-    finite = bool(torch.isfinite(xk).all() and np.isfinite(hk).all())
-    print(f"freeze stream_cg_sym 2 I 64x64 400 it: finite {finite}, frozen "
-          f"{frozen} (first zero at {zk[0] if len(zk) else None}, plain "
-          f"{zp[0] if len(zp) else None}), x == plain {torch.equal(xk, xp)}")
-    if not (finite and frozen):
-        fail("stream_cg_sym did not freeze as its plain version does")
+    freeze_check("stream_cg_sym 2 I 64x64", *tss.stream_cg_sym_planes(*args),
+                 *tss.stream_cg_sym_planes_plain(*args))
     return worst
 
 
@@ -1061,6 +1084,328 @@ def phase_stream_main(dev, N, iters, nb=1, plain_full=False, spread=False,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+REAL_OWN_BYTES = 41     # csrc/stream_cg_real.cu's bytes a node and iteration
+
+
+def real_stencil(dev, kind, nv, nh):
+    """A real nv x nh stencil: ``poisson`` (5-point, diagonal 4), ``fe`` (the
+    parabolic_fem-class 7-point stencil, diagonal 8) or ``vardiag`` (Poisson
+    with c[0] += 0.3 U(0, 1) from seed 2); taps that leave the grid are
+    zero.  Square grids come from the entry points (``problems.poisson``,
+    ``parabolic_stencil``)."""
+    from tpcg_torch.problems import parabolic_stencil, poisson
+    from tpcg_torch.sparse import Stencil2D
+    if nv == nh and kind in ("poisson", "vardiag"):
+        S = poisson(nv, device=dev)
+    elif nv == nh:
+        S = parabolic_stencil(nv, device=dev)
+    else:
+        offs = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0))
+        taps = [4.0, -1.0, -1.0, -1.0, -1.0]
+        if kind == "fe":
+            offs += ((1, 1), (-1, -1))
+            taps = [8.0] + [-1.0] * 6
+        c = np.zeros((len(offs), nv, nh))
+        for s, (dm, dj) in enumerate(offs):
+            c[s, max(0, -dm):nv - max(0, dm),
+              max(0, -dj):nh - max(0, dj)] = taps[s]
+        S = Stencil2D(offs, torch.from_numpy(c).to(dev), (nv, nh))
+    if kind == "vardiag":
+        S.coef[0] += torch.from_numpy(
+            0.3 * np.random.default_rng(2).random((nv, nh))).to(dev)
+    return S
+
+
+def real_rhs(dev, nv, nh, seed):
+    """A seeded standard normal RHS and a 0.1 N(0, 1) initial guess."""
+    rng = np.random.default_rng(seed)
+    b = rng.standard_normal((nv, nh)).astype(np.float32)
+    x0 = (0.1 * rng.standard_normal((nv, nh))).astype(np.float32)
+    return torch.from_numpy(b).to(dev), torch.from_numpy(x0).to(dev)
+
+
+def real_run(S, prepared, b, x0, iters, plain=False):
+    """One RHS through the real kernel (or its plain version) in the mode
+    ``prepared`` names."""
+    from tpcg_torch.ops import stream_cg_real as tsr
+    mode, operand = prepared
+    if mode == "const":
+        fn = (tsr.stream_cg_real_planes_plain if plain
+              else tsr.stream_cg_real_planes)
+        return fn(S.offsets, S.grid, *operand, b, x0, iters)
+    fn = (tsr.stream_cg_real_coef_planes_plain if plain
+          else tsr.stream_cg_real_coef_planes)
+    return fn(S.offsets, operand, b, x0, iters)
+
+
+def phase_real_compare(dev):
+    """The streaming real kernel against its plain version on the card;
+    returns the max |x err|."""
+    import tpcg_torch
+    from tpcg_torch.ops import stream_cg_real as tsr
+    from tpcg_torch.sparse import Stencil2D
+    worst = 0.0
+    for nv, nh, seed in ((256, 256, 1), (300, 700, 2), (1031, 1024, 3),
+                         (600, 1000, 4)):
+        for kind in ("poisson", "fe", "vardiag"):
+            S = real_stencil(dev, kind, nv, nh)
+            prepared = tsr.prepare_real(S)
+            b, x0 = real_rhs(dev, nv, nh, seed)
+            xk, hk = real_run(S, prepared, b, x0, 40)
+            xk2, hk2 = real_run(S, prepared, b, x0, 40)
+            xp, hp = real_run(S, prepared, b, x0, 40, plain=True)
+            torch.cuda.synchronize()
+            ok, err, lim, rel = dia_close(xk, hk, xp, hp)
+            same = torch.equal(xk, xk2) and torch.equal(hk, hk2)
+            print(f"compare stream_cg_real {kind} ({prepared[0]}) {nv}x{nh} "
+                  f"40 it: max|x err| {err:.3e} (limit {lim:.3e}), hist max "
+                  f"rel {rel:.3e} (limit 1e-2), repeat bit-equal {same}, x "
+                  f"and history bit-equal to plain "
+                  f"{torch.equal(xk, xp) and torch.equal(hk, hp)}")
+            if not (ok and same):
+                fail(f"stream_cg_real disagrees with its plain version "
+                     f"({kind} {nv}x{nh})")
+            worst = max(worst, err)
+
+    # a 2-RHS plan: two launches, each column its single-RHS launch's bits
+    S = real_stencil(dev, "poisson", 1024, 1024)
+    (b1, x1), (b2, x2) = (real_rhs(dev, 1024, 1024, seed) for seed in (5, 6))
+    plan = tpcg_torch.plan_stencil_cg(S, 40, nb=2)
+    xb, hb = plan.solve_planes(torch.stack([b1, b2]), torch.stack([x1, x2]))
+    same = plan.path == "stream-real"
+    prepared = tsr.prepare_real(S)
+    for c, (b, x0) in enumerate(((b1, x1), (b2, x2))):
+        xs, hs = real_run(S, prepared, b, x0, 40)
+        same = same and torch.equal(xb[c], xs) and torch.equal(hb[:, c], hs)
+    print(f"stream-real plan 1024x1024 B=2 40 it: path {plan.path}, each "
+          f"column bit-equal to its single-RHS launch {same}")
+    if not same:
+        fail("a 2-RHS stream-real plan differs from its single-RHS launches")
+
+    # 2 I: converges in one iteration, then frozen, in both modes
+    A = real_stencil(dev, "poisson", 64, 64)
+    coef = torch.zeros_like(A.coef)
+    coef[0] = 2.0
+    S = Stencil2D(A.offsets, coef, A.grid)
+    b = torch.ones((64, 64), device=dev)
+    for prepared in (tsr.prepare_real(S),
+                     ("coef", tsr.prepare_stream_coef_real(S))):
+        xk, hk = real_run(S, prepared, b, torch.zeros_like(b), 400)
+        xp, hp = real_run(S, prepared, b, torch.zeros_like(b), 400,
+                          plain=True)
+        freeze_check(f"stream_cg_real ({prepared[0]}) 2 I 64x64", xk, hk, xp,
+                     hp)
+    return worst
+
+
+def phase_real_main(dev, kind, N, iters, nb=1, gate_residual=False,
+                    plain_full=False, also_coef=False):
+    """The ``stream-real`` path at full size on ``real_stencil(kind, N)``
+    with seeded normal RHS; returns its numbers."""
+    import tpcg_torch
+    from tpcg_torch.ops import stream_cg_real as tsr
+    t0 = time.perf_counter()
+    A = real_stencil(dev, kind, N, N)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    n = N * N
+    nnz = int(torch.count_nonzero(A.coef))
+    t0 = time.perf_counter()
+    prep = tsr.prepare_real(A)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    B = torch.stack([real_rhs(dev, N, N, 11 + c)[0] for c in range(nb)])
+    Bh = B.cpu().numpy()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    plan = tpcg_torch.plan_stencil_cg(A, iters, nb=nb)
+    x, hist = plan.solve(Bh if nb > 1 else Bh[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = moved_counts()
+    launches = counts.get("stream_cg_real", 0)
+    label = f"stream-real {kind} ({prep[0]}) N={N} B={nb}"
+    print(f"{label}: n={n} nnz={nnz} path={plan.path} kernel launches "
+          f"{counts}; host s: assembly {t_asm:.3f}, prepare_real "
+          f"{t_prep:.3f}, plan + solve {wall:.3f} (plan prepares again; "
+          "solve uploads b and downloads x)")
+    if (plan.path != "stream-real" or set(counts) != {"stream_cg_real"}
+            or launches != nb):
+        fail(f"N={N}: the stream-real path did not run its kernel once per "
+             "RHS")
+    X = np.asarray(x).reshape(nb, N, N)
+    H = np.asarray(hist).reshape(iters + 1, nb)
+    if X.dtype != np.float32:
+        fail(f"stream-real returned {X.dtype}, not float32")
+    for c in range(nb):
+        xt = torch.from_numpy(X[c]).to(dev, torch.float64)
+        bt = B[c].double()
+        res = float(torch.linalg.norm(bt - A.apply_grid(xt))
+                    / torch.linalg.norm(bt))
+        finite = bool(np.isfinite(X[c]).all() and np.isfinite(H[:, c]).all())
+        print(f"{label} rhs {c} {iters} it: finite {finite}, hist[0] "
+              f"{H[0, c]:.4e}, least {H[:, c].min():.4e} at iteration "
+              f"{int(H[:, c].argmin())}, hist[-1] {H[-1, c]:.4e}, relative "
+              f"residual (f64) {res:.3e}"
+              + (" (limit 1e-3)" if gate_residual else ""))
+        if not finite or (gate_residual and res > 1e-3):
+            fail(f"{label}: relative residual {res:.3e}")
+
+    # the 100-iteration gate from a zero guess, and the plain version's time
+    b0 = B[0].contiguous()
+    x0 = torch.zeros_like(b0)
+    xk, hk = real_run(A, prep, b0, x0, 100)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    xp, hp = real_run(A, prep, b0, x0, 100, plain=True)
+    end.record()
+    torch.cuda.synchronize()
+    gate_plain_ms = start.elapsed_time(end)
+    ok, err, lim, rel = dia_close(xk, hk, xp, hp)
+    print(f"{label}: gate 100 it vs plain: max|x err| {err:.3e} (limit "
+          f"{lim:.3e}), hist max rel {rel:.3e} (limit 1e-2), bit-equal "
+          f"{torch.equal(xk, xp) and torch.equal(hk, hp)}; plain "
+          f"{gate_plain_ms:.3f} ms")
+    if not ok:
+        fail(f"stream_cg_real disagrees with its plain version at N={N}")
+
+    ms, (xk_full, _) = median_ms(
+        lambda: plan.solve_planes(B if nb > 1 else b0), reps=5)
+    xk_full = xk_full if nb == 1 else xk_full[0]
+    flop = 2 * nnz + 10 * n
+    gflops = nb * iters * flop / (ms * 1e-3) / 1e9
+    operand = prep[1][1] if prep[0] == "const" else prep[1]
+    # the strips or planes read once; per RHS b and x0 read, x and the
+    # history written
+    bound_ms, bound_by = bound(
+        4 * (operand.numel() + nb * (3 * n + iters + 1)), nb * iters * flop)
+    tap_bytes = 0 if prep[0] == "const" else 4 * len(A.offsets)
+    floor_ms = nb * iters * (24 + tap_bytes) * n / HBM_BYTES_PER_S * 1e3
+    own = nb * iters * (REAL_OWN_BYTES + tap_bytes) * n / (ms * 1e-3) / 1e12
+    plain_ms = None
+    if plain_full:
+        start.record()
+        xs, hs = real_run(A, prep, b0, x0, iters, plain=True)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        res = float(torch.linalg.norm(B[0].double() - A.apply_grid(
+            xs.double())) / torch.linalg.norm(B[0].double()))
+        print(f"{label}: the plain version over {iters} it: hist[-1] "
+              f"{float(hs[-1]):.4e}, relative residual (f64) {res:.3e}, x "
+              f"bit-equal to the kernel's {torch.equal(xs, xk_full)}")
+    print(f"time {label} {iters} it: kernel {ms:.3f} ms "
+          f"({ms * 1e3 / (nb * iters):.3f} us/it per RHS, {gflops:.2f} GFLOPS "
+          f"Table II, all RHS; own ~{REAL_OWN_BYTES + tap_bytes} B a node at "
+          f"{own:.2f} TB/s); bound {bound_ms:.3f} ms ({bound_by}); state "
+          f"streaming floor ({24 + tap_bytes} B a node) {floor_ms:.3f} ms"
+          + (f"; plain {plain_ms:.3f} ms (one run, {iters} it)"
+             if plain_ms is not None else ""))
+    if also_coef:
+        coefp = tsr.prepare_stream_coef_real(A)
+        ms2, _ = median_ms(lambda: tsr.stream_cg_real_coef_planes(
+            A.offsets, coefp, b0, x0, iters), reps=5)
+        own2 = iters * (REAL_OWN_BYTES + 4 * len(A.offsets)) * n / (
+            ms2 * 1e-3) / 1e12
+        print(f"time {label} {iters} it: coef mode on the same planes (off "
+              f"the main path) {ms2:.3f} ms ({ms2 * 1e3 / iters:.3f} us/it, "
+              f"{iters * flop / (ms2 * 1e-3) / 1e9:.2f} GFLOPS Table II; own "
+              f"~{REAL_OWN_BYTES + 4 * len(A.offsets)} B a node at "
+              f"{own2:.2f} TB/s)")
+    return dict(ms=ms, plain_ms=plain_ms, launches=launches, err=err,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_l2_const(dev, N, iters, nb, check_residual, plain_full=False):
+    """The forced ``l2-const`` path on helm_fe(N, 12, eps=12) with nb plane
+    waves; returns its numbers and prints l2-coef's time beside."""
+    import tpcg_torch
+    from tpcg_torch.ops import fused_cg_const as tcc
+    from tpcg_torch.ops.cplx import block_cg_planes, make_pair_operator
+    from tpcg_torch.problems import helm_fe, plane_wave_rhs
+    A = helm_fe(N, K_WAVE, eps=K_WAVE, device=dev)
+    n = N * N
+    nnz = int(torch.count_nonzero(A.coef))
+    B = np.stack([plane_wave_rhs(N, K_WAVE),
+                  plane_wave_rhs(N, K_WAVE, (0.6, 0.8))][:nb])
+    reset_counts()
+    plan = tpcg_torch.plan_stencil_cg(A, iters, nb=nb, path="l2-const")
+    x, hist = plan.solve(B if nb > 1 else B[0])
+    torch.cuda.synchronize()
+    counts = moved_counts()
+    launches = counts.get("fused_cg_const", 0)
+    label = f"l2-const N={N} B={nb}"
+    print(f"{label}: n={n} nnz={nnz} path={plan.path} kernel launches "
+          f"{counts}")
+    if plan.path != "l2-const" or set(counts) != {"fused_cg_const"}:
+        fail(f"{label}: the l2-const path did not run its kernel")
+    X = np.asarray(x).reshape(nb, N, N)
+    A64 = A.to_scipy()
+    for c in range(nb):
+        res = float(np.linalg.norm(B[c].reshape(-1) - A64 @ X[c].astype(
+            np.complex128).reshape(-1)) / np.linalg.norm(B[c]))
+        finite = bool(np.isfinite(X[c]).all() and np.isfinite(hist).all())
+        gated = check_residual and c == 0
+        print(f"{label} rhs {c} {iters} it: finite {finite}, relative "
+              f"residual (f64) {res:.3e}" + (" (limit 1e-3)" if gated else ""))
+        if not finite or (gated and res > 1e-3):
+            fail(f"{label}: relative residual {res:.3e}")
+
+    # phase 4's gates over 100 iterations: x and the history against the
+    # plain version, the history against the plain planes oracle
+    bp = planes(B, dev)
+    x0p = torch.zeros_like(bp)
+    cr, ci, strips = tcc.prepare_const(A)
+    xk, hk = tpcg_torch.plan_stencil_cg(A, 100, path="l2-const").solve_planes(
+        bp, x0p)
+    xp, hp = tcc.fused_cg_const_planes_plain(A.offsets, A.grid, cr, ci,
+                                             strips, bp, x0p, 100)
+    ok, err, lim, excess = fused_close(xk, hk, xp, hp)
+    hs = block_cg_planes(make_pair_operator(A),
+                         bp.reshape(2, nb, n).transpose(1, 2),
+                         n_iterations=100).residual_history
+    # phase 4 holds its plane wave (rhs 0) to the oracle; the second
+    # direction is printed
+    rel = ((hk - hs).abs() / (hs.abs() + 1e-30)).amax(dim=0).tolist()
+    print(f"{label}: gate 100 it vs fused_cg_const_planes_plain: max|x err| "
+          f"{err:.3e} (limit {lim:.3e}), hist excess over tolerance "
+          f"{excess:.3e}; vs plain block_cg_planes: max rel history diff "
+          f"{', '.join(f'{v:.3e}' for v in rel)} (limit 1e-2 on rhs 0)")
+    if not (ok and rel[0] <= 1e-2):
+        fail(f"{label}: 100-iteration gate failed")
+
+    ms, _ = median_ms(lambda: plan.solve_planes(bp), reps=5)
+    coef_plan = tpcg_torch.plan_stencil_cg(A, iters, nb=nb)
+    ms_coef, _ = median_ms(lambda: coef_plan.solve_planes(bp), reps=5)
+    flop = 8 * nnz + 16 * n + 24 * n
+    plain_ms = None
+    if plain_full:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tcc.fused_cg_const_planes_plain(A.offsets, A.grid, cr, ci, strips, bp,
+                                        x0p, iters)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+    # the strips read once; per RHS b and x0 read, x and the history written
+    bound_ms, bound_by = bound(
+        4 * (sum(t.numel() for t in strips) + 3 * bp.numel()
+             + nb * (iters + 1)), nb * iters * flop)
+    print(f"time {label} {iters} it: l2-const kernel {ms:.3f} ms "
+          f"({ms * 1e3 / iters:.3f} us/it, "
+          f"{nb * iters * flop / (ms * 1e-3) / 1e9:.2f} GFLOPS Table II, all "
+          f"RHS); l2-coef kernel on the same RHS ({coef_plan.path}) "
+          f"{ms_coef:.3f} ms ({ms_coef * 1e3 / iters:.3f} us/it); const / "
+          f"coef {ms / ms_coef:.3f}; bound {bound_ms:.3f} ms ({bound_by})"
+          + (f"; plain {plain_ms:.3f} ms (one run, {iters} it)"
+             if plain_ms is not None else ""))
+    return dict(ms=ms, plain_ms=plain_ms, launches=launches, err=err,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -1087,6 +1432,20 @@ def main():
            phase_stream_main(dev, 2896, 1000, sym=True),
            phase_stream_main(dev, 4096, 1000, plain_full=True, sym=True),
            phase_stream_main(dev, 1024, 1000, nb=2, sym=True)]
+    real_err = phase_real_compare(dev)
+    real = [phase_real_main(dev, "poisson", 1024, 5000, gate_residual=True),
+            phase_real_main(dev, "poisson", 2048, 1000, also_coef=True),
+            phase_real_main(dev, "poisson", 2049, 1000),
+            phase_real_main(dev, "poisson", 2896, 1000),
+            phase_real_main(dev, "poisson", 4096, 1000, plain_full=True),
+            phase_real_main(dev, "poisson", 1024, 1000, nb=2),
+            phase_real_main(dev, "fe", 2048, 1000),
+            phase_real_main(dev, "vardiag", 1024, 5000, gate_residual=True),
+            phase_real_main(dev, "vardiag", 4096, 1000, plain_full=True)]
+    l2c = [phase_l2_const(dev, 128, 5000, 1, True, plain_full=True),
+           phase_l2_const(dev, 128, 5000, 2, True),
+           phase_l2_const(dev, 512, 1000, 1, False),
+           phase_l2_const(dev, 512, 1000, 2, False)]
     kernels = [{
         "name": "fused_cg_stencil", "route": "cuda",
         "source": "tpcg_torch/csrc/fused_cg.cu",
@@ -1133,6 +1492,30 @@ def main():
         "max_abs_err": max([sym_err] + [r["err"] for r in sym]),
         "ms": sym[4]["ms"], "plain_ms": sym[4]["plain_ms"],
         "bound_ms": sym[4]["bound_ms"], "bound_by": sym[4]["bound_by"],
+        "library_ms": None})
+    # the real kernel's headline cell: Poisson N=4096, 1000 iterations
+    kernels.append({
+        "name": "stream_cg_real", "route": "cuda",
+        "source": "tpcg_torch/csrc/stream_cg_real.cu",
+        "replaces": "tpcg/ops/stream_cg_real.py:167; "
+                    "tpcg/ops/stream_cg_real.py:265; "
+                    "tpcg/ops/stream_cg_real.py:315; "
+                    "tpcg/ops/stream_cg_v4_real.py:37; "
+                    "tpcg/ops/stream_cg_v5_real.py:51",
+        "launches": sum(r["launches"] for r in real),
+        "max_abs_err": max([real_err] + [r["err"] for r in real]),
+        "ms": real[4]["ms"], "plain_ms": real[4]["plain_ms"],
+        "bound_ms": real[4]["bound_ms"], "bound_by": real[4]["bound_by"],
+        "library_ms": None})
+    # the const whole solve's headline cell: helm_fem N=128, 5000 it, B=1
+    kernels.append({
+        "name": "fused_cg_const", "route": "cuda",
+        "source": "tpcg_torch/csrc/fused_cg.cu",
+        "replaces": "tpcg/ops/fused_cg_const.py:136",
+        "launches": sum(r["launches"] for r in l2c),
+        "max_abs_err": max(r["err"] for r in l2c),
+        "ms": l2c[0]["ms"], "plain_ms": l2c[0]["plain_ms"],
+        "bound_ms": l2c[0]["bound_ms"], "bound_by": l2c[0]["bound_by"],
         "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -128,7 +128,8 @@ def test_rcm_shuffled_band_takes_the_same_perm():
     p = rng.permutation(100)
     Ashuf = sp.csr_matrix(A[p][:, p])
     Mj, pj = jtdm(Ashuf, reorder=True)
-    Mt, pt = tpcg_torch.to_device_matrix(Ashuf, reorder=True)
+    Mt, pt = tpcg_torch.to_device_matrix(Ashuf, reorder=True,
+                                          device="cpu")
     assert isinstance(Mt, tpcg_torch.DiaMatrix) and pt is not None
     np.testing.assert_array_equal(pt, pj)
     assert Mt.offsets == tuple(Mj.offsets)
@@ -147,7 +148,7 @@ def test_unstructured_on_cpu_runs_ell_like_jax():
                        (rows, cols)), shape=(n, n))
     A = sp.csr_matrix((A + A.T) * 0.5 + sp.eye(n) * per_row)
     M, perm = tpcg_torch.to_device_matrix(A, reorder=True,
-                                          route_fallback=True)
+                                          route_fallback=True, device="cpu")
     assert isinstance(M, tpcg_torch.EllMatrix) and perm is None
     b = rng.standard_normal(n)
     xj = tpcg.cg(n, *csr_args(A)[:2], b, *csr_args(A)[2:], n_iterations=30)
@@ -292,3 +293,35 @@ def test_default_device_is_the_card(monkeypatch, entry):
         assert isinstance(out, np.ndarray) and np.isfinite(out).all()
     else:
         assert out.device.type == "cpu"
+
+
+_CONSTRUCTORS = {
+    "to_device_matrix": lambda **kw: tpcg_torch.to_device_matrix(spd(30),
+                                                                 **kw),
+    "DiaMatrix.from_scipy": lambda **kw: tpcg_torch.DiaMatrix.from_scipy(
+        spd(30), **kw),
+    "EllMatrix.from_scipy": lambda **kw: tpcg_torch.EllMatrix.from_scipy(
+        spd(30), **kw),
+    "EllMatrix.from_csr_arrays": lambda **kw:
+        tpcg_torch.EllMatrix.from_csr_arrays(30, *_csr_parts(spd(30)), **kw),
+    "to_planes": lambda **kw: tpcg_torch.ops.cplx.to_planes(
+        np.ones(6) + 1j, **kw),
+}
+
+
+def _csr_parts(A):
+    A = sp.csr_matrix(A)
+    return A.data, A.indptr, A.indices
+
+
+@pytest.mark.parametrize("ctor", sorted(_CONSTRUCTORS))
+def test_constructor_default_device_is_the_card(monkeypatch, ctor):
+    """The containers' constructors and ``to_planes`` default to the CUDA
+    device as the entry points do: without a card, a call that names no
+    device raises and is not moved to the CPU silently; with
+    ``device="cpu"`` it builds on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _CONSTRUCTORS[ctor]()
+    out = _CONSTRUCTORS[ctor](device="cpu")
+    assert out.device.type == "cpu"

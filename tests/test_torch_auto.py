@@ -49,14 +49,17 @@ def test_planner_on_cuda_refuses_tiers_not_ported(monkeypatch, grid, dtype,
                                                   jax_tier):
     """Past the whole-solve size (its threshold lowered here): a symmetric
     variable-coefficient complex grid, where JAX takes stream-coef (and
-    pad->stream-coef for the prime height 29), now plans ``stream-coef``
-    on the unpadded grid; a real grid from JAX's real-streaming size, and a
-    non-symmetric variable-coefficient grid, still raise naming their
-    ROADMAP item."""
+    pad->stream-coef for the prime height 29), plans ``stream-coef`` on the
+    unpadded grid; a real grid from JAX's real-streaming size (Poisson,
+    1024^2) plans ``stream-real`` in const mode; a non-symmetric
+    variable-coefficient grid still raises naming its ROADMAP item."""
     monkeypatch.setattr(auto, "_L2_NODES", 256)
     if not dtype.is_complex:
-        with pytest.raises(NotImplementedError, match=jax_tier):
-            tpcg_torch.plan_stencil_cg(_fake_cuda_stencil(grid, dtype), 10)
+        T = tpcg_torch.problems.poisson(grid[0], device="cpu")
+        fake = _fake_cuda_stencil(grid, dtype, T.coef.to(dtype), T.offsets)
+        plan = tpcg_torch.plan_stencil_cg(fake, 10)
+        assert plan.path == jax_tier and plan.grid == grid
+        assert auto._pick_path(fake, 1, on_cuda=True)[1][0] == "const"
         return
     nv, nh = grid
     C = 1.0 + 0.5 * np.random.default_rng(4).random((nv - 1, nh - 1))
@@ -78,22 +81,29 @@ def test_planner_on_cuda_refuses_tiers_not_ported(monkeypatch, grid, dtype,
 @pytest.mark.parametrize("path", ["vmem-const", "stream", "stream-coef",
                                   "stream-real"])
 def test_explicit_unported_path_raises(path):
-    """Forcing a path the port lacks raises naming its ROADMAP item; so does
-    forcing ``stream-coef`` on a non-symmetric stencil (JAX's general
-    coefficient kernels).  Forcing ``stream`` on a variable-coefficient
-    stencil raises ``prepare_stream``'s ValueError, as JAX's planner does."""
+    """Forcing ``stream-coef`` on a non-symmetric stencil (JAX's general
+    coefficient kernels, not ported) raises naming its ROADMAP item.  The
+    JAX name ``vmem-const`` raises the "unknown path" ValueError that
+    ``vmem-coef`` raises (the port's names are ``l2-const`` and
+    ``l2-coef``); forcing ``stream`` on a variable-coefficient stencil
+    raises ``prepare_stream``'s ValueError, as JAX's planner does, and
+    forcing ``stream-real`` on a complex stencil a ValueError."""
     S = from_tpcg(helm_fe(8, 3.0, eps=3.0))
     if path in ("stream", "stream-coef"):
         C = 1.0 + 0.5 * np.random.default_rng(4).random((7, 7))
         S = tpcg_torch.problems.helm_fe_var(8, 3.0, C, rho=0.1, device="cpu")
     if path == "stream-coef":
         S.coef[1] *= 1.5
-    if path == "stream":
-        with pytest.raises(ValueError, match="not constant"):
-            tpcg_torch.plan_stencil_cg(S, 5, path=path)
-    else:
+    match = {"vmem-const": "unknown path", "stream": "not constant",
+             "stream-real": "real stencil"}.get(path)
+    if match is None:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpcg_torch.plan_stencil_cg(S, 5, path=path)
+    else:
+        with pytest.raises(ValueError, match=match):
+            tpcg_torch.plan_stencil_cg(S, 5, path=path)
+    with pytest.raises(ValueError, match="unknown path"):
+        tpcg_torch.plan_stencil_cg(S, 5, path="vmem-coef")
     with pytest.raises(ValueError):
         tpcg_torch.plan_stencil_cg(S, 5, path="xla")
 
@@ -184,7 +194,8 @@ def test_import_pulls_in_no_jax():
             "tpcg_torch.api, tpcg_torch.io, tpcg_torch.cli, "
             "tpcg_torch.ops.stream_cg_dia, tpcg_torch.ops.fused_cg_dia, "
             "tpcg_torch.ops.stream_cg, tpcg_torch.ops.fused_cg_const, "
-            "tpcg_torch.ops.stream_cg_sym, tpcg_torch.device, "
+            "tpcg_torch.ops.stream_cg_sym, tpcg_torch.ops.stream_cg_real, "
+            "tpcg_torch.device, "
             "tpcg_torch.native.mtx_native; "
             "tpcg_torch.native.mtx_native.available(); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "

@@ -73,7 +73,8 @@ def test_block_cg_planes_f32_matches_jax(nb, iters, x0_seed):
                               jcx.to_planes(X0, jnp.float32),
                               n_iterations=iters)
     got = tcx.block_cg_planes(tcx.make_pair_operator(from_tpcg(S)),
-                              tcx.to_planes(B), tcx.to_planes(X0),
+                              tcx.to_planes(B, device="cpu"),
+                              tcx.to_planes(X0, device="cpu"),
                               n_iterations=iters)
     xr = jcx.from_planes(np.asarray(ref.x))
     np.testing.assert_allclose(tcx.from_planes(got.x), xr, rtol=0,
@@ -95,7 +96,8 @@ def test_zero_rhs_column_stays_finite():
     assert (res.x[:, 1] == 0).all()
     assert float(res.residual_history[-1, 0]) < 1e-8
     planes = tcx.block_cg_planes(tcx.make_pair_operator(S),
-                                 tcx.to_planes(B), n_iterations=150)
+                                 tcx.to_planes(B, device="cpu"),
+                                 n_iterations=150)
     assert torch.isfinite(planes.x).all()
     assert torch.isfinite(planes.residual_history).all()
     assert (planes.x[:, :, 1] == 0).all()
@@ -105,8 +107,9 @@ def test_block_cg_planes_chunked_equals_per_rhs():
     S = from_tpcg(helm_fe(8, 3.0, eps=3.0))
     B = _helm_rhs(8, 3.0, 5)
     P = tcx.make_pair_operator(S)
-    whole = tcx.block_cg_planes(P, tcx.to_planes(B), n_iterations=12)
-    chunked = tcx.block_cg_planes_chunked(P, tcx.to_planes(B),
+    whole = tcx.block_cg_planes(P, tcx.to_planes(B, device="cpu"),
+                                n_iterations=12)
+    chunked = tcx.block_cg_planes_chunked(P, tcx.to_planes(B, device="cpu"),
                                           n_iterations=12, chunk=2)
     assert chunked.x.shape == whole.x.shape
     assert chunked.residual_history.shape == (13, 5)
@@ -135,7 +138,7 @@ def test_cplx_helpers_match_jax():
                                np.asarray(jcx.cabs(a)), rtol=1e-13)
     c = a[0] + 1j * a[1]
     np.testing.assert_array_equal(tcx.from_planes(tcx.to_planes(
-        c, torch.float64)), c)
+        c, torch.float64, device="cpu")), c)
     np.testing.assert_allclose(tcx.cdiv(ta, tb).numpy()[0] + 1j
                                * tcx.cdiv(ta, tb).numpy()[1],
                                c / (b[0] + 1j * b[1]), rtol=1e-12)

@@ -629,3 +629,177 @@ def test_planner_on_card_takes_the_sym_path(dev):
     coef[1] *= 1.5
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpcg_torch.plan_stencil_cg(Stencil2D(S.offsets, coef, S.grid), 5)
+
+
+# ---- streaming real kernel (csrc/stream_cg_real.cu), both modes
+# The tolerances of the streaming kernels' checks above: the kernel applies
+# each operator bit for bit as the plain version does, and both sum their
+# dot products in float64.
+
+tsr = importlib.import_module("tpcg_torch.ops.stream_cg_real")
+
+
+def _real_stencil(dev, kind, nv, nh):
+    """A real nv x nh stencil: ``poisson`` (5-point, diagonal 4),
+    ``fe`` (the parabolic_fem-class 7-point stencil, diagonal 8) or
+    ``vardiag`` (Poisson, c[0] += 0.3 U(0, 1) from seed 2); taps that leave
+    the grid are zero."""
+    from tpcg_torch.sparse import Stencil2D
+    offs = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0))
+    taps = [4.0, -1.0, -1.0, -1.0, -1.0]
+    if kind == "fe":
+        offs += ((1, 1), (-1, -1))
+        taps = [8.0] + [-1.0] * 6
+    c = np.zeros((len(offs), nv, nh))
+    for s, (dm, dj) in enumerate(offs):
+        c[s, max(0, -dm):nv - max(0, dm), max(0, -dj):nh - max(0, dj)] = taps[s]
+    if kind == "vardiag":
+        c[0] += 0.3 * np.random.default_rng(2).random((nv, nh))
+    return Stencil2D(offs, torch.from_numpy(c).to(dev), (nv, nh))
+
+
+def _real_rhs(dev, nv, nh, seed):
+    rng = np.random.default_rng(seed)
+    b = torch.from_numpy(rng.standard_normal((nv, nh)).astype(np.float32))
+    x0 = torch.from_numpy((0.1 * rng.standard_normal((nv, nh))).astype(
+        np.float32))
+    return b.to(dev), x0.to(dev)
+
+
+def _real_run(S, prepared, b, x0, iters, plain=False):
+    mode, operand = prepared
+    if mode == "const":
+        fn = tsr.stream_cg_real_planes_plain if plain else \
+            tsr.stream_cg_real_planes
+        return fn(S.offsets, S.grid, *operand, b, x0, iters)
+    fn = tsr.stream_cg_real_coef_planes_plain if plain else \
+        tsr.stream_cg_real_coef_planes
+    return fn(S.offsets, operand, b, x0, iters)
+
+
+# the smoke's geometries, both modes, 40 iterations from a seeded x0
+@pytest.mark.parametrize("nv,nh,seed", [(256, 256, 1), (300, 700, 2),
+                                        (1031, 1024, 3), (600, 1000, 4)])
+@pytest.mark.parametrize("kind,mode", [("poisson", "const"),
+                                       ("fe", "const"), ("vardiag", "coef")])
+def test_real_kernel_matches_plain(dev, nv, nh, seed, kind, mode):
+    S = _real_stencil(dev, kind, nv, nh)
+    prepared = tsr.prepare_real(S)
+    assert prepared[0] == mode
+    b, x0 = _real_rhs(dev, nv, nh, seed)
+    before = tsr.stream_cg_real_planes.launches
+    xk, hk = _run_twice(_real_run, S, prepared, b, x0, 40)
+    assert tsr.stream_cg_real_planes.launches == before + 2
+    xp, hp = _real_run(S, prepared, b, x0, 40, plain=True)
+    _assert_dia_close(xk, hk, xp, hp)
+
+
+def test_real_kernel_applies_the_operator(dev):
+    """Zero iterations give r0 = b - A x0 only, in both modes: x = x0 and
+    hist[0] from the plain operator's residual, on a grid with all four
+    corners in play."""
+    S = _real_stencil(dev, "fe", 37, 45)
+    b, x0 = _real_rhs(dev, 37, 45, 5)
+    for prepared in (tsr.prepare_real(S),
+                     ("coef", tsr.prepare_stream_coef_real(S))):
+        x, h = _real_run(S, prepared, b, x0, 0)
+        xp, hp = _real_run(S, prepared, b, x0, 0, plain=True)
+        assert torch.equal(x, x0) and torch.allclose(h, hp, rtol=1e-6)
+
+
+def test_real_plan_batch_columns_equal_single_launches(dev):
+    """B=3 through a stream-real plan: three launches, each column bit-equal
+    to its single-RHS launch; solve returns real float32 x."""
+    S = _real_stencil(dev, "poisson", 1024, 1024)
+    plan = tpcg_torch.plan_stencil_cg(S, 30, nb=3)
+    assert plan.path == "stream-real"
+    cols = [_real_rhs(dev, 1024, 1024, s)[0] for s in range(3)]
+    before = tsr.stream_cg_real_planes.launches
+    xb, hb = plan.solve_planes(torch.stack(cols))
+    assert tsr.stream_cg_real_planes.launches == before + 3
+    for c in range(3):
+        x1, h1 = plan.solve_planes(cols[c])
+        assert torch.equal(xb[c], x1) and torch.equal(hb[:, c], h1)
+    x, hist = plan.solve(cols[0].cpu().numpy())
+    assert x.dtype == np.float32 and x.shape == (1024, 1024)
+    np.testing.assert_array_equal(hist, hb[:, 0].cpu().numpy())
+
+
+@pytest.mark.parametrize("mode", ["const", "coef"])
+def test_real_kernel_freezes(dev, mode):
+    """2 I converges in one iteration; over 400 iterations the kernel reads
+    0 from iteration 1, as the plain version does, stays finite, and gives
+    x = b / 2."""
+    from tpcg_torch.sparse import Stencil2D
+    A = poisson(64, device=dev)
+    coef = torch.zeros_like(A.coef)
+    coef[0] = 2.0
+    S = Stencil2D(A.offsets, coef, A.grid)
+    prepared = (tsr.prepare_real(S) if mode == "const"
+                else ("coef", tsr.prepare_stream_coef_real(S)))
+    b = torch.ones((64, 64), device=dev)
+    xk, hk = _real_run(S, prepared, b, torch.zeros_like(b), 400)
+    xp, hp = _real_run(S, prepared, b, torch.zeros_like(b), 400, plain=True)
+    assert torch.isfinite(xk).all() and torch.isfinite(hk).all()
+    assert hk[0] == hp[0] and torch.all(hk[1:] == 0) and torch.all(hp[1:] == 0)
+    assert torch.equal(xk, xp) and torch.all(xk == 0.5)
+
+
+def test_planner_on_card_takes_the_real_path(dev):
+    """Real grids from 1024^2 nodes take stream-real, at a prime height and
+    an unaligned width too: const mode for Poisson and the FE stencil, coef
+    mode for a variable diagonal; smaller ones stay eager.  Poisson
+    converges: 1000 iterations at N=1024 reach a float64 relative residual
+    of 1e-2 (float64 CG: 9.0e-04)."""
+    pick = importlib.import_module("tpcg_torch.ops.auto")._pick_path
+    for kind, nv, nh, mode in (("poisson", 1031, 1024, "const"),
+                               ("fe", 1024, 1100, "const"),
+                               ("vardiag", 1024, 1024, "coef")):
+        path, prepared = pick(_real_stencil(dev, kind, nv, nh), 1,
+                              on_cuda=True)
+        assert (path, prepared[0]) == ("stream-real", mode)
+    assert tpcg_torch.plan_stencil_cg(
+        _real_stencil(dev, "poisson", 1000, 1000), 5).path == "eager"
+    S = poisson(1024, device=dev)
+    b = np.random.default_rng(1).standard_normal((1024, 1024))
+    x, _ = tpcg_torch.plan_stencil_cg(S, 1000).solve(b)
+    r = b.reshape(-1) - S.to_scipy() @ x.astype(np.float64).reshape(-1)
+    assert np.linalg.norm(r) <= 1e-2 * np.linalg.norm(b)
+
+
+# ---- the whole-solve kernel's const instance (csrc/fused_cg.cu, l2-const)
+# The tolerances of the coefficient instance's checks (tests/test_fused_cg.py).
+
+tcc = importlib.import_module("tpcg_torch.ops.fused_cg_const")
+
+
+@pytest.mark.parametrize("name,N,nb,x0_kind,k,iters", [
+    ("helm_fe", 16, 1, "0", 5.0, 25), ("helm_fe", 33, 3, "wave", 5.0, 25),
+    ("helm_fe", 12, 1, "random", 4.0, 15),
+    ("helm_fe", 512, 2, "random", 12.0, 25),
+    ("poisson", 16, 3, "0", 0.0, 25)])
+def test_const_kernel_matches_plain(dev, name, N, nb, x0_kind, k, iters):
+    S, _, bp, x0p = _case(dev, name, N, nb, x0_kind, k)
+    cr, ci, strips = tcc.prepare_const(S)
+    before = tcc.fused_cg_const_planes.launches
+    xk, hk = _run_twice(tcc.fused_cg_const_planes, S.offsets, S.grid, cr, ci,
+                        strips, bp, x0p, iters)
+    assert tcc.fused_cg_const_planes.launches == before + 2
+    xp, hp = tcc.fused_cg_const_planes_plain(S.offsets, S.grid, cr, ci,
+                                             strips, bp, x0p, iters)
+    _assert_fused_close(xk, hk, xp, hp)
+
+
+@pytest.mark.parametrize("N", [128, 512])
+def test_l2_const_plan_matches_plain_over_100_iterations(dev, N):
+    """The forced l2-const path at the main path's shapes: x and the
+    history over 100 iterations against the plain version; batches past
+    the kernel's RHS limit split into launches."""
+    S, _, bp, x0p = _case(dev, "helm_fe", N, 1, k=12.0)
+    plan = tpcg_torch.plan_stencil_cg(S, 100, path="l2-const")
+    xk, hk = plan.solve_planes(bp, x0p)
+    xp, hp = tcc.fused_cg_const_planes_plain(S.offsets, S.grid,
+                                             *tcc.prepare_const(S), bp, x0p,
+                                             100)
+    _assert_fused_close(xk, hk, xp, hp)
+    assert tpcg_torch.plan_stencil_cg(S, 5).path == "l2-coef"

@@ -59,7 +59,7 @@ def banded_real(n, offs, seed=0):
 def both(A, dtype):
     """One scipy matrix as the JAX and the port DiaMatrix."""
     A = sp.csr_matrix(A.astype(dtype))
-    return JDia.from_scipy(A), DiaMatrix.from_scipy(A)
+    return JDia.from_scipy(A), DiaMatrix.from_scipy(A, device="cpu")
 
 
 def cvec(rng, shape):
@@ -190,7 +190,8 @@ def test_fused_dia_denormal_freeze():
     n = 1280
     A = banded_complex(n, tuple(range(0, 9)), seed=2)
     A = A - sp.eye(n) * (A.diagonal()[0] - (1.2 + 0.25j) * 2) * 0.5
-    T = DiaMatrix.from_scipy(sp.csr_matrix(A.astype(np.complex64)))
+    T = DiaMatrix.from_scipy(sp.csr_matrix(A.astype(np.complex64)),
+                             device="cpu")
     b = cvec(np.random.default_rng(4), n)
     x, hist = tfd.fused_cg_dia_cplx(T, b, n_iterations=400)
     hist = hist.numpy()
@@ -210,7 +211,7 @@ def test_identity_freezes_after_one_iteration():
     at b / 2, in both complex kernels' plain versions."""
     n = 256
     T = DiaMatrix.from_scipy(sp.eye(n, dtype=np.complex64, format="csr")
-                             * (2.0 + 0.0j))
+                             * (2.0 + 0.0j), device="cpu")
     b = np.ones(n, np.complex64)
     for solve in (tfd.fused_cg_dia_cplx, tsd.stream_cg_dia_cplx):
         x, hist = solve(T, b, n_iterations=8)
@@ -238,7 +239,7 @@ def test_stream_dia_x0_and_freeze():
                         (np.concatenate(rows), np.concatenate(cols))),
                        shape=(n, n))
     As = ((As + As.T) * 0.5).tocsr()
-    T = DiaMatrix.from_scipy(As.astype(np.float32))
+    T = DiaMatrix.from_scipy(As.astype(np.float32), device="cpu")
     rng = np.random.default_rng(3)
     b = rng.standard_normal(n).astype(np.float32)
     x0 = 0.1 * rng.standard_normal(n).astype(np.float32)
@@ -257,14 +258,16 @@ def test_zero_rhs_column_freezes_at_zero():
     """A zero RHS with a zero guess has delta0 == 0: the column freezes at
     once, beside a live column, in both kernels' plain versions."""
     n = 300
-    Tr = DiaMatrix.from_scipy(banded_real(n, (0, 2, 150)).astype(np.float32))
+    Tr = DiaMatrix.from_scipy(banded_real(n, (0, 2, 150)).astype(np.float32),
+                              device="cpu")
     B = np.zeros((n, 2), np.float32)
     B[:, 0] = 1.0
     X, H = tsd.stream_cg_dia_block(Tr, B, n_iterations=30)
     assert (X[:, 1] == 0).all() and (H[:, 1] == 0).all()
     assert H[0, 0] > 0 and torch.isfinite(X).all()
     Tc = DiaMatrix.from_scipy(
-        sp.csr_matrix(banded_complex(n, (0, 2, 150)).astype(np.complex64)))
+        sp.csr_matrix(banded_complex(n, (0, 2, 150)).astype(np.complex64)),
+        device="cpu")
     Bc = B.astype(np.complex64)
     for solve in (tfd.fused_cg_dia_cplx_block, tsd.stream_cg_dia_cplx_block):
         X, H = solve(Tc, Bc, n_iterations=30)

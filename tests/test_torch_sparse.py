@@ -58,7 +58,7 @@ def test_to_scipy_and_to_dia_equal(kind):
 def test_dia_matvec_and_from_scipy(nb):
     A = helm_fe(7, 3.0, eps=3.0).to_scipy()
     jd = jsp.DiaMatrix.from_scipy(A)
-    td = DiaMatrix.from_scipy(A)
+    td = DiaMatrix.from_scipy(A, device="cpu")
     assert td.offsets == tuple(jd.offsets)
     np.testing.assert_array_equal(td.data.numpy(), np.asarray(jd.data))
     rng = np.random.default_rng(4)
@@ -135,10 +135,11 @@ def test_ell_matches_jax(cplx, nb):
     as JAX (padding slots point at their own row), the same matvec."""
     A = _random_sparse(70, 4, seed=nb, cplx=cplx)
     je = jsp.EllMatrix.from_scipy(A)
-    te = EllMatrix.from_scipy(A)
+    te = EllMatrix.from_scipy(A, device="cpu")
     np.testing.assert_array_equal(te.cols.numpy(), np.asarray(je.cols))
     np.testing.assert_array_equal(te.vals.numpy(), np.asarray(je.vals))
-    te2 = EllMatrix.from_csr_arrays(70, A.data, A.indptr, A.indices)
+    te2 = EllMatrix.from_csr_arrays(70, A.data, A.indptr, A.indices,
+                                    device="cpu")
     np.testing.assert_array_equal(te2.vals.numpy(), te.vals.numpy())
     x = _vectors(np.random.default_rng(9),
                  (70, nb) if nb > 1 else (70,), "complex")
@@ -168,7 +169,7 @@ def test_to_device_matrix_matches_jax(kind, reorder):
          "shuffled": _shuffled_band(120, 3),
          "unstructured": _random_sparse(90, 5, seed=4)}[kind]
     jr = jsp.to_device_matrix(A, reorder=reorder)
-    tr = to_device_matrix(A, reorder=reorder)
+    tr = to_device_matrix(A, reorder=reorder, device="cpu")
     if reorder:
         (jm, jp), (tm, tp) = jr, tr
         assert (jp is None) == (tp is None)
@@ -187,11 +188,11 @@ def test_to_device_matrix_matches_jax(kind, reorder):
 
 def test_route_fallback_refuses_on_cuda_and_returns_ell_on_cpu():
     A = _random_sparse(90, 5, seed=4)
-    M, perm = to_device_matrix(A, route_fallback=True)
+    M, perm = to_device_matrix(A, route_fallback=True, device="cpu")
     assert isinstance(M, EllMatrix) and perm is None
     with pytest.raises(NotImplementedError, match="queue 1 item 13"):
         to_device_matrix(A, route_fallback=True, device="cuda")
     # a complex unstructured matrix has no route fallback in JAX either
     Mc, _ = to_device_matrix(_random_sparse(90, 5, seed=4, cplx=True),
-                             route_fallback=True)
+                             route_fallback=True, device="cpu")
     assert isinstance(Mc, EllMatrix)

@@ -4,9 +4,10 @@
 ``EllMatrix`` into the port's counterpart.  It reads only ``.offsets``,
 ``.grid`` / ``.n`` and ``np.asarray`` of the array fields, so it needs no
 JAX import: the tests build both sides of a comparison from one object
-with it.  ``coef3_from_numpy``, ``stream_operands_from_tpcg`` and
-``sym_operands_from_tpcg`` do the same for the operands the JAX kernels
-take.
+with it.  ``coef3_from_numpy``, ``stream_operands_from_tpcg``,
+``sym_operands_from_tpcg``, ``stream_real_operands_from_tpcg``,
+``coef_real_from_tpcg`` and ``const_operands_from_tpcg`` do the same for the
+operands the JAX kernels take.
 """
 from __future__ import annotations
 
@@ -71,3 +72,44 @@ def sym_operands_from_tpcg(half_offsets, cplanes, device="cpu"):
                          f"got {c.shape}")
     return ([(int(dm), int(dj)) for dm, dj in half_offsets],
             torch.from_numpy(np.array(c, dtype=np.float32)).to(device))
+
+
+def stream_real_operands_from_tpcg(taps, strips2, device="cpu"):
+    """The output of ``tpcg.ops.stream_cg_real.prepare_stream_real`` -> the
+    port's ``(taps, strips)``: the three tap tuples (c, lc, rc) as python
+    floats, and the (noff, 1, Nh) bottom / top strip pair (numpy via
+    ``np.asarray``) as one (2, noff, Nh) float32 tensor."""
+    taps = tuple(tuple(float(v) for v in t) for t in taps)
+    sb, st = (np.asarray(s) for s in strips2)
+    if sb.ndim != 3 or sb.shape[1] != 1 or st.shape != sb.shape:
+        raise ValueError(f"strips must be two (noff, 1, Nh) arrays, got "
+                         f"{sb.shape} and {st.shape}")
+    planes = np.stack([sb[:, 0], st[:, 0]]).astype(np.float32)
+    return taps, torch.from_numpy(planes).to(device)
+
+
+def coef_real_from_tpcg(coefp, device="cpu") -> torch.Tensor:
+    """The output of ``tpcg.ops.stream_cg_real.prepare_stream_coef_real``
+    -> the (noff, Nv, Nh) float32 planes the port's coef mode takes."""
+    c = np.asarray(coefp)
+    if c.ndim != 3:
+        raise ValueError(f"coefp must be (noff, Nv, Nh), got {c.shape}")
+    return torch.from_numpy(np.array(c, dtype=np.float32)).to(device)
+
+
+def const_operands_from_tpcg(cr, ci, strips4, device="cpu"):
+    """The output of ``tpcg.ops.fused_cg_const.prepare_const`` -> the
+    port's ``(cr, ci, (sb, st, sl, sr))``: the taps as python floats; the
+    (3, noff, 1, Nh) row strips as (2, noff, Nh) tensors (planes 0 and 1,
+    re and im) and the one-hot (3, noff, Nv-2, W) edge blocks as
+    (2, noff, Nv-2) tensors (column 0 of the left block, W-1 of the right),
+    float32 on ``device``."""
+    sb, st, sl, sr = (np.asarray(s) for s in strips4)
+    if sb.ndim != 4 or sb.shape[2] != 1 or sl.ndim != 4:
+        raise ValueError(f"strips4 must be (3, noff, 1, Nh) rows and "
+                         f"(3, noff, Nv-2, W) edge blocks, got {sb.shape} "
+                         f"and {sl.shape}")
+    parts = (sb[:2, :, 0], st[:2, :, 0], sl[:2, :, :, 0], sr[:2, :, :, -1])
+    return (tuple(float(v) for v in cr), tuple(float(v) for v in ci),
+            tuple(torch.from_numpy(np.array(p, dtype=np.float32)).to(device)
+                  for p in parts))

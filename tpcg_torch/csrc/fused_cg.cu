@@ -1,15 +1,26 @@
 // Whole-solve fixed-iteration block COCG on a complex 2-D stencil, in one
 // persistent cooperative launch.
 //
-// Replaces tpcg/ops/fused_cg.py::fused_cg_stencil, the Pallas kernel that
-// keeps the coefficient planes and the whole CG state in a TPU core's VMEM
-// and runs every iteration inside one pallas_call.
+// Replaces two Pallas kernels that keep the whole CG state in a TPU core's
+// VMEM and run every iteration inside one pallas_call; the operator is the
+// kernel's template parameter:
+//   * tpcg/ops/fused_cg.py::fused_cg_stencil (kConst false, the `l2-coef`
+//     path): per-node coefficient planes in the Karatsuba form;
+//   * tpcg/ops/fused_cg_const.py::fused_cg_const_planes (kConst true, the
+//     `l2-const` path): constant interior taps as kernel parameters, taps
+//     with equal values summed first and multiplied once, in JAX's order,
+//     then four boundary strips read through the read-only path where they
+//     apply (rows 0 and nv-1, columns 0 and nh-1 of rows 1..nv-2); no
+//     coefficient planes are read.  JAX's one-hot 128-lane edge blocks and
+//     third Karatsuba plane exist for its vector units; the host keeps one
+//     column and two planes (tpcg_torch.ops.fused_cg_const.prepare_const).
 //
 // What it computes (per RHS b of nb independent recurrences):
 //   r0 = b - A x0, with x0 staged through the zero-bordered direction buffer
-//   q = A d        Karatsuba complex stencil apply in the tap order of
-//                  `offsets`: m1 = Ar*dr, m2 = Ai*di, m3 = (Ar+Ai)*(dr+di),
-//                  qr += m1 - m2, qi += m3 - m1 - m2
+//   q = A d        coefficient planes: Karatsuba complex stencil apply in
+//                  the tap order of `offsets`: m1 = Ar*dr, m2 = Ai*di,
+//                  m3 = (Ar+Ai)*(dr+di), qr += m1 - m2, qi += m3 - m1 - m2;
+//                  const: tpcg_torch.ops.fused_cg_const.apply_const_strips
 //   alpha = delta / <d,q>, beta = delta' / delta   (Smith-scaled division)
 //   done  = (delta == 0) | (<d,q> == 0) zeroes alpha and beta (freeze guard)
 //   hist[it+1] = sqrt(sqrt(delta_r^2 + delta_i^2)), the JAX formula as is
@@ -17,7 +28,8 @@
 //
 // What bounds it on the H100: the data are small.  At N=128 the coefficient
 // planes (3, 7, 128, 128) f32 take 1.4 MB and the CG state ~0.4 MB per RHS;
-// at N=512 22 MB and ~8 MB.  Both fit in the 50 MB L2, so device memory is
+// at N=512 22 MB and ~8 MB (the const operator reads no planes: its strips
+// are 4 (2 noff N) floats).  Both fit in the 50 MB L2, so device memory is
 // not the bound.  What is: the latency of the three grid-wide barriers each
 // iteration needs (after q = A d and the <d,q> partials; after the x, r
 // update and the <r,r> partials; after the d update, which neighbours read),
@@ -80,6 +92,17 @@ struct Params {
   float* part_rr;      // (gridDim.x, nb, 2) partials of <r,r>  scratch
   int nv, nh, nb, noff, pad, n_iterations;
   int disp[kMaxTaps];  // tap displacement in dpad: dm * (nh + 2 pad) + dj
+  // the const operator (kConst): strips [re, im] x noff x length, and the
+  // interior tap groups: group g holds the taps gdisp[group_end[g - 1]] ..
+  // gdisp[group_end[g] - 1] (displacements in dpad), value gr[g] + i gi[g]
+  const float* sb;     // (2, noff, nh)      row 0                read-only
+  const float* st;     // (2, noff, nh)      row nv - 1           read-only
+  const float* sl;     // (2, noff, nv - 2)  column 0             read-only
+  const float* sr;     // (2, noff, nv - 2)  column nh - 1        read-only
+  int ngroups;
+  int group_end[kMaxTaps];
+  int gdisp[kMaxTaps];
+  float gr[kMaxTaps], gi[kMaxTaps];
 };
 
 __device__ __forceinline__ float2 warp_sum(float2 v) {
@@ -131,26 +154,87 @@ __device__ __forceinline__ float2 cdiv_smith(float ar, float ai, float br,
   return make_float2((ar * b0 + ai * b1) / d, (ai * b0 - ar * b1) / d);
 }
 
+// sum_s strip_s(k) d(n + s) over the taps, from 0 in tap order, for one
+// ring strip of `len` values a tap and plane; dr and di point at node n.
+__device__ __forceinline__ float2 ring_sum(const Params& p, const float* strip,
+                                           int len, int k, const float* dr,
+                                           const float* di) {
+  float ar = 0.f, ai = 0.f;
+  for (int s = 0; s < p.noff; ++s) {
+    const float sr = __ldg(strip + static_cast<size_t>(s) * len + k);
+    const float si = __ldg(strip + static_cast<size_t>(p.noff + s) * len + k);
+    const float xr = __ldcg(dr + p.disp[s]), xi = __ldcg(di + p.disp[s]);
+    ar = ar + (sr * xr - si * xi);
+    ai = ai + (sr * xi + si * xr);
+  }
+  return make_float2(ar, ai);
+}
+
 // (A d)[e]: dr and di point at node e in the padded re and im planes of d.
+template <bool kConst>
 __device__ __forceinline__ float2 apply_at(const Params& p, int n, int e,
                                            const float* dr, const float* di) {
   float qr = 0.f, qi = 0.f;
-  for (int s = 0; s < p.noff; ++s) {
-    const float xr = __ldcg(dr + p.disp[s]);
-    const float xi = __ldcg(di + p.disp[s]);
-    const float ar = __ldg(p.coef3 + static_cast<size_t>(s) * n + e);
-    const float ai = __ldg(p.coef3 + static_cast<size_t>(p.noff + s) * n + e);
-    const float ars =
-        __ldg(p.coef3 + static_cast<size_t>(2 * p.noff + s) * n + e);
-    const float m1 = ar * xr;
-    const float m2 = ai * xi;
-    const float m3 = ars * (xr + xi);
-    qr = qr + (m1 - m2);
-    qi = qi + (m3 - m1 - m2);
+  if constexpr (kConst) {
+    int t = 0;
+    for (int g = 0; g < p.ngroups; ++g) {
+      float sxr = __ldcg(dr + p.gdisp[t]), sxi = __ldcg(di + p.gdisp[t]);
+      for (++t; t < p.group_end[g]; ++t) {
+        sxr = sxr + __ldcg(dr + p.gdisp[t]);
+        sxi = sxi + __ldcg(di + p.gdisp[t]);
+      }
+      const float gr = p.gr[g], gi = p.gi[g];
+      if (gr != 0.f) {
+        qr = qr + gr * sxr;
+        qi = qi + gr * sxi;
+      }
+      if (gi != 0.f) {
+        qr = qr - gi * sxi;
+        qi = qi + gi * sxr;
+      }
+    }
+    const int m = e / p.nh, j = e - m * p.nh;
+    float2 a;
+    if (m == 0) {
+      a = ring_sum(p, p.sb, p.nh, j, dr, di);
+      qr = qr + a.x;
+      qi = qi + a.y;
+    }
+    if (m == p.nv - 1) {
+      a = ring_sum(p, p.st, p.nh, j, dr, di);
+      qr = qr + a.x;
+      qi = qi + a.y;
+    }
+    if (m > 0 && m < p.nv - 1 && j == 0) {
+      a = ring_sum(p, p.sl, p.nv - 2, m - 1, dr, di);
+      qr = qr + a.x;
+      qi = qi + a.y;
+    }
+    if (m > 0 && m < p.nv - 1 && j == p.nh - 1) {
+      a = ring_sum(p, p.sr, p.nv - 2, m - 1, dr, di);
+      qr = qr + a.x;
+      qi = qi + a.y;
+    }
+  } else {
+    for (int s = 0; s < p.noff; ++s) {
+      const float xr = __ldcg(dr + p.disp[s]);
+      const float xi = __ldcg(di + p.disp[s]);
+      const float ar = __ldg(p.coef3 + static_cast<size_t>(s) * n + e);
+      const float ai =
+          __ldg(p.coef3 + static_cast<size_t>(p.noff + s) * n + e);
+      const float ars =
+          __ldg(p.coef3 + static_cast<size_t>(2 * p.noff + s) * n + e);
+      const float m1 = ar * xr;
+      const float m2 = ai * xi;
+      const float m3 = ars * (xr + xi);
+      qr = qr + (m1 - m2);
+      qi = qi + (m3 - m1 - m2);
+    }
   }
   return make_float2(qr, qi);
 }
 
+template <bool kConst>
 __global__ void __launch_bounds__(kThreads) fused_cg_kernel(Params p) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float2 red[kWarps];
@@ -205,7 +289,7 @@ __global__ void __launch_bounds__(kThreads) fused_cg_kernel(Params p) {
     float2 acc = make_float2(0.f, 0.f);
     for (int e = t0; e < n; e += stride) {
       const size_t ir = re_at(rhs, e), ii = im_at(rhs, e), pi = pad_at(rhs, e);
-      const float2 aq = apply_at(p, n, e, d_re + pi, d_im + pi);
+      const float2 aq = apply_at<kConst>(p, n, e, d_re + pi, d_im + pi);
       const float rr = __ldg(p.b + ir) - aq.x;
       const float ri = __ldg(p.b + ii) - aq.y;
       p.r[ir] = rr;
@@ -240,7 +324,7 @@ __global__ void __launch_bounds__(kThreads) fused_cg_kernel(Params p) {
       float2 acc = make_float2(0.f, 0.f);
       for (int e = t0; e < n; e += stride) {
         const size_t ir = re_at(rhs, e), ii = im_at(rhs, e), pi = pad_at(rhs, e);
-        const float2 aq = apply_at(p, n, e, d_re + pi, d_im + pi);
+        const float2 aq = apply_at<kConst>(p, n, e, d_re + pi, d_im + pi);
         p.q[ir] = aq.x;
         p.q[ii] = aq.y;
         const float dr = __ldcg(d_re + pi), di = __ldcg(d_im + pi);
@@ -311,6 +395,49 @@ __global__ void __launch_bounds__(kThreads) fused_cg_kernel(Params p) {
   }
 }
 
+// The fields both operators use; returns a cudaError_t.
+int fill_params(Params& p, const float* b, const float* x0, float* x,
+                float* hist, float* r, float* q, float* dpad, float* part_dq,
+                float* part_rr, int nv, int nh, int nb, int noff,
+                const int* offsets, int pad, int n_iterations, int grid) {
+  if (nv < 1 || nh < 1 || nb < 1 || nb > kMaxRhs || noff < 1 ||
+      noff > kMaxTaps || pad < 0 || n_iterations < 0 || grid < 1)
+    return cudaErrorInvalidValue;
+  p = Params{};
+  p.b = b;
+  p.x0 = x0;
+  p.x = x;
+  p.hist = hist;
+  p.r = r;
+  p.q = q;
+  p.dpad = dpad;
+  p.part_dq = part_dq;
+  p.part_rr = part_rr;
+  p.nv = nv;
+  p.nh = nh;
+  p.nb = nb;
+  p.noff = noff;
+  p.pad = pad;
+  p.n_iterations = n_iterations;
+  for (int s = 0; s < noff; ++s) {
+    const int dm = offsets[2 * s], dj = offsets[2 * s + 1];
+    if (std::abs(dm) > pad || std::abs(dj) > pad) return cudaErrorInvalidValue;
+    p.disp[s] = dm * (nh + 2 * pad) + dj;
+  }
+  return cudaSuccess;
+}
+
+template <bool kConst>
+int launch(const Params& p, int grid, void* stream) {
+  Params arg = p;
+  void* args[] = {&arg};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(fused_cg_kernel<kConst>), dim3(grid),
+      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -335,9 +462,15 @@ int tpcg_fused_cg_grid(int n, int* grid_out) {
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_cg_kernel,
-                                                      kThreads, 0);
+  // the smaller occupancy of the two operators' instances
+  int per_sm_const = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fused_cg_kernel<false>, kThreads, 0);
   if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm_const, fused_cg_kernel<true>, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm_const < per_sm) per_sm = per_sm_const;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   int g = (n + kThreads - 1) / kThreads;
   if (g > sms) g = sms;
@@ -354,38 +487,55 @@ int tpcg_fused_cg_stencil(const float* coef3, const float* b, const float* x0,
                           float* dpad, float* part_dq, float* part_rr, int nv,
                           int nh, int nb, int noff, const int* offsets,
                           int pad, int n_iterations, int grid, void* stream) {
-  if (nv < 1 || nh < 1 || nb < 1 || nb > kMaxRhs || noff < 1 ||
-      noff > kMaxTaps || pad < 0 || n_iterations < 0 || grid < 1)
-    return cudaErrorInvalidValue;
   Params p;
-  p.coef3 = coef3;
-  p.b = b;
-  p.x0 = x0;
-  p.x = x;
-  p.hist = hist;
-  p.r = r;
-  p.q = q;
-  p.dpad = dpad;
-  p.part_dq = part_dq;
-  p.part_rr = part_rr;
-  p.nv = nv;
-  p.nh = nh;
-  p.nb = nb;
-  p.noff = noff;
-  p.pad = pad;
-  p.n_iterations = n_iterations;
-  for (int s = 0; s < kMaxTaps; ++s) p.disp[s] = 0;
-  for (int s = 0; s < noff; ++s) {
-    const int dm = offsets[2 * s], dj = offsets[2 * s + 1];
-    if (std::abs(dm) > pad || std::abs(dj) > pad) return cudaErrorInvalidValue;
-    p.disp[s] = dm * (nh + 2 * pad) + dj;
-  }
-  void* args[] = {&p};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(fused_cg_kernel), dim3(grid),
-      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  const int err = fill_params(p, b, x0, x, hist, r, q, dpad, part_dq, part_rr,
+                              nv, nh, nb, noff, offsets, pad, n_iterations,
+                              grid);
   if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  p.coef3 = coef3;
+  return launch<false>(p, grid, stream);
+}
+
+// The const operator (tpcg_torch.ops.fused_cg_const): sb, st (2, noff, nh)
+// and sl, sr (2, noff, nv - 2) strips; taps: host array of 2 * noff floats
+// (cr, ci); group_of: host array of noff ints, the group of each tap (-1 for
+// a zero tap), groups numbered in order of first appearance.  The other
+// arguments as tpcg_fused_cg_stencil's.
+int tpcg_fused_cg_const(const float* sb, const float* st, const float* sl,
+                        const float* sr, const float* b, const float* x0,
+                        float* x, float* hist, float* r, float* q, float* dpad,
+                        float* part_dq, float* part_rr, int nv, int nh, int nb,
+                        int noff, const int* offsets, const float* taps,
+                        const int* group_of, int pad, int n_iterations,
+                        int grid, void* stream) {
+  if (nv < 3) return cudaErrorInvalidValue;
+  Params p;
+  const int err = fill_params(p, b, x0, x, hist, r, q, dpad, part_dq, part_rr,
+                              nv, nh, nb, noff, offsets, pad, n_iterations,
+                              grid);
+  if (err != cudaSuccess) return err;
+  p.sb = sb;
+  p.st = st;
+  p.sl = sl;
+  p.sr = sr;
+  for (int s = 0; s < noff; ++s)
+    if (group_of[s] < -1 || group_of[s] >= noff) return cudaErrorInvalidValue;
+  int t = 0;
+  for (int g = 0; g < noff; ++g) {
+    const int first = t;
+    for (int s = 0; s < noff; ++s) {
+      if (group_of[s] != g) continue;
+      if (t == first) {
+        p.gr[g] = taps[s];
+        p.gi[g] = taps[noff + s];
+      }
+      p.gdisp[t++] = p.disp[s];
+    }
+    if (t == first) break;
+    p.group_end[g] = t;
+    p.ngroups = g + 1;
+  }
+  return launch<true>(p, grid, stream);
 }
 
 const char* tpcg_error_string(int err) {

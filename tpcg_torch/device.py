@@ -1,9 +1,12 @@
 """The port's rule for a device the caller does not name.
 
-The entry points (``tpcg_torch.cg``, ``cg_matrix`` for a scipy matrix) and
-the problem constructors run on the CUDA device unless the caller names
-another one; the CPU runs only when asked for (``device="cpu"``).  Without a
-card the default raises: nothing picks the CPU silently.
+The entry points (``tpcg_torch.cg``, ``cg_matrix`` for a scipy matrix), the
+problem constructors, the sparse containers' constructors
+(``DiaMatrix.from_scipy``, ``EllMatrix.from_scipy``,
+``EllMatrix.from_csr_arrays``, ``to_device_matrix``) and ``ops.cplx.to_planes``
+run on the CUDA device unless the caller names another one; the CPU runs only
+when asked for (``device="cpu"``).  Without a card the default raises:
+nothing picks the CPU silently.
 """
 from __future__ import annotations
 

@@ -9,6 +9,12 @@ from .auto import plan_stencil_cg, stencil_cg, StencilCGPlan     # noqa: F401
 from .stream_cg import (stream_cg_const, stream_cg_const_planes,  # noqa: F401
                         stream_cg_const_planes_plain, prepare_stream,
                         apply_const_planes)
+from .fused_cg_const import (fused_cg_const_planes,              # noqa: F401
+                             fused_cg_const_planes_plain, prepare_const)
+# stream_cg_real() is not re-exported here: it would hide its module
+from .stream_cg_real import (stream_cg_real_planes,              # noqa: F401
+                             stream_cg_real_coef_planes,
+                             prepare_stream_real, prepare_stream_coef_real)
 # stream_cg_sym() is not re-exported here: it would hide its module
 from .stream_cg_sym import (stream_cg_sym_planes,                # noqa: F401
                             stream_cg_sym_planes_plain, prepare_stream_sym,

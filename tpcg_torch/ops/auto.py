@@ -1,6 +1,6 @@
 """Execution-path selection for stencil CG solves (counterpart of ``tpcg/ops/auto.py``).
 
-Four paths are ported; each maps to a planner path of the JAX package:
+Six paths are ported; each maps to a planner path of the JAX package:
 
   l2-coef     : JAX's ``vmem-coef``.  The whole fixed-iteration solve in one
                 launch of the hand-written CUDA kernel
@@ -9,6 +9,12 @@ Four paths are ported; each maps to a planner path of the JAX package:
                 50 MB L2 during that launch, where on the TPU they sat in
                 VMEM.  The default for complex grids up to 512^2 nodes with
                 at most two RHS on a CUDA device, as JAX picks ``vmem-coef``.
+  l2-const    : JAX's ``vmem-const``, taken only when forced, as in JAX (on
+                the TPU ``vmem-coef`` was faster at every resident size).
+                The same whole solve with the constant-tap operator
+                (``tpcg_torch.ops.fused_cg_const.fused_cg_const_planes``, the
+                const instance of the same CUDA kernel): interior taps as
+                scalars and four boundary strips, no coefficient planes.
   stream      : JAX's ``stream``.  Complex stencils past 512^2 nodes whose
                 interior and edge taps are constant (``prepare_stream``
                 succeeds): one launch of the hand-written CUDA kernel
@@ -20,26 +26,33 @@ Four paths are ported; each maps to a planner path of the JAX package:
                 hand-written CUDA kernel
                 ``tpcg_torch.ops.stream_cg_sym.stream_cg_sym_planes`` per
                 RHS, half of the coefficient planes streamed.
+  stream-real : JAX's ``stream-real``.  Real stencils from 1024^2 nodes on a
+                CUDA device: one launch of the hand-written CUDA kernel
+                ``tpcg_torch/csrc/stream_cg_real.cu`` per RHS, in const mode
+                where ``prepare_stream_real`` accepts the stencil, else in
+                coef mode (``tpcg_torch.ops.stream_cg_real``).  ``solve``
+                returns real float32 x, and ``solve_planes`` takes and returns
+                single (Nv, Nh) or (B, Nv, Nh) float32 planes.
   eager       : JAX's ``xla``.  Plain PyTorch: ``block_cg_planes_chunked``
                 over float32 planes for complex stencils on a CUDA device,
                 and ``block_cg`` in the stencil's own dtype otherwise.  The
                 default on the CPU, for larger complex batches, and for real
-                stencils below JAX's real-streaming size.
+                stencils below 1024^2 nodes.
 
 On the streaming paths several RHS run as sequential single-RHS launches
 queued on one stream, as JAX's ``lax.map`` runs them; any batch size.
 
 Heights JAX cannot stream (no row block of at least 8 rows that leaves two
 blocks, e.g. primes): JAX row-pads them to a multiple of 128
-(``_pad_rows``), and the padded operator lands on ``stream-coef``.  Both
-Hopper kernels read any height, so the port does not pad: JAX's
-``pad->stream-coef`` becomes ``stream`` for constant taps and
-``stream-coef`` for symmetric variable coefficients, on the unpadded grid.
+(``_pad_rows``), and the padded operator lands on ``stream-coef`` or
+``stream-real``.  The Hopper kernels read any height, so the port does not
+pad: JAX's ``pad->stream-coef`` becomes ``stream`` for constant taps and
+``stream-coef`` for symmetric variable coefficients, and
+``pad->stream-real`` becomes ``stream-real``, on the unpadded grid.
 
 The planner dispatches on the torch device of the stencil's coefficients.
 On a CUDA device, a stencil that JAX would send to a tier that is not
-ported yet (``stream-coef`` for a non-symmetric stencil, ``stream-real`` and
-``pad->stream-real``; ``vmem-const`` when forced) raises
+ported yet (``stream-coef`` for a non-symmetric stencil) raises
 ``NotImplementedError`` naming the ROADMAP item; it never runs silently on
 the plain path instead.
 """
@@ -54,7 +67,9 @@ import torch
 from ..cg import block_cg
 from .cplx import block_cg_planes_chunked, make_pair_operator
 from .fused_cg import fused_cg_stencil_chunked, prepare_coef3
+from .fused_cg_const import fused_cg_const_chunked, prepare_const
 from .stream_cg import _streamable, prepare_stream, stream_cg_const_planes
+from .stream_cg_real import prepare_real, solve_real_planes
 from .stream_cg_sym import prepare_stream_sym, stream_cg_sym_planes
 
 # JAX's _VMEM_NODES: complex grids up to here take the whole-solve kernel
@@ -64,26 +79,22 @@ _REAL_STREAM_NODES = 1024 * 1024
 # JAX's _FUSED_BATCH_MAX: larger complex batches take the plain path
 _FUSED_BATCH_MAX = 2
 
-_PORTED = ("l2-coef", "stream", "stream-coef", "eager")
-# JAX planner tiers with no port yet -> where the ROADMAP queues them
+_PORTED = ("l2-coef", "l2-const", "stream", "stream-coef", "stream-real",
+           "eager")
+# the one JAX planner tier with no port yet, and where the ROADMAP queues it
 _NOT_PORTED = {
-    "vmem-const": "ROADMAP queue 2 item 2 (fused_cg_const)",
     "stream-coef": "ROADMAP queue 1 item 11, general (non-symmetric) "
                    "coefficients (queue 2 items 8 general, 9, 12, 13, the "
                    "coefficient variant of 16)",
-    "stream-real": "ROADMAP queue 1 item 11, stream-real (queue 2 items 14, "
-                   "17, 20)",
 }
 
 
 def _not_ported(jax_path, grid) -> NotImplementedError:
-    key = jax_path.removeprefix("pad->")
-    what = (" for a non-symmetric stencil (its general-coefficient kernels)"
-            if key == "stream-coef" else "")
     return NotImplementedError(
-        f"grid {grid}: the JAX planner sends this to its {jax_path} "
-        f"tier{what}, which tpcg_torch has not ported yet: "
-        f"{_NOT_PORTED[key]}")
+        f"grid {grid}: the JAX planner sends this to its {jax_path} tier "
+        "for a non-symmetric stencil (its general-coefficient kernels), "
+        "which tpcg_torch has not ported yet: "
+        f"{_NOT_PORTED[jax_path.removeprefix('pad->')]}")
 
 
 def _norm_b(b, nv, nh):
@@ -101,39 +112,43 @@ def _norm_b(b, nv, nh):
 @dataclass
 class StencilCGPlan:
     """A chosen execution path for one (stencil, n_iterations) pair."""
-    path: str        # l2-coef | stream | stream-coef | eager
+    path: str        # l2-coef | l2-const | stream | stream-coef |
+    #                  stream-real | eager
     grid: tuple
     n_iterations: int
     _solve: Callable = field(repr=False)
     _solve_planes: Callable = field(repr=False)
 
     def solve(self, b, x0=None):
-        """b, x0 : complex (Nv, Nh) or (B, Nv, Nh) numpy arrays (or any
-        shape ``_norm_b`` accepts).
+        """b, x0 : (Nv, Nh) or (B, Nv, Nh) numpy arrays (or any shape
+        ``_norm_b`` accepts); complex, or real on ``stream-real``.
 
         Returns numpy ``(x, history)``: x shaped like b (complex64 on the
-        float32 paths, the stencil's dtype on the CPU eager path) and
-        history ``(n_iterations+1,)`` for a single RHS, else
-        ``(n_iterations+1, B)``.  Each call uploads b and downloads x;
-        repeated device-resident solves use :meth:`solve_planes`.
+        complex float32 paths, float32 on ``stream-real``, the stencil's
+        dtype on the CPU eager path) and history ``(n_iterations+1,)`` for a
+        single RHS, else ``(n_iterations+1, B)``.  Each call uploads b and
+        downloads x; repeated device-resident solves use
+        :meth:`solve_planes`.
         """
         return self._solve(b, x0)
 
     def solve_planes(self, bp: torch.Tensor,
                      x0p: Optional[torch.Tensor] = None):
-        """Device-resident surface: ``bp``/``x0p`` are float32 re/im plane
-        tensors on the plan's device, (2, Nv, Nh) or (2, B, Nv, Nh).
-        Returns device tensors ``(x_planes, history)`` shaped like
-        :meth:`solve`'s, with no host round trip."""
-        squeeze = bp.dim() == 3
+        """Device-resident surface: ``bp``/``x0p`` are float32 tensors on
+        the plan's device: re/im planes (2, Nv, Nh) or (2, B, Nv, Nh), or on
+        ``stream-real`` single planes (Nv, Nh) or (B, Nv, Nh).  Returns
+        device tensors ``(x, history)`` shaped like the input and like
+        :meth:`solve`'s history, with no host round trip."""
+        axis = 0 if self.path == "stream-real" else 1   # the batch axis
+        squeeze = bp.dim() == axis + 2
         if squeeze:
-            bp = bp[:, None]
-            x0p = None if x0p is None else x0p[:, None]
+            bp = bp.unsqueeze(axis)
+            x0p = None if x0p is None else x0p.unsqueeze(axis)
         if x0p is None:
             x0p = torch.zeros_like(bp)
         x, hist = self._solve_planes(bp, x0p)
         if squeeze:
-            return x[:, 0], hist[:, 0]
+            return x.select(axis, 0), hist[:, 0]
         return x, hist
 
 
@@ -151,8 +166,9 @@ def _prepare_sym(stencil):
 
 def _pick_path(stencil, nb: int, on_cuda: bool):
     """The planner's default choice: ``(path, prepared)``, where
-    ``prepared`` is ``prepare_stream``'s result on the ``stream`` path and
-    ``prepare_stream_sym``'s on ``stream-coef``.
+    ``prepared`` is ``prepare_stream``'s result on the ``stream`` path,
+    ``prepare_stream_sym``'s on ``stream-coef`` and ``prepare_real``'s on
+    ``stream-real``.
 
     ``on_cuda`` says whether the solve runs on a card; off the card every
     stencil takes ``eager``.  On the card the rule is JAX's on an
@@ -171,8 +187,7 @@ def _pick_path(stencil, nb: int, on_cuda: bool):
         except ValueError:
             return "stream-coef", _prepare_sym(stencil)
     if n >= _REAL_STREAM_NODES:
-        raise _not_ported("stream-real" if _streamable(nv)
-                          else "pad->stream-real", stencil.grid)
+        return "stream-real", prepare_real(stencil)
     return "eager", None
 
 
@@ -181,11 +196,15 @@ def plan_stencil_cg(stencil, n_iterations: int, nb: int = 1,
     """Pick and prepare the CG path for ``stencil`` on its device.
 
     nb   : planned RHS batch size (every path takes any batch at solve time).
-    path : force ``"l2-coef"``, ``"stream"``, ``"stream-coef"`` or
-           ``"eager"``.  On a CPU device the kernel paths run their kernels'
-           plain versions.  Forcing ``stream`` on a stencil whose taps are
-           not constant raises ``ValueError`` (``prepare_stream``'s), as
-           JAX's planner does; forcing ``stream-coef`` on a non-symmetric
+    path : force ``"l2-coef"``, ``"l2-const"``, ``"stream"``,
+           ``"stream-coef"``, ``"stream-real"`` or ``"eager"`` (JAX's
+           ``vmem-coef`` and ``vmem-const`` are ``l2-coef`` and
+           ``l2-const`` here).  On a CPU device the kernel paths run their
+           kernels' plain versions.  Forcing ``stream`` or ``l2-const`` on
+           a stencil whose taps are not constant raises ``ValueError``
+           (``prepare_stream``'s, ``prepare_const``'s), as JAX's planner
+           does; forcing ``stream-real`` on a complex stencil raises
+           ``ValueError``; forcing ``stream-coef`` on a non-symmetric
            stencil raises ``NotImplementedError`` naming its ROADMAP item.
     """
     nv, nh = stencil.grid
@@ -196,13 +215,20 @@ def plan_stencil_cg(stencil, n_iterations: int, nb: int = 1,
     elif path not in _PORTED:
         if path in _NOT_PORTED:
             raise _not_ported(path, stencil.grid)
-        raise ValueError(f"unknown path {path!r}; ported: {_PORTED} (the "
-                         "pad-> plans are not needed: the kernels read any "
-                         "height)")
+        raise ValueError(f"unknown path {path!r}; ported: {_PORTED} (JAX's "
+                         "vmem-coef and vmem-const are l2-coef and l2-const; "
+                         "the pad-> plans are not needed: the kernels read "
+                         "any height)")
     elif path == "stream":
         prepared = prepare_stream(stencil)
     elif path == "stream-coef":
         prepared = _prepare_sym(stencil)
+    elif path == "stream-real":
+        if stencil.coef.is_complex():
+            raise ValueError("stream-real takes a real stencil")
+        prepared = prepare_real(stencil)
+    elif path == "l2-const":
+        prepared = prepare_const(stencil)
     solve, solve_planes = _build_solver(stencil, n_iterations, path,
                                         prepared)
     return StencilCGPlan(path=path, grid=(nv, nh), n_iterations=n_iterations,
@@ -235,6 +261,36 @@ def _build_solver(stencil, n_iterations, path, prepared=None):
         def solve_planes(bp, x0p):
             return fused_cg_stencil_chunked(stencil.offsets, coef3, bp, x0p,
                                             n_iterations)
+    elif path == "l2-const":
+        cr, ci, strips = prepared
+
+        def solve_planes(bp, x0p):
+            return fused_cg_const_chunked(stencil.offsets, stencil.grid, cr,
+                                          ci, strips, bp, x0p, n_iterations)
+    elif path == "stream-real":
+        def solve_planes(bp, x0p):
+            # one launch per RHS, queued back to back on the current stream
+            runs = [solve_real_planes(stencil.offsets, prepared, bp[c],
+                                      x0p[c], n_iterations)
+                    for c in range(bp.shape[0])]
+            return (torch.stack([x for x, _ in runs]),
+                    torch.stack([h for _, h in runs], dim=1))
+
+        def solve_real(b, x0):
+            B, squeeze = _norm_b(b, nv, nh)
+
+            def upload(a):
+                return torch.from_numpy(np.ascontiguousarray(
+                    a, dtype=np.float32)).to(dev)
+            bp = upload(B)
+            x0p = (torch.zeros_like(bp) if x0 is None
+                   else upload(_norm_b(x0, nv, nh)[0]))
+            x, hist = solve_planes(bp, x0p)
+            x, hist = x.cpu().numpy(), hist.cpu().numpy()
+            if squeeze:
+                return x[0], hist[:, 0]
+            return x, hist
+        return solve_real, solve_planes
     elif path in ("stream", "stream-coef"):
         if path == "stream":
             taps, strips = prepared

@@ -19,11 +19,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
-def to_planes(x, dtype=torch.float32, device="cpu") -> torch.Tensor:
-    """complex array -> (2, ...) float planes on ``device``."""
+def to_planes(x, dtype=torch.float32, device=None) -> torch.Tensor:
+    """complex array -> (2, ...) float planes on ``device`` (default: the
+    CUDA device, raising without one)."""
+    device = resolve_device(device)
     x = np.asarray(x)
     nd = _NP_DTYPE[dtype]
     return torch.from_numpy(np.stack([x.real.astype(nd),

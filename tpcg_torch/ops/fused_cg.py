@@ -80,45 +80,31 @@ def _hist_row(delta):
     return torch.sqrt(torch.sqrt(delta[0] * delta[0] + delta[1] * delta[1]))
 
 
-def fused_cg_stencil_plain(offsets: Sequence[Tuple[int, int]],
-                           coef3: torch.Tensor, b: torch.Tensor,
-                           x0: torch.Tensor, n_iterations: int):
-    """Plain PyTorch version of the kernel: the same function, step for step.
+def cocg_padded_plain(apply, b: torch.Tensor, x0: torch.Tensor, P: int,
+                      n_iterations: int):
+    """The whole-solve COCG recurrence of the JAX package (``_init_state`` +
+    ``_cg_scalar_step`` in ``tpcg/ops/fused_cg.py``) for any operator:
+    ``apply(dpad)`` returns q = A d (2, B, Nv, Nh) from the zero-bordered
+    direction buffer dpad (2, B, Nv + 2P, Nh + 2P), so every tap is a static
+    slice and a tap outside the grid reads 0.
 
-    The direction lives in a zero-bordered padded buffer, so every tap is a
-    static slice and a tap outside the grid reads 0; the stencil apply is the
-    Karatsuba form in the tap order of ``offsets``; per RHS,
-    alpha = delta/<d,q> and beta = delta'/delta with Smith division, both
-    zeroed by the freeze guard ``(delta == 0) | (<d,q> == 0)``.
+    Per RHS, alpha = delta/<d,q> and beta = delta'/delta with Smith
+    division, both zeroed by the freeze guard
+    ``(delta == 0) | (<d,q> == 0)``; history ``sqrt|<r,r>|``.
     """
-    _check_args(offsets, coef3, b, x0, n_iterations)
-    _, _, nv, nh = coef3.shape
-    P = _pad_for(offsets)
+    _, _, nv, nh = b.shape
     dpad = b.new_zeros((2, b.shape[1], nv + 2 * P, nh + 2 * P))
     d = dpad[:, :, P:P + nv, P:P + nh]          # view of the interior
 
-    def apply():
-        qr = torch.zeros_like(b[0])
-        qi = torch.zeros_like(b[0])
-        for s, (dm, dj) in enumerate(offsets):
-            xr = dpad[0, :, P + dm:P + dm + nv, P + dj:P + dj + nh]
-            xi = dpad[1, :, P + dm:P + dm + nv, P + dj:P + dj + nh]
-            m1 = coef3[0, s] * xr
-            m2 = coef3[1, s] * xi
-            m3 = coef3[2, s] * (xr + xi)
-            qr = qr + (m1 - m2)
-            qi = qi + (m3 - m1 - m2)
-        return torch.stack([qr, qi])
-
     d.copy_(x0)
-    r = b - apply()
+    r = b - apply(dpad)
     x = x0.clone()
     d.copy_(r)
     delta = _rr_grid(r)
     hist = [_hist_row(delta)]
     zero = torch.zeros_like(delta[0])
     for _ in range(n_iterations):
-        q = apply()
+        q = apply(dpad)
         dc = d.clone()
         dq = _udot_grid(dc, q)
         done = ((delta[0] == 0) & (delta[1] == 0)) \
@@ -141,6 +127,32 @@ def fused_cg_stencil_plain(offsets: Sequence[Tuple[int, int]],
                                  be[0] * dc[1] + be[1] * dc[0]]))
         delta = dn
     return x, torch.stack(hist)
+
+
+def fused_cg_stencil_plain(offsets: Sequence[Tuple[int, int]],
+                           coef3: torch.Tensor, b: torch.Tensor,
+                           x0: torch.Tensor, n_iterations: int):
+    """Plain PyTorch version of the kernel: the same function, step for step:
+    :func:`cocg_padded_plain` with the Karatsuba form of the stencil apply in
+    the tap order of ``offsets``."""
+    _check_args(offsets, coef3, b, x0, n_iterations)
+    _, _, nv, nh = coef3.shape
+    P = _pad_for(offsets)
+
+    def apply(dpad):
+        qr = torch.zeros_like(b[0])
+        qi = torch.zeros_like(b[0])
+        for s, (dm, dj) in enumerate(offsets):
+            xr = dpad[0, :, P + dm:P + dm + nv, P + dj:P + dj + nh]
+            xi = dpad[1, :, P + dm:P + dm + nv, P + dj:P + dj + nh]
+            m1 = coef3[0, s] * xr
+            m2 = coef3[1, s] * xi
+            m3 = coef3[2, s] * (xr + xi)
+            qr = qr + (m1 - m2)
+            qi = qi + (m3 - m1 - m2)
+        return torch.stack([qr, qi])
+
+    return cocg_padded_plain(apply, b, x0, P, n_iterations)
 
 
 def kernel_limits() -> Tuple[int, int]:
@@ -215,27 +227,37 @@ def fused_cg_stencil(offsets: Sequence[Tuple[int, int]],
 fused_cg_stencil.launches = 0
 
 
+def run_chunked(solve, b, x0, chunk: int):
+    """``solve(b, x0)`` over RHS chunks of (2, B, Nv, Nh) planes, one launch
+    after another, the batch split into the fewest launches of at most
+    ``chunk`` RHS, balanced in size; results concatenated."""
+    nb = b.shape[1]
+    if nb <= chunk:
+        return solve(b, x0)
+    launches = -(-nb // chunk)
+    cuts = [-(-nb * k // launches) for k in range(launches + 1)]
+    runs = [solve(b[:, lo:hi], x0[:, lo:hi])
+            for lo, hi in zip(cuts, cuts[1:])]
+    return (torch.cat([x for x, _ in runs], dim=1),
+            torch.cat([h for _, h in runs], dim=1))
+
+
 def fused_cg_stencil_chunked(offsets, coef3, b, x0, n_iterations: int,
                              chunk: Optional[int] = None):
-    """Arbitrary-batch fused CG: RHS chunks solved one launch after another.
+    """Arbitrary-batch fused CG: RHS chunks solved one launch after another
+    (:func:`run_chunked`).
 
-    Per-RHS recurrences are independent (``clcg.c:317-333``), so the result
-    of each RHS is that of a launch with that RHS alone, up to reduction
-    order.  ``chunk`` defaults to the CUDA kernel's RHS limit on a CUDA
-    tensor and to the whole batch on a CPU tensor.
+    Per-RHS recurrences are independent (``clcg.c:317-333``), and the
+    kernel's sums for one RHS do not depend on the others, so each RHS gets
+    the bits of a launch with that RHS alone.  ``chunk`` defaults to the
+    CUDA kernel's RHS limit on a CUDA tensor and to the whole batch on a
+    CPU tensor.
     """
-    nb = b.shape[1]
     if chunk is None:
-        chunk = kernel_limits()[1] if b.device.type == "cuda" else nb
-    if nb <= chunk:
-        return fused_cg_stencil(offsets, coef3, b, x0, n_iterations)
-    xs, hists = [], []
-    for lo in range(0, nb, chunk):
-        x, hist = fused_cg_stencil(offsets, coef3, b[:, lo:lo + chunk],
-                                   x0[:, lo:lo + chunk], n_iterations)
-        xs.append(x)
-        hists.append(hist)
-    return torch.cat(xs, dim=1), torch.cat(hists, dim=1)
+        chunk = kernel_limits()[1] if b.device.type == "cuda" else b.shape[1]
+    return run_chunked(
+        lambda bc, xc: fused_cg_stencil(offsets, coef3, bc, xc, n_iterations),
+        b, x0, chunk)
 
 
 def prepare_coef3(stencil, dtype=torch.float32) -> torch.Tensor:

@@ -26,6 +26,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .device import resolve_device
 
 def _shift_rows(x: torch.Tensor, off: int) -> torch.Tensor:
     """out[i] = x[i + off] with zero fill outside [0, n).  Static ``off``."""
@@ -111,10 +112,12 @@ class DiaMatrix:
             shape=self.shape)
 
     @staticmethod
-    def from_scipy(A, dtype=None, device="cpu") -> "DiaMatrix":
+    def from_scipy(A, dtype=None, device=None) -> "DiaMatrix":
         """Convert a scipy sparse matrix whose nonzeros lie on a small set
-        of diagonals (vectorized scatter, as ``tpcg.sparse.DiaMatrix``)."""
+        of diagonals (vectorized scatter, as ``tpcg.sparse.DiaMatrix``), on
+        ``device`` (default: the CUDA device, raising without one)."""
         import scipy.sparse as sp
+        device = resolve_device(device)
         A = sp.coo_matrix(A)
         n = A.shape[0]
         d = A.col - A.row
@@ -168,7 +171,9 @@ class EllMatrix:
         return self.matvec(x)
 
     @staticmethod
-    def from_scipy(A, dtype=None, device="cpu") -> "EllMatrix":
+    def from_scipy(A, dtype=None, device=None) -> "EllMatrix":
+        """A scipy sparse matrix on ``device`` (default: the CUDA device,
+        raising without one)."""
         import scipy.sparse as sp
         A = sp.csr_matrix(A)
         return EllMatrix.from_csr_arrays(A.shape[0], A.data, A.indptr,
@@ -177,9 +182,11 @@ class EllMatrix:
 
     @staticmethod
     def from_csr_arrays(n, a_values, a_pointers, a_cols, dtype=None,
-                        device="cpu") -> "EllMatrix":
+                        device=None) -> "EllMatrix":
         """Build from raw CSR arrays (the ``clcg::cg`` input surface),
-        scattered into the padded (n, L) layout as JAX does."""
+        scattered into the padded (n, L) layout as JAX does, on ``device``
+        (default: the CUDA device, raising without one)."""
+        device = resolve_device(device)
         a_pointers = np.asarray(a_pointers)
         a_cols = np.asarray(a_cols)
         a_values = np.asarray(a_values)
@@ -283,9 +290,10 @@ def _dia_worthwhile(A, prefer_dia_band: int) -> bool:
 
 
 def to_device_matrix(A, prefer_dia_band: int = 4096, reorder: bool = False,
-                     route_fallback: bool = False, device="cpu"):
+                     route_fallback: bool = False, device=None):
     """Pick the device container for a scipy sparse matrix, on ``device``
-    (``tpcg.sparse.to_device_matrix``).
+    (default: the CUDA device, raising without one;
+    ``tpcg.sparse.to_device_matrix``).
 
     A matrix with a modest number of distinct diagonals (``ndiag * n``
     within ~4x of ``nnz``) becomes a ``DiaMatrix``; anything else an
@@ -302,6 +310,7 @@ def to_device_matrix(A, prefer_dia_band: int = 4096, reorder: bool = False,
     the ELL gather instead; on the CPU it returns the ``EllMatrix``.
     """
     import scipy.sparse as sp
+    device = resolve_device(device)
     A = sp.csr_matrix(A)
     if _dia_worthwhile(A, prefer_dia_band):
         M = DiaMatrix.from_scipy(A, device=device)
@@ -313,7 +322,7 @@ def to_device_matrix(A, prefer_dia_band: int = 4096, reorder: bool = False,
         if _dia_worthwhile(Ap, prefer_dia_band):
             return DiaMatrix.from_scipy(Ap, device=device), perm
         if (route_fallback and not np.iscomplexobj(A.data)
-                and torch.device(device).type == "cuda"):
+                and device.type == "cuda"):
             raise NotImplementedError(
                 f"unstructured {A.shape[0]}x{A.shape[1]} matrix "
                 f"(nnz={A.nnz}): JAX routes it through its routing-network "
