@@ -102,11 +102,41 @@ Phases, in order; the first failure exits non-zero:
      N=128 x 5000 and N=512 x 1000, B=1 and B=2 (plane waves), with phase
      4's gates against the plain version (the residual gated at N=128, B=1)
      and the ``l2-coef`` kernel's time on the same RHS beside it;
- 15. a JSON line of the kernels (each with its launches on the main paths,
-     its largest x error against its plain version, its time, its plain
-     version's time, its bound and what sets it, and ``library_ms`` null: no
-     single PyTorch call computes a fixed-iteration CG solve), the card
-     line, and the result line.
+ 15. the unstructured SpMV kernel (``route_spmv``, ``csrc/route_spmv.cu``)
+     against its plain version on the card: the 1138_bus class
+     (``irregular_spd(1138, 3.56)``), ``random_spd(5000, 100)``, empty rows
+     beside one row of 5,000 nonzeros, and the CSR matrix ``routed_to_csr``
+     rebuilds from tables ``build_routing_spmv`` made; nrhs 1, 2, 4, 5, 8,
+     13; real, complex, and a real matrix with complex planes; y within
+     1e-5 max|y| (another sum order), two launches bit-equal;
+ 16. the unstructured classes through the entry points, each with the
+     launch counts set to 0 just before and read just after (only
+     ``route_spmv`` may move): the 1138_bus class written to a .mtx and
+     solved by ``python -m tpcg_torch.cli cg`` in this process, 1 RHS x
+     5000 iterations; the ``random-routed`` class (``random_spd(97578,
+     100, seed=1)``, nnz 19,593,022) through ``tpcg_torch.cg`` with CSR
+     arrays at B=1 and B=4 x 200 iterations, and its complex symmetric
+     variant at B=1; ``routing=`` with the tables the port's ``cli route``
+     wrote for the 1138_bus class, whose x over 100 iterations must match
+     the CSR call's within 1e-5 max|x|.  For each class: host seconds of
+     generation, conversion (RCM included) and upload, and of the entry
+     point; the float64 relative residual, gated at 1e-3 (where the history
+     blows up past convergence, the blow-up is printed and the residual of
+     the solve stopped at the history's lowest entry is gated); a
+     100-iteration gate of the solve against the same ``block_cg`` over the
+     plain SpMV on the card (``dia_close``); the median of 5 CUDA-event
+     timings of the device-resident solve and its GFLOPS by Table II; one
+     SpMV of the kernel, of the plain version and of the library call
+     (``torch.sparse_csr_tensor(...) @ X``, cuSPARSE, timed here and called
+     nowhere in the port), each the median of 5 timings of 20 products,
+     beside its bound;
+ 17. a JSON line of the kernels (each with its launches on the main paths,
+     its largest error against its plain version, its time, its plain
+     version's time, its bound and what sets it, and ``library_ms``: null
+     for the CG kernels, as no single PyTorch call computes a
+     fixed-iteration CG solve, and the cuSPARSE product for
+     ``route_spmv``, whose row holds one SpMV at random-routed B=1), the
+     card line, and the result line.
 
 Bounds (``bound_ms``): the larger of the bytes the solve must move, each
 input read once and each output written once, over 3.35 TB/s, and its
@@ -117,7 +147,9 @@ read and write x, r and d every iteration (48 B a node), and on
 ``stream-coef`` read the half coefficient planes once (32 B more); phase 13
 prints the real one (24 B a node, and 4 B a tap in coef mode).  Real
 stencils count ``2 nnz + 10 n`` operations an iteration
-(benchmarks/exp_realstream4.py:41).
+(benchmarks/exp_realstream4.py:41).  The SpMV's bound counts the CSR
+arrays (8 B a nonzero, 12 B complex), the row pointers, x and y once, and
+2 (8 complex) operations a nonzero and column.
 
 It drives only ``tpcg_torch`` and imports nothing of JAX.
 """
@@ -130,6 +162,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -530,6 +563,8 @@ def wrappers():
            "stream_cg_sym": stream_cg_sym_planes,
            "stream_cg_real": stream_cg_real_planes}
     out.update({k: v[0] for k, v in dia_kernels().items()})
+    from tpcg_torch.ops.route_spmv import routed_matvec_block
+    out["route_spmv"] = routed_matvec_block
     return out
 
 
@@ -1406,6 +1441,326 @@ def phase_l2_const(dev, N, iters, nb, check_residual, plain_full=False):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+# ---- phases 15-16: unstructured matrices and the CSR kernel ----
+
+def route_matrix(name):
+    """Phase 15's geometries: the 1138_bus class, random_spd(5000, 100),
+    empty rows beside one row of 5,000 nonzeros, and the CSR matrix that
+    routed_to_csr rebuilds from tables build_routing_spmv made."""
+    import scipy.sparse as sp
+    from tpcg_torch.ops.routing import build_routing_spmv, routed_to_csr
+    from tpcg_torch.problems import irregular_spd, random_spd
+    if name == "1138_bus":
+        return irregular_spd(1138, 3.56, seed=0)
+    if name == "random_spd(5000)":
+        return random_spd(5000, 100, seed=1)
+    if name == "skewed":
+        rng = np.random.default_rng(3)
+        n = 6000
+        rows = np.concatenate([np.zeros(5000, np.int64),
+                               rng.integers(1, n, 3000) // 2 * 2])
+        return sp.csr_matrix((rng.standard_normal(len(rows)),
+                              (rows, rng.integers(0, n, len(rows)))),
+                             shape=(n, n))
+    return routed_to_csr(build_routing_spmv(irregular_spd(700, 5, seed=4)))
+
+
+def route_product(D, x, plain=False):
+    """The function of route_spmv on (D, x): x (n, k) real, or (2, n, k)
+    planes (complex values, or a real matrix with a complex RHS)."""
+    from tpcg_torch.ops import route_spmv as rs
+    if not plain:
+        return (rs.routed_matvec_block(D.row_ptr, D.col, D.val, x)
+                if x.dim() == 2 else rs.routed_pair(D).matvec(x))
+    if x.dim() == 3 and D.val.dim() == 1:
+        return torch.stack([rs.routed_matvec_plain(D.row_ptr, D.col, D.val,
+                                                   x[p]) for p in range(2)])
+    return rs.routed_matvec_plain(D.row_ptr, D.col, D.val, x)
+
+
+def phase_route_compare(dev):
+    """route_spmv against its plain version on the card: y within
+    1e-5 max|y| (the kernel sums a row across 32 lanes and a shuffle tree,
+    the plain version in row order), two launches bit-equal.  Returns the
+    max |y err|."""
+    from tpcg_torch.ops.route_spmv import DeviceRouted
+    worst = 0.0
+    rng = np.random.default_rng(5)
+    for name in ("1138_bus", "random_spd(5000)", "skewed", "tables"):
+        A = route_matrix(name)
+        for kind in ("real", "complex", "real, complex RHS"):
+            D = DeviceRouted.from_scipy(
+                A.astype(np.complex64 if kind == "complex" else np.float32),
+                device=dev)
+            line = []
+            for nrhs in (1, 2, 4, 5, 8, 13):
+                shape = (D.n, nrhs) if kind == "real" else (2, D.n, nrhs)
+                x = torch.from_numpy(rng.standard_normal(shape).astype(
+                    np.float32)).to(dev)
+                y1, y2 = route_product(D, x), route_product(D, x)
+                yp = route_product(D, x, plain=True)
+                torch.cuda.synchronize()
+                err = float((y1 - yp).abs().max())
+                lim = 1e-5 * float(yp.abs().max())
+                same = torch.equal(y1, y2)
+                line.append(f"{nrhs}: {err:.2e}/{lim:.2e}"
+                            + ("" if same else " NOT bit-equal"))
+                if not (torch.isfinite(y1).all() and err <= lim and same):
+                    fail(f"route_spmv disagrees with its plain version "
+                         f"({name}, {kind}, nrhs={nrhs})")
+                worst = max(worst, err)
+            print(f"compare route_spmv {name} n={D.n} nnz={D.nnz} {kind}: "
+                  f"max|y err|/limit by nrhs {'; '.join(line)}; repeats "
+                  "bit-equal")
+    return worst
+
+
+def route_spmv_times(D, X):
+    """(kernel, plain, cuSPARSE) ms of one product on X, each the median
+    of 5 CUDA-event timings of 20 products, and the bound (ms, by)."""
+    nnz, n = D.nnz, D.n
+    k = X.shape[-1]
+    cplx = D.val.dim() == 2
+    with warnings.catch_warnings():      # "beta" and invariant notices
+        warnings.simplefilter("ignore")
+        S = torch.sparse_csr_tensor(
+            D.row_ptr, D.col,
+            torch.complex(D.val[0], D.val[1]) if cplx else D.val, (n, n))
+    Xl = torch.complex(X[0], X[1]) if cplx else X
+
+    def reps(fn):
+        return lambda: [fn() for _ in range(20)]
+    ms = median_ms(reps(lambda: route_product(D, X)), 5)[0] / 20
+    plain_ms = median_ms(reps(lambda: route_product(D, X, plain=True)),
+                         5)[0] / 20
+    lib_ms = median_ms(reps(lambda: S @ Xl), 5)[0] / 20
+    # CSR read once (val, col, row_ptr), X read once, Y written once
+    vb = 8 if cplx else 4
+    nbytes = vb * nnz + 4 * nnz + 4 * (n + 1) + 2 * 4 * X.numel()
+    flops = (8 if cplx else 2) * nnz * k
+    return ms, plain_ms, lib_ms, bound(nbytes, flops)
+
+
+def blow_up(hist):
+    """(blew up, iteration of the lowest entry, per-iteration max over RHS)
+    of a history: a blow-up is a non-finite entry, or a climb to 1e3 x the
+    lowest entry."""
+    h = np.asarray(hist, dtype=np.float64).reshape(len(hist), -1)
+    worst = np.where(np.isfinite(h), h, np.nan).max(axis=1)   # over RHS
+    k = int(np.nanargmin(worst))
+    return (not np.isfinite(h).all() or worst[-1] > 1e3 * worst[k]), k, worst
+
+
+def gate_routed(label, D, b, cplx):
+    """100 iterations of the solve over the kernel against the same
+    block_cg over the plain SpMV, on the card: x within 2e-3 max|x|, the
+    live history within rel 1e-2 (dia_close).  Where either solve blows up
+    past convergence (there two sum orders part: the plain version's
+    index_add_ sums in no fixed order on the card), the gate runs both to
+    the earlier of their histories' lowest entries instead, and says so."""
+    from tpcg_torch.cg import block_cg
+    from tpcg_torch.ops.cplx import block_cg_planes_chunked
+    from tpcg_torch.ops.route_spmv import routed_pair
+
+    def run(op, k):
+        if cplx:
+            return block_cg_planes_chunked(op, b, n_iterations=k)
+        return block_cg(op, b, n_iterations=k)
+
+    def plain(x):
+        return route_product(D, x, plain=True)
+    kernel = routed_pair(D) if cplx else D
+    iters = 100
+    rk, rp = run(kernel, iters), run(plain, iters)
+    seen = [(name, *blow_up(r.residual_history.cpu().numpy()))
+            for name, r in (("kernel", rk), ("plain", rp))]
+    if any(bad for _, bad, _, _ in seen):
+        iters = max(1, min(k for _, _, k, _ in seen))
+        for name, bad, k, worst in seen:
+            print(f"{label}: {name} solve over 100 it: blow-up {bad}, lowest "
+                  f"history {worst[k]:.3e} at iteration {k}, largest finite "
+                  f"{np.nanmax(worst):.3e}, last {worst[-1]:.3e}")
+        print(f"{label}: BLOW-UP past convergence: the gate runs {iters} "
+              "iterations")
+        rk, rp = run(kernel, iters), run(plain, iters)
+    torch.cuda.synchronize()
+    worst, lim_w, rel_w, ok = 0.0, 0.0, 0.0, True
+    for c in range(b.shape[-1]):
+        ok_c, err, lim, rel = dia_close(
+            rk.x[..., c], rk.residual_history[:, c], rp.x[..., c],
+            rp.residual_history[:, c])
+        ok = ok and ok_c
+        worst, lim_w, rel_w = max(worst, err), max(lim_w, lim), max(rel_w, rel)
+    return ok, worst, lim_w, rel_w, iters
+
+
+def residual_at_best(label, A, B, x, hist, solve):
+    """The float64 relative residual of x; where the history left the
+    finite range (or x did), print the blow-up and read the residual of a
+    solve stopped where the history is lowest (``solve(k)``)."""
+    bad, k, worst = blow_up(hist)
+    if not bad and np.isfinite(x).all():
+        return rel_residual64(A, x, B)
+    bad = np.where(~np.isfinite(worst))[0]
+    print(f"{label}: BLOW-UP past convergence: first non-finite history "
+          f"entry at iteration {bad[0] if len(bad) else None}, largest "
+          f"finite {np.nanmax(worst):.3e}, last {worst[-1]:.3e}; the lowest, "
+          f"{worst[k]:.3e}, is at iteration {k}: the residual below is that "
+          "solve's")
+    return rel_residual64(A, solve(k), B)
+
+
+def phase_route_main(dev, label, make, nrhs, iters, cplx=False, via="api",
+                     converges=True):
+    """One unstructured class through an entry point (``via`` "api":
+    tpcg_torch.cg with CSR arrays; "cli": the .mtx through ``python -m
+    tpcg_torch.cli cg`` in this process); only route_spmv may launch."""
+    import scipy.io
+    import tpcg_torch
+    from tpcg_torch import cli
+    from tpcg_torch.ops.route_spmv import DeviceRouted
+    t0 = time.perf_counter()
+    A = make()
+    t_gen = time.perf_counter() - t0
+    A = A.astype(np.complex64 if cplx else np.float32).tocsr()
+    n, nnz = A.shape[0], A.nnz
+    rng = np.random.default_rng(7)
+    if via == "cli":
+        B = np.stack([np.full(n, (r + 1) * 5.0, A.dtype)
+                      for r in range(nrhs)], axis=1)
+    else:
+        B = rng.standard_normal((n, nrhs)).astype(np.float32)
+        if cplx:
+            B = (B + 1j * rng.standard_normal((n, nrhs))).astype(A.dtype)
+    b = B.T.reshape(-1)
+    t0 = time.perf_counter()
+    M, perm = tpcg_torch.to_device_matrix(A, reorder=True,
+                                          route_fallback=not cplx,
+                                          device=dev)
+    if not isinstance(M, DeviceRouted):
+        M = DeviceRouted.from_ell(M)
+    torch.cuda.synchronize()
+    t_conv = time.perf_counter() - t0
+    if perm is not None:
+        fail(f"{label}: RCM made the class banded; it is no unstructured "
+             "cell")
+
+    def solve(k):
+        return tpcg_torch.cg(n, *csr_args(A)[:2], b, *csr_args(A)[2:],
+                             n_rhs=nrhs, n_iterations=k, record_history=True,
+                             device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        t0 = time.perf_counter()
+        if via == "cli":
+            path = os.path.join(tmp, f"{label}.mtx")
+            scipy.io.mmwrite(path, A)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["cg", path, str(nrhs), str(int(cplx)),
+                               str(iters), "--device", str(dev)])
+            for line in out.getvalue().splitlines():
+                print(f"  cli: {line}")
+            if rc != 0:
+                fail(f"{label}: the CLI failed (exit {rc})")
+        else:
+            x, hist = solve(iters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = moved_counts()
+    launches = counts.get("route_spmv", 0)
+    print(f"{label}: n={n} nnz={nnz} B={nrhs} {iters} it via {via}: kernel "
+          f"launches {counts}; host s: generation {t_gen:.3f}, conversion "
+          f"(RCM included) and upload {t_conv:.3f}, entry point {wall:.3f} "
+          "(conversion and transfers included)")
+    if set(counts) != {"route_spmv"} or launches < 1:
+        fail(f"{label}: expected only route_spmv to launch, got {counts}")
+    if via == "cli":
+        # the CLI prints residual norms, not x: the API it calls gives x
+        x, hist = solve(iters)
+    X = x.reshape(nrhs, n).T
+    res = residual_at_best(label, A, B, X, hist,
+                           lambda k: solve(k)[0].reshape(nrhs, n).T)
+    print(f"{label}: finite {bool(np.isfinite(X).all())}, relative residual "
+          f"(f64) {res:.3e}" + (" (limit 1e-3)" if converges else
+                                " (printed, not gated)"))
+    if not np.isfinite(res) or (converges and res > 1e-3):
+        fail(f"{label}: relative residual {res:.3e}")
+
+    # device-resident operands: the gate and the timings
+    from tpcg_torch.cg import block_cg
+    from tpcg_torch.ops.cplx import block_cg_planes_chunked
+    from tpcg_torch.ops.route_spmv import routed_pair
+    if cplx:
+        bd = torch.from_numpy(np.stack([B.real, B.imag]).astype(
+            np.float32)).to(dev)
+    else:
+        bd = torch.from_numpy(np.ascontiguousarray(B)).to(dev)
+    ok, err, lim, rel, gate_it = gate_routed(label, M, bd, cplx)
+    print(f"{label}: gate {gate_it} it vs plain SpMV: max|x err| {err:.3e} "
+          f"(limit {lim:.3e}), hist max rel {rel:.3e} (limit 1e-2)")
+    if not ok:
+        fail(f"{label}: 100-iteration gate failed")
+    if cplx:
+        P = routed_pair(M)
+        ms, _ = median_ms(lambda: block_cg_planes_chunked(
+            P, bd, n_iterations=iters), reps=5)
+    else:
+        ms, _ = median_ms(lambda: block_cg(M, bd, n_iterations=iters),
+                          reps=5)
+    flop = (8 * nnz + 40 * n) if cplx else (2 * nnz + 10 * n)
+    gflops = nrhs * iters * flop / (ms * 1e-3) / 1e9
+    spmv_ms, plain_ms, lib_ms, (bound_ms, bound_by) = route_spmv_times(
+        M, bd)
+    print(f"time {label} B={nrhs} {iters} it: solve {ms:.3f} ms "
+          f"({ms * 1e3 / iters:.3f} us/it, {gflops:.2f} GFLOPS Table II, all "
+          f"RHS); one SpMV: kernel {spmv_ms * 1e3:.3f} us, plain "
+          f"{plain_ms * 1e3:.3f} us, cuSPARSE (torch.sparse_csr_tensor @ X) "
+          f"{lib_ms * 1e3:.3f} us, bound {bound_ms * 1e3:.3f} us "
+          f"({bound_by}); SpMV share of an iteration "
+          f"{spmv_ms * iters / ms:.2f}")
+    return dict(ms=spmv_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                solve_ms=ms, launches=launches, err=err, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_route_tables(dev):
+    """routing= with tables the port's ``cli route`` wrote for the
+    1138_bus class: its x over 100 iterations within 1e-5 max|x| of the CSR
+    call's; only route_spmv may launch."""
+    import scipy.io
+    import tpcg_torch
+    from tpcg_torch import cli
+    A = route_matrix("1138_bus").tocsr()
+    n = A.shape[0]
+    b = np.random.default_rng(8).standard_normal(n).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        path, tables = os.path.join(tmp, "1138.mtx"), os.path.join(
+            tmp, "1138.npz")
+        scipy.io.mmwrite(path, A)
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["route", path, tables])
+        print(f"  cli route: {out.getvalue().strip()} "
+              f"({time.perf_counter() - t0:.3f} s)")
+        if rc != 0:
+            fail(f"cli route failed (exit {rc})")
+        reset_counts()
+        xr = tpcg_torch.cg(n, *csr_args(A)[:2], b, *csr_args(A)[2:],
+                           n_iterations=100, routing=tables, device=dev)
+        counts = moved_counts()
+    xc = tpcg_torch.cg(n, *csr_args(A)[:2], b, *csr_args(A)[2:],
+                       n_iterations=100, device=dev)
+    err = float(np.abs(xr - xc).max())
+    lim = 1e-5 * float(np.abs(xc).max())
+    print(f"1138_bus routing= tables vs CSR, 100 it: max|x err| {err:.3e} "
+          f"(limit {lim:.3e}); launches {counts}")
+    if set(counts) != {"route_spmv"} or err > lim:
+        fail("routing= disagrees with the CSR call or ran another kernel")
+    return counts["route_spmv"]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -1446,6 +1801,18 @@ def main():
            phase_l2_const(dev, 128, 5000, 2, True),
            phase_l2_const(dev, 512, 1000, 1, False),
            phase_l2_const(dev, 512, 1000, 2, False)]
+    from tpcg_torch.problems import irregular_spd, random_spd
+    route_err = phase_route_compare(dev)
+    route = [
+        phase_route_main(dev, "1138_bus", lambda: irregular_spd(
+            1138, 3.56, seed=0), 1, 5000, via="cli"),
+        phase_route_main(dev, "random-routed", lambda: random_spd(
+            97578, 100, seed=1), 1, 200),
+        phase_route_main(dev, "random-routed", lambda: random_spd(
+            97578, 100, seed=1), 4, 200),
+        phase_route_main(dev, "random-routed complex", lambda: random_spd(
+            97578, 100, seed=1, dtype=np.complex64), 1, 200, cplx=True)]
+    route_tables = phase_route_tables(dev)
     kernels = [{
         "name": "fused_cg_stencil", "route": "cuda",
         "source": "tpcg_torch/csrc/fused_cg.cu",
@@ -1517,6 +1884,16 @@ def main():
         "ms": l2c[0]["ms"], "plain_ms": l2c[0]["plain_ms"],
         "bound_ms": l2c[0]["bound_ms"], "bound_by": l2c[0]["bound_by"],
         "library_ms": None})
+    # the CSR kernel's headline cell: random-routed B=1, one SpMV
+    kernels.append({
+        "name": "route_spmv", "route": "cuda",
+        "source": "tpcg_torch/csrc/route_spmv.cu",
+        "replaces": "tpcg/ops/route_spmv.py:104",
+        "launches": sum(r["launches"] for r in route) + route_tables,
+        "max_abs_err": max([route_err] + [r["err"] for r in route]),
+        "ms": route[1]["ms"], "plain_ms": route[1]["plain_ms"],
+        "bound_ms": route[1]["bound_ms"], "bound_by": route[1]["bound_by"],
+        "library_ms": route[1]["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ import tpcg_torch
 from tpcg.problems import helm_fe
 from tpcg_torch import api
 from tpcg_torch.ops import fused_cg_dia as tfd
+from tpcg_torch.ops import route_spmv as trs
 from tpcg_torch.ops import stream_cg_dia as tsd
 
 
@@ -147,9 +148,13 @@ def test_unstructured_on_cpu_runs_ell_like_jax():
     A = sp.csr_matrix((rng.standard_normal(n * per_row) * 0.1,
                        (rows, cols)), shape=(n, n))
     A = sp.csr_matrix((A + A.T) * 0.5 + sp.eye(n) * per_row)
+    # what cg asks for on the CPU (route_fallback only on a card, as JAX
+    # asks only on a TPU); asked for, the routed operand comes on any device
+    M, perm = tpcg_torch.to_device_matrix(A, reorder=True, device="cpu")
+    assert isinstance(M, tpcg_torch.EllMatrix) and perm is None
     M, perm = tpcg_torch.to_device_matrix(A, reorder=True,
                                           route_fallback=True, device="cpu")
-    assert isinstance(M, tpcg_torch.EllMatrix) and perm is None
+    assert isinstance(M, tpcg_torch.DeviceRouted) and perm is None
     b = rng.standard_normal(n)
     xj = tpcg.cg(n, *csr_args(A)[:2], b, *csr_args(A)[2:], n_iterations=30)
     xt = tpcg_torch.cg(n, *csr_args(A)[:2], b, *csr_args(A)[2:],
@@ -165,7 +170,8 @@ def card_branch(monkeypatch):
     order = []
     for mod, name in ((tfd, "fused_cg_dia_cplx_block"),
                       (tsd, "stream_cg_dia_cplx_block"),
-                      (tsd, "stream_cg_dia_block")):
+                      (tsd, "stream_cg_dia_block"),
+                      (trs, "routed_matvec_block")):
         orig = getattr(mod, name)
 
         def spy(*a, _orig=orig, _name=name, **k):
@@ -236,7 +242,18 @@ def test_card_branch_float64_and_complex_rhs_stay_eager(card_branch):
     np.testing.assert_allclose(xc, xs, rtol=0, atol=1e-3 * np.abs(xs).max())
 
 
-def test_card_branch_refuses_unstructured_and_routing(card_branch):
+def test_card_branch_refuses_unstructured_and_routing(card_branch,
+                                                     monkeypatch, tmp_path):
+    """The card branch no longer refuses an unstructured matrix or
+    routing=: real, complex and routed solves all run through the CSR
+    kernel's wrapper (its plain version on these CPU tensors), never the
+    ELL gather, and match scipy; an EllMatrix container given to cg_matrix
+    runs through it too."""
+    from tpcg_torch.ops.routing import build_routing_spmv
+
+    def no_gather(*a, **k):
+        raise AssertionError("the ELL gather ran on the card branch")
+    monkeypatch.setattr(tpcg_torch.EllMatrix, "matvec", no_gather)
     rng = np.random.default_rng(11)
     n, per_row = 96, 4
     rows = np.repeat(np.arange(n), per_row)
@@ -246,18 +263,27 @@ def test_card_branch_refuses_unstructured_and_routing(card_branch):
     A = sp.csr_matrix((A + A.T) * 0.5 + sp.eye(n) * per_row,
                       dtype=np.float32)
     b = rng.standard_normal(n).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tpcg_torch.cg(n, *csr_args(A)[:2], b, *csr_args(A)[2:],
-                      n_iterations=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tpcg_torch.cg_matrix(A.astype(np.complex64), b, n_iterations=5,
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tpcg_torch.cg(n, *csr_args(A)[:2], b, *csr_args(A)[2:],
-                      n_iterations=5, routing="tables.npz", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tpcg_torch.to_device_matrix(A, route_fallback=True, device="cuda")
-    assert card_branch == []
+    xs = spla.spsolve(A.astype(np.float64).tocsc(), b.astype(np.float64))
+    R = build_routing_spmv(A)
+    path = str(tmp_path / "tables.npz")
+    R.save(path)
+    E = tpcg_torch.EllMatrix.from_scipy(A, device="cpu")
+    for solve in (lambda: tpcg_torch.cg(n, *csr_args(A)[:2], b,
+                                        *csr_args(A)[2:], n_iterations=40,
+                                        device="cpu"),
+                  lambda: tpcg_torch.cg_matrix(A.astype(np.complex64), b,
+                                               n_iterations=40, device="cpu"),
+                  lambda: tpcg_torch.cg(n, *csr_args(A)[:2], b,
+                                        *csr_args(A)[2:], n_iterations=40,
+                                        routing=path, device="cpu"),
+                  lambda: tpcg_torch.cg_matrix(E, b, n_iterations=40)):
+        x = solve()
+        assert set(card_branch) == {"routed_matvec_block"}
+        card_branch.clear()
+        np.testing.assert_allclose(x, xs, rtol=0,
+                                   atol=1e-3 * np.abs(xs).max())
+    M, _ = tpcg_torch.to_device_matrix(A, route_fallback=True, device="cpu")
+    assert isinstance(M, tpcg_torch.DeviceRouted)
 
 
 _DEFAULTS = {

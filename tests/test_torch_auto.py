@@ -189,15 +189,36 @@ def test_solve_planes_shapes(path):
                                atol=1e-4 * np.abs(xs).max())
 
 
+def test_eager_real_stencil_solve_planes_takes_real_planes():
+    """On ``eager`` a real stencil's solve_planes takes real (Nv, Nh) or
+    (B, Nv, Nh) planes through block_cg, the surface of stream-real, and
+    gives solve's x; a (2, 64, 64) tensor is two real RHS, not one complex
+    RHS."""
+    S = tpcg_torch.problems.poisson(64, device="cpu")
+    plan = tpcg_torch.plan_stencil_cg(S, 30)
+    assert plan.path == "eager" and plan.real_planes
+    b = np.random.default_rng(0).standard_normal((2, 64, 64))
+    xs, hs = plan.solve(b)
+    x1, h1 = plan.solve_planes(torch.from_numpy(b[0]))
+    assert x1.shape == (64, 64) and h1.shape == (31,)
+    np.testing.assert_allclose(x1.numpy(), xs[0], rtol=1e-12, atol=1e-12)
+    x2, h2 = plan.solve_planes(torch.from_numpy(b))
+    assert x2.shape == (2, 64, 64) and h2.shape == (31, 2)
+    np.testing.assert_allclose(x2.numpy(), xs, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(h2.numpy(), hs, rtol=1e-12)
+
+
 def test_import_pulls_in_no_jax():
     code = ("import sys, tpcg_torch, tpcg_torch.ops, tpcg_torch.convert, "
             "tpcg_torch.api, tpcg_torch.io, tpcg_torch.cli, "
             "tpcg_torch.ops.stream_cg_dia, tpcg_torch.ops.fused_cg_dia, "
             "tpcg_torch.ops.stream_cg, tpcg_torch.ops.fused_cg_const, "
             "tpcg_torch.ops.stream_cg_sym, tpcg_torch.ops.stream_cg_real, "
-            "tpcg_torch.device, "
+            "tpcg_torch.device, tpcg_torch.ops.route_spmv, "
+            "tpcg_torch.ops.routing, tpcg_torch.native.routing_native, "
             "tpcg_torch.native.mtx_native; "
             "tpcg_torch.native.mtx_native.available(); "
+            "tpcg_torch.native.routing_native.available(); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'tpcg.')) or m == 'tpcg'); "
             "assert not bad, bad")

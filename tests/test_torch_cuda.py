@@ -373,8 +373,8 @@ def test_dia_kernels_denormal_and_identity_freeze(dev):
 def test_api_cg_launches_each_dia_kernel(dev):
     """The entry points on the card: real band -> streaming real kernel,
     the mhd geometry -> fused kernel, a complex band past the fused rule
-    -> streaming complex kernel; an unstructured matrix and routing=
-    raise."""
+    -> streaming complex kernel; an unstructured matrix, real or complex,
+    and routing= -> the CSR kernel (csrc/route_spmv.cu) alone."""
     import scipy.sparse as sp
     from tpcg_torch.problems import banded_complex
     counters = (tsd.stream_cg_dia_rows, tfd.fused_cg_dia_rows_cplx,
@@ -402,12 +402,22 @@ def test_api_cg_launches_each_dia_kernel(dev):
                        rng.integers(0, 100, 400))), shape=(100, 100))
     R = sp.csr_matrix(R + R.T + 8 * sp.eye(100), dtype=np.float32)
     bR = np.ones(100, np.float32)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tpcg_torch.cg(100, R.nnz, R.data, bR, R.indptr, R.indices,
-                      n_iterations=5, device=dev)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tpcg_torch.cg_matrix(R, bR, n_iterations=5, routing="tables.npz",
-                             device=dev)
+    from tpcg_torch.ops.routing import build_routing_spmv
+    route = trs.routed_matvec_block
+    for solve in (lambda: tpcg_torch.cg(100, R.nnz, R.data, bR, R.indptr,
+                                        R.indices, n_iterations=60,
+                                        device=dev),
+                  lambda: tpcg_torch.cg_matrix(R.astype(np.complex64), bR,
+                                               n_iterations=60, device=dev),
+                  lambda: tpcg_torch.cg_matrix(
+                      R, bR, n_iterations=60,
+                      routing=build_routing_spmv(R), device=dev)):
+        before = [c.launches for c in counters] + [route.launches]
+        x = solve()
+        assert [c.launches for c in counters] == before[:-1]
+        assert route.launches == before[-1] + 61
+        res = R.astype(np.complex128) @ x - bR
+        assert np.linalg.norm(res) <= 1e-3 * np.linalg.norm(bR)
 
 
 # ---- streaming constant-tap kernel (csrc/stream_cg.cu) ----
@@ -803,3 +813,97 @@ def test_l2_const_plan_matches_plain_over_100_iterations(dev, N):
                                              100)
     _assert_fused_close(xk, hk, xp, hp)
     assert tpcg_torch.plan_stencil_cg(S, 5).path == "l2-coef"
+
+
+# ---- the unstructured SpMV kernel (csrc/route_spmv.cu) ----
+# y within 1e-5 max|y| of the plain version (the kernel sums a row's
+# products across 32 lanes and a shuffle tree, the plain version in row
+# order); two launches bit-equal (no atomics).
+
+trs = importlib.import_module("tpcg_torch.ops.route_spmv")
+
+
+def _route_matrix(name):
+    """The smoke's geometries: the 1138_bus class, random_spd(5000, 100),
+    empty rows beside one row of 5,000 nonzeros, and the CSR matrix rebuilt
+    from routing tables."""
+    import scipy.sparse as sp
+    from tpcg_torch.ops.routing import build_routing_spmv, routed_to_csr
+    from tpcg_torch.problems import irregular_spd, random_spd
+    if name == "1138_bus":
+        return irregular_spd(1138, 3.56, seed=0)
+    if name == "random":
+        return random_spd(5000, 100, seed=1)
+    if name == "skewed":
+        rng = np.random.default_rng(3)
+        n = 6000
+        rows = np.concatenate([np.zeros(5000, np.int64),
+                               rng.integers(1, n, 3000) // 2 * 2])
+        return sp.csr_matrix((rng.standard_normal(len(rows)),
+                              (rows, rng.integers(0, n, len(rows)))),
+                             shape=(n, n))
+    return routed_to_csr(build_routing_spmv(irregular_spd(700, 5, seed=4)))
+
+
+def _launches_for(ncols):
+    return ncols // 8 + bin(ncols % 8).count("1")
+
+
+@pytest.mark.parametrize("name", ["1138_bus", "random", "skewed", "tables"])
+@pytest.mark.parametrize("kind", ["real", "complex", "real-complex-rhs"])
+def test_route_kernel_matches_plain(dev, name, kind):
+    A = _route_matrix(name)
+    D = tpcg_torch.DeviceRouted.from_scipy(
+        A.astype(np.complex64 if kind == "complex" else np.float32),
+        device=dev)
+    n = D.n
+    rng = np.random.default_rng(5)
+    for nrhs in (1, 2, 4, 5, 8, 13):
+        if kind == "real":
+            x = torch.from_numpy(rng.standard_normal(
+                (n, nrhs)).astype(np.float32)).to(dev)
+            yp = trs.routed_matvec_plain(D.row_ptr, D.col, D.val, x)
+
+            def run():
+                return trs.routed_matvec_block(D.row_ptr, D.col, D.val, x)
+            per_call = _launches_for(nrhs)
+        else:
+            x = torch.from_numpy(rng.standard_normal(
+                (2, n, nrhs)).astype(np.float32)).to(dev)
+            if kind == "complex":
+                yp = trs.routed_matvec_plain(D.row_ptr, D.col, D.val, x)
+            else:
+                yp = torch.stack([trs.routed_matvec_plain(
+                    D.row_ptr, D.col, D.val, x[p]) for p in range(2)])
+            P = trs.routed_pair(D)
+
+            def run():
+                return P.matvec(x)
+            per_call = _launches_for(nrhs if kind == "complex" else 2 * nrhs)
+        before = trs.routed_matvec_block.launches
+        y1, y2 = run(), run()
+        torch.cuda.synchronize()
+        assert trs.routed_matvec_block.launches == before + 2 * per_call
+        assert torch.equal(y1, y2)
+        err = float((y1 - yp).abs().max())
+        assert err <= 1e-5 * float(yp.abs().max()), (nrhs, err)
+    if name == "skewed":
+        assert not bool(y1[..., 1::2, :].any())   # the empty rows
+
+
+def test_route_wrapper_refuses_overflow_and_aliasing_on_card(dev):
+    D = tpcg_torch.DeviceRouted.from_scipy(_route_matrix("1138_bus"),
+                                           device=dev)
+    x = torch.ones(D.n, 2, device=dev)
+    huge = torch.zeros(1, dtype=torch.int32, device=dev).expand(2**31)
+    before = trs.routed_matvec_block.launches
+    with pytest.raises(ValueError, match="int32"):
+        trs.routed_matvec_block(D.row_ptr, huge, D.val, x)
+    with pytest.raises(ValueError, match="storage"):
+        trs.routed_matvec_block(D.row_ptr, D.col, D.val, x, out=x)
+    assert trs.routed_matvec_block.launches == before
+    out = torch.empty_like(x)
+    assert trs.routed_matvec_block(D.row_ptr, D.col, D.val, x,
+                                   out=out) is out
+    torch.cuda.synchronize()
+    assert torch.equal(out, D.matvec(x))

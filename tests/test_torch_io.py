@@ -105,9 +105,41 @@ def test_cli_refuses_missing_device_and_unported_commands(tmp_path, capsys,
     assert "not available" in capsys.readouterr().err
     assert tcli.main(["cg", str(mtx), "1", "0", "5", "--device",
                       "cuda:0"]) == 1
-    for cmd in ("helmholtz", "route"):
-        assert tcli.main([cmd, "2", "6", "2"]) != 0
-        assert "not ported" in capsys.readouterr().err
+    assert tcli.main(["helmholtz", "2", "6", "2"]) != 0
+    assert "not ported" in capsys.readouterr().err
+    # route is ported: wrong arguments are a usage error, not "not ported"
+    assert tcli.main(["route", "2", "6", "2"]) == 1
+    assert "Usage" in capsys.readouterr().err
     assert tcli.main(["cg", str(tmp_path / "missing.mtx"), "1", "0", "5",
                       "--device", "cpu"]) == 1
     assert os.path.exists(mtx)
+
+
+def test_cli_route_writes_tables_jax_loads(tmp_path, capsys):
+    """``cli route`` writes JAX's .npz layout: tpcg's RoutedSpmv.load reads
+    it and its product is the matrix's; the port's routing= solve on the
+    file matches the CSR solve; a missing file exits 1."""
+    from tpcg.ops.routing import RoutedSpmv as JRoutedSpmv
+    import tpcg_torch
+    rng = np.random.default_rng(5)
+    n = 150
+    A = sp.csr_matrix((rng.standard_normal(4 * n),
+                       (np.repeat(np.arange(n), 4),
+                        rng.integers(0, n, 4 * n))), shape=(n, n))
+    A = sp.csr_matrix(A + A.T + 8 * sp.eye(n))
+    mtx, out = tmp_path / "u.mtx", tmp_path / "u.npz"
+    scipy.io.mmwrite(str(mtx), A)
+    assert tcli.main(["route", str(mtx), str(out)]) == 0
+    assert "layers" in capsys.readouterr().out
+    R = JRoutedSpmv.load(str(out))
+    x = rng.standard_normal(n)
+    np.testing.assert_allclose(R.matvec_numpy(x), A @ x, rtol=1e-5,
+                               atol=1e-5 * np.abs(A @ x).max())
+    A32 = A.astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    xr = tpcg_torch.cg(n, A32.nnz, A32.data, b, A32.indptr, A32.indices,
+                       n_iterations=20, routing=str(out), device="cpu")
+    xc = tpcg_torch.cg_matrix(A32, b, n_iterations=20, device="cpu")
+    np.testing.assert_allclose(xr, xc, rtol=0, atol=1e-5 * np.abs(xc).max())
+    assert tcli.main(["route", str(tmp_path / "missing.mtx"),
+                      str(out)]) == 1

@@ -187,11 +187,22 @@ def test_to_device_matrix_matches_jax(kind, reorder):
 
 
 def test_route_fallback_refuses_on_cuda_and_returns_ell_on_cpu():
+    """route_fallback=True: an unstructured real matrix becomes the CSR
+    operand of the unstructured-SpMV kernel on any device, as JAX returns
+    its routed operand on any backend (tests/test_routing.py:101-115);
+    the product is A's.  A complex one stays an EllMatrix, as in JAX."""
+    from tpcg_torch.ops.route_spmv import DeviceRouted
     A = _random_sparse(90, 5, seed=4)
     M, perm = to_device_matrix(A, route_fallback=True, device="cpu")
-    assert isinstance(M, EllMatrix) and perm is None
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        to_device_matrix(A, route_fallback=True, device="cuda")
+    assert isinstance(M, DeviceRouted) and perm is None
+    assert M.dtype == torch.float32 and M.device.type == "cpu"
+    x = np.random.default_rng(0).standard_normal((90, 2))
+    np.testing.assert_allclose(M.matvec(torch.from_numpy(x)).numpy(), A @ x,
+                               rtol=0, atol=1e-5 * np.abs(A @ x).max())
+    # a banded matrix still takes DIA
+    Mb, _ = to_device_matrix(_shuffled_band(120, 3), route_fallback=True,
+                             device="cpu")
+    assert isinstance(Mb, DiaMatrix)
     # a complex unstructured matrix has no route fallback in JAX either
     Mc, _ = to_device_matrix(_random_sparse(90, 5, seed=4, cplx=True),
                              route_fallback=True, device="cpu")

@@ -14,6 +14,7 @@ from .ops.stream_cg import stream_cg_const                    # noqa: F401
 from .ops.stream_cg_sym import stream_cg_sym                # noqa: F401
 from .sparse import (DiaMatrix, EllMatrix, Stencil2D,         # noqa: F401
                      to_device_matrix)
+from .ops.route_spmv import DeviceRouted                     # noqa: F401
 from . import reference                                       # noqa: F401
 from . import problems                                        # noqa: F401
 

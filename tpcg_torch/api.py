@@ -16,19 +16,25 @@ Dispatch keys on the torch device (:func:`_on_card`), not on "not CPU":
      (``ops.fused_cg_dia``) if its fit rule passes, else the streaming
      complex kernel (``ops.stream_cg_dia``);
   2. real ``DiaMatrix`` -> the streaming real kernel;
-  3. everything else (float64 / complex128, a real matrix with a complex
-     RHS, ``Stencil2D``) -> eager ``block_cg`` / ``block_cg_planes`` on the
-     device, exactly where JAX also takes XLA.
-  Unstructured matrices and ``routing=`` raise ``NotImplementedError``:
-  JAX sends them to its routing-network SpMV, which the port has not
-  ported yet (ROADMAP queue 1 item 13).
+  3. an unstructured matrix (no ordering makes it banded), or routing
+     tables given as ``routing=`` (``tpcg/api.py:24-74``): eager
+     ``block_cg`` over :class:`~tpcg_torch.ops.route_spmv.DeviceRouted`
+     for a real one, ``block_cg_planes_chunked`` over ``routed_pair`` for
+     a complex one or a complex RHS; each matvec is a launch of the CSR
+     kernel ``csrc/route_spmv.cu``, in float32 as JAX's routed kernel;
+  4. everything else (float64 / complex128 banded, a real banded matrix
+     with a complex RHS, ``Stencil2D``) -> eager ``block_cg`` /
+     ``block_cg_planes`` on the device, exactly where JAX also takes XLA.
 * on the CPU, what JAX computes on the CPU: eager ``block_cg`` on the
-  DIA / ELL container in the operands' dtype.
+  DIA / ELL container in the operands' dtype, and the routed operand's
+  plain version where ``routing=`` is given.
 
 On a CUDA device no path runs on the CPU or on a kernel's plain version; a
 kernel that cannot run raises.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -38,11 +44,9 @@ from .device import resolve_device
 from .ops import fused_cg_dia as _fd
 from .ops import stream_cg_dia as _sd
 from .ops.cplx import block_cg_planes_chunked, make_pair_operator
+from .ops.route_spmv import DeviceRouted, routed_pair
+from .ops.routing import RoutedSpmv
 from .sparse import DiaMatrix, EllMatrix, to_device_matrix
-
-_ROUTING = ("routing tables (routing=) drive JAX's routing-network SpMV, "
-            "which tpcg_torch has not ported yet: ROADMAP queue 1 item 13 "
-            "(queue 2 item 22)")
 
 
 def _on_card(device) -> bool:
@@ -50,23 +54,48 @@ def _on_card(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
-def _refuse_unstructured(A):
-    if isinstance(A, EllMatrix):
-        raise NotImplementedError(
-            f"unstructured {A.n}x{A.n} matrix on a CUDA device: JAX routes "
-            "it through its routing-network SpMV, which tpcg_torch has not "
-            "ported yet: ROADMAP queue 1 item 13 (queue 2 item 22)")
+def _is_complex_dtype(dt) -> bool:
+    if isinstance(dt, torch.dtype):
+        return dt.is_complex
+    return np.issubdtype(np.dtype(dt), np.complexfloating)
 
 
 def _tensor(M, dev, dtype=None):
     return torch.from_numpy(np.ascontiguousarray(M)).to(dev, dtype)
 
 
-def _solve_planes(A, B, X0, n_iterations, device):
-    """Complex solve on the card: ``B``/``X0`` complex numpy (n, nrhs).
-    Returns numpy ``(X, history)`` with X in B's dtype."""
+def _routed_planes_op(A):
+    """The planes operator of a container that does not split into
+    (Ar, Ai, Ar + Ai): the unstructured operand (``tpcg/api.py:24-46``),
+    else None."""
+    return routed_pair(A) if isinstance(A, DeviceRouted) else None
+
+
+def _resolve_routing(routing, size, is_complex, device):
+    """Routing tables (a ``RoutedSpmv`` or the path of an ``.npz`` that
+    ``RoutedSpmv.save`` / ``cli route`` wrote, by either package) -> the
+    solve's operands, as ``tpcg/api.py:49-74``: ``(DeviceRouted, None)``
+    for a real solve, ``(None, planes operator)`` for a complex one.  The
+    CSR matrix is rebuilt from the tables on the host
+    (``ops.routing.routed_to_csr``); the CSR arrays of the call are not
+    read."""
+    R = (RoutedSpmv.load(os.fspath(routing))
+         if isinstance(routing, (str, os.PathLike)) else routing)
+    if R.n != size:
+        raise ValueError(
+            f"routing tables are for n={R.n}, matrix has n={size}")
+    D = DeviceRouted.from_routed(R, device=device)
+    if is_complex or D.dtype.is_complex:
+        return None, routed_pair(D)
+    return D, None
+
+
+def _solve_planes(A, B, X0, n_iterations, device, Pop=None):
+    """Complex solve on the card (and every routed complex solve):
+    ``B``/``X0`` complex numpy (n, nrhs); ``Pop`` overrides the planes
+    operator.  Returns numpy ``(X, history)`` with X in B's dtype."""
     dtype = np.asarray(B).dtype
-    if (dtype == np.complex64 and isinstance(A, DiaMatrix)
+    if (Pop is None and dtype == np.complex64 and isinstance(A, DiaMatrix)
             and A.data.is_complex()):
         if _fd.fused_dia_cplx_fits(A):
             X, history = _fd.fused_cg_dia_cplx_block(A, B, X0, n_iterations)
@@ -75,7 +104,7 @@ def _solve_planes(A, B, X0, n_iterations, device):
             X, history = _sd.stream_cg_dia_cplx_block(A, B, X0, n_iterations)
             return X.cpu().numpy(), history.cpu().numpy()
     fdt = torch.float32 if dtype == np.complex64 else torch.float64
-    pair = make_pair_operator(A, dtype=fdt)
+    pair = make_pair_operator(A, dtype=fdt) if Pop is None else Pop
 
     def planes(M):
         return torch.stack([_tensor(M.real, device, fdt),
@@ -91,7 +120,8 @@ def _solve_planes(A, B, X0, n_iterations, device):
 def _solve_real(A, B, X0, n_iterations, device):
     """Real solve (and every solve on the CPU): the streaming real kernel
     for a float32 ``DiaMatrix`` on the card, else eager ``block_cg`` in the
-    operands' dtype.  Returns numpy ``(X, history)``."""
+    operands' dtype (over a ``DeviceRouted``, each matvec a launch of the
+    CSR kernel).  Returns numpy ``(X, history)``."""
     B = np.asarray(B)
     if (_on_card(device) and isinstance(A, DiaMatrix)
             and A.dtype == torch.float32 and B.dtype == np.float32
@@ -122,7 +152,12 @@ def cg(size: int, non_zeros: int, a_values, b, a_pointers, a_cols, x=None,
            (``v[i + r*size]``); ``x`` is the initial guess (zeros if None).
     is_complex : inferred from dtypes when None (the C API's explicit flag,
            ``clcg.h:5``, is accepted for parity).
-    routing : not ported (raises ``NotImplementedError``).
+    routing : precomputed routing tables for an unstructured matrix -- a
+           ``RoutedSpmv`` or the path of an ``.npz`` written by
+           ``python -m tpcg_torch.cli route`` (or ``tpcg.cli route``) --
+           used as the operator instead of the CSR arrays; a complex solve
+           on them runs in complex64.  Raises ``ValueError`` if they are for
+           another size.
     device : where the operator lives and the solve runs: the CUDA device
            by default (raises without a card), or ``"cpu"`` only when asked
            for; nothing falls back to another device.
@@ -131,8 +166,6 @@ def cg(size: int, non_zeros: int, a_values, b, a_pointers, a_cols, x=None,
     """
     import scipy.sparse as sp
 
-    if routing is not None:
-        raise NotImplementedError(_ROUTING)
     device = resolve_device(device)
     a_values = np.asarray(a_values)
     b = np.asarray(b)
@@ -142,21 +175,32 @@ def cg(size: int, non_zeros: int, a_values, b, a_pointers, a_cols, x=None,
     if a_values.dtype in (np.complex128, np.float64):
         dtype = np.complex128 if is_complex else np.float64
     on_card = _on_card(device)
-    A_sci = sp.csr_matrix((a_values.astype(dtype), np.asarray(a_cols),
-                           np.asarray(a_pointers)), shape=(size, size))
-    A, perm = to_device_matrix(A_sci, reorder=True,
-                               route_fallback=on_card and not is_complex,
-                               device=device)
-    if on_card:
-        _refuse_unstructured(A)
+    Pop, perm = None, None
+    if routing is not None:
+        A, Pop = _resolve_routing(routing, size, is_complex, device)
+        if Pop is not None:
+            is_complex, dtype = True, np.complex64   # routed values are f32
+    else:
+        A_sci = sp.csr_matrix((a_values.astype(dtype), np.asarray(a_cols),
+                               np.asarray(a_pointers)), shape=(size, size))
+        # banded (after RCM where that helps) -> DIA; on the card an
+        # unstructured real matrix -> the CSR kernel's operand, and a complex
+        # one reaches it below through _routed_planes_op
+        A, perm = to_device_matrix(A_sci, reorder=True,
+                                   route_fallback=on_card and not is_complex,
+                                   device=device)
+        if on_card and isinstance(A, EllMatrix):
+            A = DeviceRouted.from_ell(A)
     B = np.asarray(b, dtype=dtype).reshape(n_rhs, size).T      # (n, nrhs)
     X0 = (np.asarray(x, dtype=dtype).reshape(n_rhs, size).T
           if x is not None else None)
     if perm is not None:
         B = B[perm]
         X0 = X0[perm] if X0 is not None else None
-    if is_complex and on_card:
-        X, history = _solve_planes(A, B, X0, n_iterations, device)
+    if is_complex and (on_card or Pop is not None):
+        if Pop is None:
+            Pop = _routed_planes_op(A)
+        X, history = _solve_planes(A, B, X0, n_iterations, device, Pop)
     else:
         X, history = _solve_real(A, B, X0, n_iterations, device)
     out = _unpermute(X, perm).T.reshape(-1)                    # column-major
@@ -170,46 +214,58 @@ def cg_matrix(A, b, x=None, n_rhs=None, n_iterations=10,
     """Convenience wrapper: a scipy matrix or a port container in, the same
     column-major packing and dispatch as :func:`cg`.
 
+    routing : routing tables, as in :func:`cg`; ``A`` then gives only the
+             size (and whether the solve is complex).
     device : where a scipy matrix is put and solved (default: the CUDA
              device, raising without a card; ``"cpu"`` only when asked
              for); a container is solved on its own device, and naming
-             another device raises.
+             another device raises.  On the card an ``EllMatrix`` container
+             runs through the CSR kernel, its padding dropped.
     """
     import scipy.sparse as sp
 
-    if routing is not None:
-        raise NotImplementedError(_ROUTING)
-    perm = None
+    n = A.shape[0]
+    a_cplx = _is_complex_dtype(A.dtype)
     if sp.issparse(A):
         device = resolve_device(device)
-        A, perm = to_device_matrix(sp.csr_matrix(A), reorder=True,
-                                   route_fallback=_on_card(device),
-                                   device=device)
     elif device is not None and torch.device(device) != A.device:
         raise ValueError(f"the container is on {A.device}, not {device}: "
                          "move it with .to(device)")
     else:
         device = A.device
     on_card = _on_card(device)
-    if on_card:
-        _refuse_unstructured(A)
-    n = A.shape[0]
+    perm, Pop = None, None
     b = np.asarray(b)
+    if routing is not None:
+        A, Pop = _resolve_routing(routing, n, np.iscomplexobj(b) or a_cplx,
+                                  device)
+    elif sp.issparse(A):
+        A, perm = to_device_matrix(sp.csr_matrix(A), reorder=True,
+                                   route_fallback=on_card, device=device)
+    if on_card and isinstance(A, EllMatrix):
+        A = DeviceRouted.from_ell(A)
     n_rhs = n_rhs or (b.size // n)
     B = b.reshape(n_rhs, n).T
     X0 = np.asarray(x).reshape(n_rhs, n).T if x is not None else None
     if perm is not None:
         B = B[perm]
         X0 = X0[perm] if X0 is not None else None
-    # a complex matrix with a real RHS still needs the complex solve
-    a_dtype = torch.empty((), dtype=A.dtype).numpy().dtype
-    is_complex = np.iscomplexobj(B) or np.issubdtype(a_dtype,
-                                                     np.complexfloating)
+    # a complex matrix with a real RHS still needs the complex solve (a
+    # routed complex operand has A None and Pop set)
+    is_complex = (np.iscomplexobj(B) or A is None
+                  or _is_complex_dtype(A.dtype))
     if is_complex and not np.iscomplexobj(B):
+        a_dtype = (np.complex64 if A is None
+                   else torch.empty((), dtype=A.dtype).numpy().dtype)
         B = B.astype(np.result_type(B.dtype, a_dtype))
         X0 = X0.astype(B.dtype) if X0 is not None else None
-    if is_complex and on_card:
-        X, history = _solve_planes(A, B, X0, n_iterations, device)
+    if is_complex and (on_card or Pop is not None):
+        if Pop is None:
+            Pop = _routed_planes_op(A)
+        if routing is not None:                 # routed values are f32
+            B = B.astype(np.complex64)
+            X0 = X0.astype(np.complex64) if X0 is not None else None
+        X, history = _solve_planes(A, B, X0, n_iterations, device, Pop)
     else:
         X, history = _solve_real(A, B, X0, n_iterations, device)
     out = np.asarray(_unpermute(X, perm)).T.reshape(-1)

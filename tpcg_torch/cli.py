@@ -7,8 +7,14 @@
     report timing and the final residual per RHS.  It exits non-zero if DEV
     is absent; it never falls back to the CPU.
 
-The ``helmholtz`` and ``route`` subcommands of ``tpcg.cli`` are not ported
-yet (ROADMAP queue 1 items 12 and 13); they say so and exit non-zero.
+``python -m tpcg_torch.cli route <matrix.mtx> <out.npz>``
+    ==  ``tpcg.cli route``: build the routing tables of an unstructured
+    matrix once, offline, and save them in JAX's ``.npz`` layout, which
+    ``tpcg_torch.cg(routing=)`` and ``tpcg.cg(routing=)`` both load.  Host
+    only (numpy, or the repository's C++ table code).
+
+The ``helmholtz`` subcommand of ``tpcg.cli`` is not ported yet (ROADMAP
+queue 1 item 12); it says so and exits non-zero.
 """
 from __future__ import annotations
 
@@ -20,7 +26,6 @@ import torch
 
 _NOT_PORTED = {
     "helmholtz": "ROADMAP queue 1 item 12 (tpcg/parallel/)",
-    "route": "ROADMAP queue 1 item 13 (unstructured SpMV)",
 }
 
 
@@ -77,6 +82,38 @@ def run_cg_cli(argv):
     return 0
 
 
+def run_route_cli(argv):
+    if len(argv) != 2:
+        print("Usage: tpcg_torch route <input matrix file> <output .npz>",
+              file=sys.stderr)
+        return 1
+    path, out = argv
+    from .io.mtx import load_matrix_market
+    from .ops.routing import build_routing_spmv
+
+    try:
+        A = load_matrix_market(path)
+    except FileNotFoundError:
+        print(f"Could not read matrix: {path}", file=sys.stderr)
+        return 1
+    except (ValueError, OSError) as ex:     # malformed .mtx and friends
+        print(f"Could not parse matrix {path}: {ex}", file=sys.stderr)
+        return 1
+    print(f"loaded {path}: n={A.shape[0]} nnz={A.nnz}")
+    t0 = time.time()
+    R = build_routing_spmv(A)
+    dt = time.time() - t0
+    try:
+        R.save(out)
+    except OSError as ex:
+        print(f"Could not write routing tables to {out}: {ex}",
+              file=sys.stderr)
+        return 1
+    print(f"routing built in {dt:.1f}s: {R.n_layers} layers, m={R.m}, "
+          f"masks {R.masks.nbytes / 1e6:.0f} MB -> {out}")
+    return 0
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
@@ -85,6 +122,8 @@ def main(argv=None):
     cmd, rest = argv[0], argv[1:]
     if cmd == "cg":
         return run_cg_cli(rest)
+    if cmd == "route":
+        return run_route_cli(rest)
     if cmd in _NOT_PORTED:
         print(f"{cmd}: not ported to tpcg_torch yet, see "
               f"{_NOT_PORTED[cmd]}; the JAX package runs it: "

@@ -7,7 +7,8 @@ JAX import: the tests build both sides of a comparison from one object
 with it.  ``coef3_from_numpy``, ``stream_operands_from_tpcg``,
 ``sym_operands_from_tpcg``, ``stream_real_operands_from_tpcg``,
 ``coef_real_from_tpcg`` and ``const_operands_from_tpcg`` do the same for the
-operands the JAX kernels take.
+operands the JAX kernels take, and ``routed_from_tpcg`` for JAX's routing
+tables.
 """
 from __future__ import annotations
 
@@ -113,3 +114,23 @@ def const_operands_from_tpcg(cr, ci, strips4, device="cpu"):
     return (tuple(float(v) for v in cr), tuple(float(v) for v in ci),
             tuple(torch.from_numpy(np.array(p, dtype=np.float32)).to(device)
                   for p in parts))
+
+
+def routed_from_tpcg(obj, device="cpu"):
+    """``tpcg.ops.routing.RoutedSpmv`` (int8 masks (L, S, m)) or
+    ``tpcg.ops.route_spmv.DeviceRouted`` (packed int32 masks
+    (L, W, m/128, 128)) -> the port's ``DeviceRouted``: the CSR matrix the
+    tables hold, on ``device``."""
+    from .ops.route_spmv import DeviceRouted
+    from .ops.routing import RoutedSpmv, benes_strides, unpack_masks
+    masks = np.asarray(obj.masks)
+    vals = np.asarray(obj.vals)
+    if masks.ndim == 4:                  # JAX's device operand: packed bits
+        L, W = masks.shape[:2]
+        m = int(obj.m)
+        masks = unpack_masks(masks.reshape(L, W, m), benes_strides(m))
+        vals = vals.reshape(L, m)
+    elif masks.ndim != 3:
+        raise TypeError(f"no routing tables in {type(obj).__name__}")
+    return DeviceRouted.from_routed(RoutedSpmv(masks, vals, int(obj.n)),
+                                    device=device)

@@ -12,31 +12,16 @@ package.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import pathlib
 import subprocess
 import threading
 
-_ROOT = pathlib.Path(__file__).resolve().parent.parent.parent
-SRC = _ROOT / "tpcg" / "native" / "mtx_reader.cpp"
-BUILD_DIR = _ROOT / "tpcg_torch" / "_build"
-_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
+from . import ROOT, gxx_build
+
+SRC = ROOT / "tpcg" / "native" / "mtx_reader.cpp"
 _lock = threading.Lock()
 _lib = None
 _tried = False
-
-
-def _build() -> pathlib.Path:
-    h = hashlib.sha256(" ".join(_FLAGS).encode() + SRC.read_bytes())
-    lib = BUILD_DIR / f"libtpcgio_{h.hexdigest()[:16]}.so"
-    if not lib.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        subprocess.run(["g++", *_FLAGS, str(SRC), "-o", str(tmp)],
-                       check=True, capture_output=True)
-        os.replace(tmp, lib)
-    return lib
 
 
 def _load():
@@ -46,7 +31,7 @@ def _load():
             return _lib
         _tried = True
         try:
-            lib = ctypes.CDLL(str(_build()))
+            lib = ctypes.CDLL(str(gxx_build(SRC, "libtpcgio")))
             lib.tpcg_mtx_read.restype = ctypes.c_void_p
             lib.tpcg_mtx_read.argtypes = [ctypes.c_char_p]
             for name in ("tpcg_mtx_nrows", "tpcg_mtx_ncols", "tpcg_mtx_nnz"):

@@ -25,3 +25,6 @@ from .stream_cg_dia import (stream_cg_dia_block,                 # noqa: F401
                             dia_stream_fits, dia_stream_cplx_fits)
 from .fused_cg_dia import (fused_cg_dia_cplx, fused_cg_dia_cplx_block,  # noqa: F401
                            fused_dia_cplx_fits)
+from .route_spmv import (DeviceRouted, routed_matvec,           # noqa: F401
+                         routed_matvec_block, routed_matvec_plain,
+                         routed_pair)

@@ -57,6 +57,7 @@ _SIGNATURES = {
     "tpcg_stream_dia": (_I,) + (_P,) * 11 + (_I,) * 6 + (_P,),
     "tpcg_fused_dia_limits": (_IP, _IP),
     "tpcg_fused_dia": (_P,) * 6 + (_I,) * 5 + (_P,),
+    "tpcg_route_spmv": (_P,) * 5 + (_I,) * 6 + (_P,),
 }
 
 

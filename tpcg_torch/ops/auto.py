@@ -37,7 +37,10 @@ Six paths are ported; each maps to a planner path of the JAX package:
                 over float32 planes for complex stencils on a CUDA device,
                 and ``block_cg`` in the stencil's own dtype otherwise.  The
                 default on the CPU, for larger complex batches, and for real
-                stencils below 1024^2 nodes.
+                stencils below 1024^2 nodes.  On a real stencil
+                ``solve_planes`` takes single (Nv, Nh) or (B, Nv, Nh) planes,
+                as on ``stream-real``, so the surface does not change at
+                1024^2.
 
 On the streaming paths several RHS run as sequential single-RHS launches
 queued on one stream, as JAX's ``lax.map`` runs them; any batch size.
@@ -118,6 +121,7 @@ class StencilCGPlan:
     n_iterations: int
     _solve: Callable = field(repr=False)
     _solve_planes: Callable = field(repr=False)
+    real_planes: bool = False   # solve_planes takes real planes
 
     def solve(self, b, x0=None):
         """b, x0 : (Nv, Nh) or (B, Nv, Nh) numpy arrays (or any shape
@@ -135,11 +139,12 @@ class StencilCGPlan:
     def solve_planes(self, bp: torch.Tensor,
                      x0p: Optional[torch.Tensor] = None):
         """Device-resident surface: ``bp``/``x0p`` are float32 tensors on
-        the plan's device: re/im planes (2, Nv, Nh) or (2, B, Nv, Nh), or on
-        ``stream-real`` single planes (Nv, Nh) or (B, Nv, Nh).  Returns
-        device tensors ``(x, history)`` shaped like the input and like
-        :meth:`solve`'s history, with no host round trip."""
-        axis = 0 if self.path == "stream-real" else 1   # the batch axis
+        the plan's device: re/im planes (2, Nv, Nh) or (2, B, Nv, Nh), or for
+        a real stencil on ``stream-real`` and ``eager`` (``real_planes``)
+        single planes (Nv, Nh) or (B, Nv, Nh).  Returns device tensors
+        ``(x, history)`` shaped like the input and like :meth:`solve`'s
+        history, with no host round trip."""
+        axis = 0 if self.real_planes else 1   # the batch axis
         squeeze = bp.dim() == axis + 2
         if squeeze:
             bp = bp.unsqueeze(axis)
@@ -231,8 +236,11 @@ def plan_stencil_cg(stencil, n_iterations: int, nb: int = 1,
         prepared = prepare_const(stencil)
     solve, solve_planes = _build_solver(stencil, n_iterations, path,
                                         prepared)
+    real_planes = path == "stream-real" or (
+        path == "eager" and not stencil.coef.is_complex())
     return StencilCGPlan(path=path, grid=(nv, nh), n_iterations=n_iterations,
-                         _solve=solve, _solve_planes=solve_planes)
+                         _solve=solve, _solve_planes=solve_planes,
+                         real_planes=real_planes)
 
 
 def stencil_cg(stencil, b, x0=None, n_iterations: int = 10,
@@ -313,6 +321,17 @@ def _build_solver(stencil, n_iterations, path, prepared=None):
                     for c in range(bp.shape[1])]
             return (torch.stack([x for x, _ in runs], dim=1),
                     torch.stack([h for _, h in runs], dim=1))
+    elif not stencil.coef.is_complex():
+        # eager on a real stencil: real (B, Nv, Nh) planes through block_cg
+        # in the stencil's dtype (at least float32), as solve runs it
+        dt = torch.promote_types(stencil.dtype, torch.float32)
+
+        def solve_planes(bp, x0p):
+            nb = bp.shape[0]
+            res = block_cg(stencil, bp.reshape(nb, n).T.to(dt),
+                           x0p.reshape(nb, n).T.to(dt),
+                           n_iterations=n_iterations)
+            return res.x.T.reshape(nb, nv, nh), res.residual_history
     else:
         pair = make_pair_operator(stencil, dtype=torch.float32)
 

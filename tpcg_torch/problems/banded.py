@@ -1,4 +1,4 @@
-"""Synthetic stand-ins for the banded report Fig. 5 matrices.
+"""Synthetic stand-ins for the report Fig. 5 matrices and the general-sparse rows.
 
 SuiteSparse files are not redistributable here, so the JAX package's
 benchmarks build matrices of the same size class, nnz per row and structure
@@ -13,6 +13,17 @@ only; the benchmark modules themselves are JAX-side):
   mhd1280b class      banded_complex(1280, range(0, 9), seed=2)  complex
                       symmetric, 17 diagonals (benchmarks/bench_fig5.py:64-77,
                       234-236)
+  1138_bus class      irregular_spd(1138, 3.56, seed=0)  real SPD random
+                      graph, nnz ~9 k, no ordering makes it banded
+                      (benchmarks/bench_fig5.py:37-46, 148-161)
+  random-routed row   random_spd(97578, 100, seed=1)  real SPD, 100 random
+                      columns a row, nnz 19,593,022
+                      (benchmarks/bench_general_sparse.py:40-48)
+
+``irregular_spd`` and ``random_spd`` take ``dtype=np.complex64`` for a
+complex symmetric variant with the same pattern and real parts: the
+imaginary parts are drawn after the real ones and the diagonal gains
+``0.5j``, as in the construction of tests/test_api.py:114-119.
 """
 from __future__ import annotations
 
@@ -42,6 +53,45 @@ def banded_spd(n, half_band_diags, seed=0):
                        (np.concatenate(rows), np.concatenate(cols))),
                       shape=(n, n))
     return (A + A.T) * 0.5 + sp.eye(n) * (2 * half_band_diags + 2)
+
+
+def irregular_spd(n, per_row, seed=0, dtype=np.float32):
+    """benchmarks/bench_fig5.py:37-46, the 1138_bus class: n * per_row
+    random (row, column) pairs with 0.1 N(0, 1) values, symmetrised, plus
+    (per_row + 2) I; complex dtypes add 0.1 N(0, 1) imaginary parts and
+    0.5j on the diagonal."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    nnz = int(n * per_row)
+    rows = rng.integers(0, n, nnz)
+    cols = rng.integers(0, n, nnz)
+    vals = rng.standard_normal(nnz) * 0.1
+    diag = per_row + 2.0
+    if np.issubdtype(np.dtype(dtype), np.complexfloating):
+        vals = vals + 1j * rng.standard_normal(nnz) * 0.1
+        diag = diag + 0.5j
+    A = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
+    A = (A + A.T) * 0.5
+    return sp.csr_matrix(A + sp.eye(n) * diag).astype(dtype)
+
+
+def random_spd(n, per_row, seed=1, dtype=np.float64):
+    """benchmarks/bench_general_sparse.py:40-48, the random-routed row:
+    per_row random columns in every row with 0.05 N(0, 1) values,
+    symmetrised, plus (per_row / 2) I; complex dtypes add 0.05 N(0, 1)
+    imaginary parts and 0.5j on the diagonal."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), per_row)
+    cols = rng.integers(0, n, size=n * per_row)
+    vals = rng.standard_normal(n * per_row) * 0.05
+    diag = per_row * 0.5
+    if np.issubdtype(np.dtype(dtype), np.complexfloating):
+        vals = vals + 1j * rng.standard_normal(n * per_row) * 0.05
+        diag = diag + 0.5j
+    A = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
+    A = (A + A.T) * 0.5
+    return sp.csr_matrix(A + sp.eye(n) * diag).astype(dtype)
 
 
 def banded_complex(n, offsets, seed=0):

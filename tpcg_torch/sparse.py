@@ -12,7 +12,9 @@
 ``EllMatrix``
     Padded-row (ELLPACK) storage for general sparse matrices; its matvec is
     a gather.  ``to_device_matrix`` picks between the two for a scipy
-    matrix, with reverse Cuthill-McKee reordering into a band.
+    matrix, with reverse Cuthill-McKee reordering into a band, and, when
+    asked (``route_fallback``), the CSR operand of the unstructured-SpMV
+    kernel (``tpcg_torch.ops.route_spmv.DeviceRouted``).
 
 Coefficients are torch tensors on an explicit device: the containers never
 move data on their own, ``.to(device)`` returns a copy on another device.
@@ -303,11 +305,11 @@ def to_device_matrix(A, prefer_dia_band: int = 4096, reorder: bool = False,
     solve with ``b[perm]`` and un-permute; ``perm`` is None when the
     natural order is kept.
 
-    ``route_fallback=True`` (implies the ``reorder`` return convention):
-    where JAX builds its routing-network operand for a real matrix that no
-    ordering makes banded, the port has none yet (ROADMAP queue 1 item 13).
-    On a CUDA device that raises ``NotImplementedError``, and never takes
-    the ELL gather instead; on the CPU it returns the ``EllMatrix``.
+    ``route_fallback=True`` (implies the ``reorder`` return convention): a
+    real matrix that no ordering makes banded becomes the CSR operand of the
+    unstructured-SpMV kernel (``tpcg_torch.ops.route_spmv.DeviceRouted``)
+    on any device, where JAX builds its routing-network operand; a complex
+    one stays an ``EllMatrix``, as in JAX.
     """
     import scipy.sparse as sp
     device = resolve_device(device)
@@ -321,12 +323,8 @@ def to_device_matrix(A, prefer_dia_band: int = 4096, reorder: bool = False,
         Ap = A[perm][:, perm]
         if _dia_worthwhile(Ap, prefer_dia_band):
             return DiaMatrix.from_scipy(Ap, device=device), perm
-        if (route_fallback and not np.iscomplexobj(A.data)
-                and device.type == "cuda"):
-            raise NotImplementedError(
-                f"unstructured {A.shape[0]}x{A.shape[1]} matrix "
-                f"(nnz={A.nnz}): JAX routes it through its routing-network "
-                "SpMV, which tpcg_torch has not ported yet: ROADMAP queue 1 "
-                "item 13 (queue 2 item 22)")
+        if route_fallback and not np.iscomplexobj(A.data):
+            from .ops.route_spmv import DeviceRouted
+            return DeviceRouted.from_scipy(A, device=device), None
         return EllMatrix.from_scipy(A, device=device), None
     return EllMatrix.from_scipy(A, device=device)
