@@ -130,7 +130,30 @@ Phases, in order; the first failure exits non-zero:
      (``torch.sparse_csr_tensor(...) @ X``, cuSPARSE, timed here and called
      nowhere in the port), each the median of 5 timings of 20 products,
      beside its bound;
- 17. a JSON line of the kernels (each with its launches on the main paths,
+ 17. the streaming general-coefficient kernel (``stream_cg_coef_planes``
+     and ``stream_cg_coef_planes_batched_fat``, ``csrc/stream_cg_coef.cu``)
+     against its plain version on the card: benchmarks/exp_batchfat.py's
+     class helm_fe_var(N, 8, C, rho=0.5) made non-symmetric (plane 1 times
+     1.5) cut to 256 x 256 (NB=1), 301 x 517 (2), 1031 x 1024 (3), 600 x
+     1000 (4), 37 x 45 (5), 300 x 700 and 1024 x 1024 (8), 40 iterations
+     from a seeded x0; a 13-point pad-2 stencil at NB=1 and 4; each RHS of
+     NB=2, 4 and 8 launches against its own NB=1 launch (bit-equal at NB=2,
+     where the partition of the float64 sums is the same); 2 I over 400
+     iterations at NB=3 (x within 2e-3 max|x|, the live history within rel
+     1e-2, two launches bit-equal);
+ 18. the planner's ``stream-coef`` path on that non-symmetric class at full
+     size, as phase 9 (only ``stream_cg_coef`` may move, one launch per
+     chunk of at most 8 RHS): N=1024 x 1000 at B=1 and 2, N=2048 x 500 at
+     B=1, 2, 4 and 8, N=2049 x 500 and N=4096 x 1000 (B=1), with RHS the
+     plane wave plane_wave_rhs(N, 8) times (1 + 0.1j r)
+     (exp_batchfat.py:57-58); each prints us/it and us per RHS-iteration,
+     GFLOPS by Table II, the bytes floor (48 B a RHS and 8 B a coefficient
+     plane a node), the launches, the float64 relative residual and a
+     100-iteration gate of every RHS against the plain version; then the
+     general kernel called on the symmetric class at N=2048 x 500, where
+     COCG converges, against the symmetric kernel (x within 2e-3 max|x|,
+     both residuals printed);
+ 19. a JSON line of the kernels (each with its launches on the main paths,
      its largest error against its plain version, its time, its plain
      version's time, its bound and what sets it, and ``library_ms``: null
      for the CG kernels, as no single PyTorch call computes a
@@ -557,11 +580,13 @@ def wrappers():
     from tpcg_torch.ops.fused_cg_const import fused_cg_const_planes
     from tpcg_torch.ops.stream_cg_real import stream_cg_real_planes
     from tpcg_torch.ops.stream_cg_sym import stream_cg_sym_planes
+    from tpcg_torch.ops.stream_cg_coef import stream_cg_coef_planes
     out = {"fused_cg_stencil": fused_cg_stencil,
            "fused_cg_const": fused_cg_const_planes,
            "stream_cg": stream_cg_const_planes,
            "stream_cg_sym": stream_cg_sym_planes,
-           "stream_cg_real": stream_cg_real_planes}
+           "stream_cg_real": stream_cg_real_planes,
+           "stream_cg_coef": stream_cg_coef_planes}
     out.update({k: v[0] for k, v in dia_kernels().items()})
     from tpcg_torch.ops.route_spmv import routed_matvec_block
     out["route_spmv"] = routed_matvec_block
@@ -1761,6 +1786,283 @@ def phase_route_tables(dev):
     return counts["route_spmv"]
 
 
+# ---- phases 17-18: general variable coefficients (csrc/stream_cg_coef.cu) --
+
+# the general-coefficient benchmark configuration's omega and damping
+# (benchmarks/exp_batchfat.py:32-36)
+OMEGA_GEN = 8.0
+RHO_GEN = 0.5
+
+
+def coef_class(dev, nv, nh, sym=False):
+    """benchmarks/exp_batchfat.py's class, helm_fe_var(N, 8, C, rho=0.5)
+    with C = 1 + 0.5 U(0, 1) from seed 0, on an nv x nh grid; unless
+    ``sym``, made non-symmetric by scaling coefficient plane 1 by 1.5 (as
+    tests/test_torch_auto.py does), which the general kernel then carries."""
+    from tpcg_torch.problems import helm_fe_var
+    A = helm_fe_var(max(nv, nh), OMEGA_GEN, wave_speeds(nv, nh), rho=RHO_GEN,
+                    Nhoriz=nh, Nvert=nv, device=dev)
+    if not sym:
+        A.coef[1] *= 1.5
+    return A
+
+
+def coef_rhs(nv, nh, nb):
+    """exp_batchfat.py's RHS (:57-58): the plane wave times (1 + 0.1j r),
+    cut to nv x nh; (nb, nv, nh) complex."""
+    from tpcg_torch.problems import plane_wave_rhs
+    bg = plane_wave_rhs(max(nv, nh), OMEGA_GEN)[:nv, :nh]
+    return np.stack([bg * (1 + 0.1j * r) for r in range(nb)])
+
+
+def coef_gate(tgc, offsets, coefp, bp, x0p, iters):
+    """The batched kernel against its plain version over ``iters``: every
+    RHS within dia_close's tolerances, and two launches bit-equal.  Returns
+    (ok, worst max|x err|, its limit, worst history rel, bit-equal to the
+    plain version)."""
+    xk, hk = tgc.stream_cg_coef_planes_batched_fat(offsets, coefp, bp, x0p,
+                                                   iters)
+    xk2, hk2 = tgc.stream_cg_coef_planes_batched_fat(offsets, coefp, bp, x0p,
+                                                     iters)
+    xp, hp = tgc.stream_cg_coef_planes_batched_fat_plain(offsets, coefp, bp,
+                                                         x0p, iters)
+    torch.cuda.synchronize()
+    ok = torch.equal(xk, xk2) and torch.equal(hk, hk2)
+    err = lim = rel = 0.0
+    for c in range(bp.shape[1]):
+        ok_c, e, li, r = dia_close(xk[:, c], hk[:, c], xp[:, c], hp[:, c])
+        ok, err, lim, rel = ok and ok_c, max(err, e), max(lim, li), max(rel, r)
+    same = torch.equal(xk, xp) and torch.equal(hk, hp)
+    return ok, err, lim, rel, same
+
+
+def phase_coef_compare(dev):
+    """The general-coefficient kernel against its plain version on the
+    card; returns the max |x err|."""
+    from tpcg_torch.ops import stream_cg_coef as tgc
+    from tpcg_torch.problems import helm_fe
+    from tpcg_torch.sparse import Stencil2D
+    worst = 0.0
+    # odd heights and widths, a tile-less ragged edge, seeded x0; NB 1..8
+    for nv, nh, nb, seed in ((256, 256, 1, 1), (301, 517, 2, 2),
+                             (1031, 1024, 3, 3), (600, 1000, 4, 4),
+                             (37, 45, 5, 5), (300, 700, 8, 6),
+                             (1024, 1024, 8, 7)):
+        A = coef_class(dev, nv, nh)
+        coefp = tgc.prepare_stream_coef(A)
+        bp = planes(coef_rhs(nv, nh, nb), dev)
+        x0p = planes(0.1 * random_guess((nb, nv, nh), seed), dev)
+        ok, err, lim, rel, same = coef_gate(tgc, A.offsets, coefp, bp, x0p, 40)
+        print(f"compare stream_cg_coef {nv}x{nh} NB={nb} 40 it: max|x err| "
+              f"{err:.3e} (limit {lim:.3e}), hist max rel {rel:.3e} (limit "
+              f"1e-2), repeat bit-equal, x and history bit-equal to plain "
+              f"{same}")
+        if not ok:
+            fail(f"stream_cg_coef disagrees with its plain version "
+                 f"({nv}x{nh}, NB={nb})")
+        worst = max(worst, err)
+
+    # a non-symmetric 13-point stencil two nodes out (pad 2)
+    nv, nh = 203, 311
+    offsets = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0), (0, 2), (0, -2),
+               (2, 0), (-2, 0), (1, 1), (-1, -1), (2, 1), (-1, 2))
+    rng = np.random.default_rng(12)
+    c = -0.2 * (1.0 + 0.3 * rng.random((len(offsets), nv, nh))) + 0.05j
+    c[0] = 4.0 + 0.5j + 0.1 * rng.random((nv, nh))
+    coefp = tgc.prepare_stream_coef(
+        Stencil2D(offsets, torch.from_numpy(c).to(dev), (nv, nh)))
+    for nb in (1, 4):
+        bp = planes(random_guess((nb, nv, nh), 20 + nb), dev)
+        x0p = planes(0.1 * random_guess((nb, nv, nh), 30 + nb), dev)
+        ok, err, lim, rel, same = coef_gate(tgc, offsets, coefp, bp, x0p, 30)
+        print(f"compare stream_cg_coef pad 2 {nv}x{nh} NB={nb} 30 it: max|x "
+              f"err| {err:.3e} (limit {lim:.3e}), hist max rel {rel:.3e}, "
+              f"bit-equal to plain {same}")
+        if not ok:
+            fail(f"stream_cg_coef disagrees with its plain version (pad 2, "
+                 f"NB={nb})")
+        worst = max(worst, err)
+
+    # each RHS of an NB launch against its own NB = 1 launch: bit-equal
+    # where the partition of the float64 sums is the same (NB = 2 shares
+    # NB = 1's tile, and 300 x 700 has fewer tiles than the card holds
+    # blocks), else printed
+    for nv, nh, nb in ((300, 700, 2), (1024, 1024, 4), (1024, 1024, 8)):
+        A = coef_class(dev, nv, nh)
+        coefp = tgc.prepare_stream_coef(A)
+        bp = planes(coef_rhs(nv, nh, nb), dev)
+        x0p = torch.zeros_like(bp)
+        xb, hb = tgc.stream_cg_coef_planes_batched_fat(A.offsets, coefp, bp,
+                                                       x0p, 40)
+        diffs, equal = [], True
+        for k in range(nb):
+            x1, h1 = tgc.stream_cg_coef_planes(A.offsets, coefp, bp[:, k],
+                                               x0p[:, k], 40)
+            diffs.append(float((xb[:, k] - x1).abs().max() / x1.abs().max()))
+            equal = equal and torch.equal(xb[:, k], x1) and torch.equal(
+                hb[:, k], h1)
+        print(f"stream_cg_coef {nv}x{nh} NB={nb} vs NB=1 launches, 40 it: "
+              f"max|x diff| / max|x| by RHS "
+              f"{', '.join(f'{d:.2e}' for d in diffs)}; bit-equal {equal}")
+        if max(diffs) > 2e-3 or (nb == 2 and not equal):
+            fail(f"an NB={nb} launch parts from its NB=1 launches")
+
+    # the blocks an NB launch holds at N=2048, pad 1 (all co-resident)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print("stream_cg_coef blocks of 256 threads at 2048 x 2048, pad 1, by NB "
+          "1..8 (per SM): " + ", ".join(
+              f"{g} ({g / sms:g})" for g in (
+                  tgc.grid_blocks(nb, 2048, 2048, 1) for nb in range(1, 9))))
+
+    # 2 I as full planes on the helm_fe offsets: frozen from iteration 1
+    A = helm_fe(64, 5.0, eps=5.0, device=dev)
+    coef = torch.zeros_like(A.coef)
+    coef[0] = 2.0
+    coefp = tgc.prepare_stream_coef(Stencil2D(A.offsets, coef, A.grid))
+    b = torch.zeros((2, 3, 64, 64), device=dev)
+    b[0] = torch.arange(1, 4, device=dev, dtype=torch.float32)[:, None, None]
+    args = (A.offsets, coefp, b, torch.zeros_like(b), 400)
+    xk, hk = tgc.stream_cg_coef_planes_batched_fat(*args)
+    xp, hp = tgc.stream_cg_coef_planes_batched_fat_plain(*args)
+    for k in range(3):
+        freeze_check(f"stream_cg_coef 2 I 64x64 NB=3 rhs {k}", xk[:, k],
+                     hk[:, k], xp[:, k], hp[:, k])
+    return worst
+
+
+def phase_coef_main(dev, A, iters, nb, plain_full=False, converges=False):
+    """The ``stream-coef`` path on a non-symmetric stencil at full size,
+    through ``plan_stencil_cg(...).solve``: the path and the launches (one
+    per chunk of at most 8 RHS), the float64 residual (gated only where
+    COCG converges), the 100-iteration gate against the plain version, the
+    timings and the bound.  Returns its numbers."""
+    import tpcg_torch
+    from tpcg_torch.ops import stream_cg_coef as tgc
+    nv, nh = A.grid
+    n = nv * nh
+    noff = len(A.offsets)
+    nnz = int(torch.count_nonzero(A.coef))
+    label = f"stream-coef general {nv}x{nh} B={nb}"
+    B = coef_rhs(nv, nh, nb)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    plan = tpcg_torch.plan_stencil_cg(A, iters, nb=nb)
+    x, hist = plan.solve(B if nb > 1 else B[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = moved_counts()
+    launches = counts.get("stream_cg_coef", 0)
+    chunks = -(-nb // tgc.kernel_limits()[2])
+    print(f"{label}: n={n} nnz={nnz} noff={noff} path={plan.path} kernel "
+          f"launches {counts} (expected {chunks}); host s: plan + solve "
+          f"{wall:.3f} (plan tries prepare_stream, prepare_stream_sym, then "
+          "prepare_stream_coef; solve uploads b and downloads x)")
+    if (plan.path != "stream-coef" or set(counts) != {"stream_cg_coef"}
+            or launches != chunks):
+        fail(f"{label}: the stream-coef path did not run the general kernel "
+             "once per chunk of RHS")
+    X = np.asarray(x).reshape(nb, nv, nh)
+    H = np.asarray(hist).reshape(iters + 1, nb)
+    worst_res = 0.0
+    for c in range(nb):
+        xt = torch.from_numpy(X[c].astype(np.complex128)).to(dev)
+        bt = torch.from_numpy(B[c]).to(dev)
+        res = float(torch.linalg.norm(bt - A.apply_grid(xt))
+                    / torch.linalg.norm(bt))
+        worst_res = max(worst_res, res)
+        finite = bool(np.isfinite(X[c]).all() and np.isfinite(H[:, c]).all())
+        print(f"{label} rhs {c} {iters} it: finite {finite}, hist[0] "
+              f"{H[0, c]:.4e}, hist[-1] {H[-1, c]:.4e}, relative residual "
+              f"(f64) {res:.3e}" + (" (limit 1e-3)" if converges
+                                    else " (printed, not gated)"))
+        if not finite or (converges and res > 1e-3):
+            fail(f"{label}: relative residual {res:.3e}")
+
+    # the 100-iteration gate against the plain version, every RHS
+    coefp = tgc.prepare_stream_coef(A)
+    bp = planes(B, dev)
+    x0p = torch.zeros_like(bp)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ok, err, lim, rel, same = coef_gate(tgc, A.offsets, coefp, bp, x0p, 100)
+    end.record()
+    torch.cuda.synchronize()
+    print(f"{label}: gate 100 it vs plain, every RHS: max|x err| {err:.3e} "
+          f"(limit {lim:.3e}), hist max rel {rel:.3e} (limit 1e-2), bit-equal "
+          f"{same} ({start.elapsed_time(end):.3f} ms for two kernel runs and "
+          "the plain version)")
+    if not ok:
+        fail(f"stream_cg_coef disagrees with its plain version ({label})")
+
+    ms, _ = median_ms(lambda: plan.solve_planes(bp if nb > 1 else bp[:, 0]),
+                      reps=5)
+    flop = 8 * nnz + 16 * n + 24 * n
+    gflops = nb * iters * flop / (ms * 1e-3) / 1e9
+    # the coefficient planes read once; per RHS b and x0 read, x and the
+    # history written
+    bound_ms, bound_by = bound(
+        4 * (coefp.numel() + nb * (3 * 2 * n + iters + 1)),
+        nb * iters * flop)
+    ops_ms = nb * iters * flop / F32_FLOP_PER_S * 1e3
+    floor_b = 48 * nb + 8 * noff
+    floor_ms = iters * floor_b * n / HBM_BYTES_PER_S * 1e3
+    own_b = 82 * nb + 8 * noff
+    own = iters * own_b * n / (ms * 1e-3) / 1e12
+    plain_ms = None
+    if plain_full:
+        start.record()
+        tgc.stream_cg_coef_planes_batched_fat_plain(A.offsets, coefp, bp, x0p,
+                                                    iters)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+    print(f"time {label} {iters} it: kernel {ms:.3f} ms "
+          f"({ms * 1e3 / iters:.3f} us/it, {ms * 1e3 / (nb * iters):.3f} us "
+          f"per RHS-iteration, {gflops:.2f} GFLOPS Table II, all RHS; own "
+          f"~{own_b} B a node at {own:.2f} TB/s); bound {bound_ms:.3f} ms "
+          f"({bound_by}; operations {ops_ms:.3f} ms); bytes floor "
+          f"({floor_b} B a node: 48 B a RHS + 8 B a coefficient plane) "
+          f"{floor_ms:.3f} ms"
+          + (f"; plain {plain_ms:.3f} ms (one run, {iters} it)"
+             if plain_ms is not None else ""))
+    return dict(ms=ms, plain_ms=plain_ms, launches=launches, err=err,
+                bound_ms=bound_ms, bound_by=bound_by, res=worst_res)
+
+
+def phase_coef_sym_cross(dev, N, iters):
+    """The general kernel called directly on the symmetric class, where COCG
+    converges: its x against the symmetric kernel's (2e-3 max|x|), both
+    float64 relative residuals printed; returns the max |x err|."""
+    from tpcg_torch.ops import stream_cg_coef as tgc
+    from tpcg_torch.ops import stream_cg_sym as tss
+    A = coef_class(dev, N, N, sym=True)
+    bp = planes(coef_rhs(N, N, 1), dev)[:, 0]
+    x0p = torch.zeros_like(bp)
+    xg, hg = tgc.stream_cg_coef_planes(A.offsets, tgc.prepare_stream_coef(A),
+                                       bp, x0p, iters)
+    half, cplanes = tss.prepare_stream_sym(A)
+    xs, hs = tss.stream_cg_sym_planes(half, cplanes, bp, x0p, iters)
+    torch.cuda.synchronize()
+    bt = torch.complex(bp[0], bp[1]).to(torch.complex128)
+
+    def rel_res(xp):
+        xc = torch.complex(xp[0], xp[1]).to(torch.complex128)
+        return float(torch.linalg.norm(bt - A.apply_grid(xc))
+                     / torch.linalg.norm(bt))
+    err = float((xg - xs).abs().max())
+    lim = 2e-3 * float(xs.abs().max())
+    print(f"stream_cg_coef on the symmetric class N={N} x {iters} it: max|x - "
+          f"stream_cg_sym x| {err:.3e} (limit {lim:.3e}); relative residual "
+          f"(f64) general {rel_res(xg):.3e}, symmetric {rel_res(xs):.3e}; "
+          f"hist[-1] {float(hg[-1]):.3e} / {float(hs[-1]):.3e}")
+    if not (torch.isfinite(xg).all() and err <= lim):
+        fail("the general kernel parts from the symmetric one on a "
+             "symmetric stencil")
+    return err
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -1813,6 +2115,21 @@ def main():
         phase_route_main(dev, "random-routed complex", lambda: random_spd(
             97578, 100, seed=1, dtype=np.complex64), 1, 200, cplx=True)]
     route_tables = phase_route_tables(dev)
+    coef_err = phase_coef_compare(dev)
+    coef = []
+    for N, runs in ((1024, ((1000, 1), (1000, 2))),
+                    (2048, ((500, 1), (500, 2), (500, 4), (500, 8))),
+                    (2049, ((500, 1),)), (4096, ((1000, 1),))):
+        t0 = time.perf_counter()
+        A = coef_class(dev, N, N)
+        torch.cuda.synchronize()
+        print(f"stream-coef general N={N}: helm_fe_var assembled and plane 1 "
+              f"scaled in {time.perf_counter() - t0:.3f} s (host)")
+        coef += [phase_coef_main(dev, A, iters, nb, plain_full=N == 4096)
+                 for iters, nb in runs]
+        del A
+    coef_err = max([coef_err, phase_coef_sym_cross(dev, 2048, 500)]
+                   + [r["err"] for r in coef])
     kernels = [{
         "name": "fused_cg_stencil", "route": "cuda",
         "source": "tpcg_torch/csrc/fused_cg.cu",
@@ -1894,6 +2211,18 @@ def main():
         "ms": route[1]["ms"], "plain_ms": route[1]["plain_ms"],
         "bound_ms": route[1]["bound_ms"], "bound_by": route[1]["bound_by"],
         "library_ms": route[1]["library_ms"]})
+    # the general-coefficient kernel's headline cell: N=4096, 1000 it, B=1
+    kernels.append({
+        "name": "stream_cg_coef", "route": "cuda",
+        "source": "tpcg_torch/csrc/stream_cg_coef.cu",
+        "replaces": "tpcg/ops/stream_cg.py:461; tpcg/ops/stream_cg.py:1012; "
+                    "tpcg/ops/stream_cg.py:1152; tpcg/ops/stream_cg_v3.py:56; "
+                    "tpcg/ops/stream_cg_v4.py:73",
+        "launches": sum(r["launches"] for r in coef),
+        "max_abs_err": coef_err,
+        "ms": coef[-1]["ms"], "plain_ms": coef[-1]["plain_ms"],
+        "bound_ms": coef[-1]["bound_ms"], "bound_by": coef[-1]["bound_by"],
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

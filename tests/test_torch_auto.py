@@ -50,9 +50,12 @@ def test_planner_on_cuda_refuses_tiers_not_ported(monkeypatch, grid, dtype,
     """Past the whole-solve size (its threshold lowered here): a symmetric
     variable-coefficient complex grid, where JAX takes stream-coef (and
     pad->stream-coef for the prime height 29), plans ``stream-coef`` on the
-    unpadded grid; a real grid from JAX's real-streaming size (Poisson,
-    1024^2) plans ``stream-real`` in const mode; a non-symmetric
-    variable-coefficient grid still raises naming its ROADMAP item."""
+    unpadded grid with the half planes; a real grid from JAX's
+    real-streaming size (Poisson, 1024^2) plans ``stream-real`` in const
+    mode; a non-symmetric variable-coefficient grid, which JAX sends to its
+    general-coefficient kernels, plans ``stream-coef`` with the full
+    coefficient planes (the general kernel's operand).  No tier is refused
+    any longer."""
     monkeypatch.setattr(auto, "_L2_NODES", 256)
     if not dtype.is_complex:
         T = tpcg_torch.problems.poisson(grid[0], device="cpu")
@@ -69,25 +72,30 @@ def test_planner_on_cuda_refuses_tiers_not_ported(monkeypatch, grid, dtype,
     if jax_tier == "non-symmetric":
         coef[1] *= 1.5
     fake = _fake_cuda_stencil(grid, dtype, coef, T.offsets)
-    if jax_tier == "non-symmetric":
-        with pytest.raises(NotImplementedError,
-                           match="stream-coef.*non-symmetric.*ROADMAP"):
-            tpcg_torch.plan_stencil_cg(fake, 10)
-        return
     plan = tpcg_torch.plan_stencil_cg(fake, 10)
     assert plan.path == "stream-coef" and plan.grid == grid
+    path, prepared = auto._pick_path(fake, 3, on_cuda=True)
+    assert path == "stream-coef"
+    if jax_tier == "non-symmetric":
+        assert torch.is_tensor(prepared)
+        assert torch.equal(prepared, tpcg_torch.ops.prepare_stream_coef(fake))
+        assert tuple(prepared.shape) == (2, len(T.offsets)) + grid
+    else:
+        half, cplanes = prepared
+        assert half[0] == (0, 0) and cplanes.shape[1] == len(half)
 
 
 @pytest.mark.parametrize("path", ["vmem-const", "stream", "stream-coef",
                                   "stream-real"])
 def test_explicit_unported_path_raises(path):
-    """Forcing ``stream-coef`` on a non-symmetric stencil (JAX's general
-    coefficient kernels, not ported) raises naming its ROADMAP item.  The
-    JAX name ``vmem-const`` raises the "unknown path" ValueError that
+    """The JAX name ``vmem-const`` raises the "unknown path" ValueError that
     ``vmem-coef`` raises (the port's names are ``l2-const`` and
     ``l2-coef``); forcing ``stream`` on a variable-coefficient stencil
     raises ``prepare_stream``'s ValueError, as JAX's planner does, and
-    forcing ``stream-real`` on a complex stencil a ValueError."""
+    forcing ``stream-real`` on a complex stencil a ValueError.  Forcing
+    ``stream-coef`` on a non-symmetric stencil, which JAX sends to its
+    general-coefficient kernels, plans the port's general kernel (its plain
+    version here) and raises no more."""
     S = from_tpcg(helm_fe(8, 3.0, eps=3.0))
     if path in ("stream", "stream-coef"):
         C = 1.0 + 0.5 * np.random.default_rng(4).random((7, 7))
@@ -97,8 +105,10 @@ def test_explicit_unported_path_raises(path):
     match = {"vmem-const": "unknown path", "stream": "not constant",
              "stream-real": "real stencil"}.get(path)
     if match is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpcg_torch.plan_stencil_cg(S, 5, path=path)
+        plan = tpcg_torch.plan_stencil_cg(S, 5, path=path)
+        x, hist = plan.solve(np.ones((8, 8), complex))
+        assert plan.path == "stream-coef" and x.shape == (8, 8)
+        assert np.isfinite(x).all() and hist.shape == (6,)
     else:
         with pytest.raises(ValueError, match=match):
             tpcg_torch.plan_stencil_cg(S, 5, path=path)
@@ -214,6 +224,7 @@ def test_import_pulls_in_no_jax():
             "tpcg_torch.ops.stream_cg_dia, tpcg_torch.ops.fused_cg_dia, "
             "tpcg_torch.ops.stream_cg, tpcg_torch.ops.fused_cg_const, "
             "tpcg_torch.ops.stream_cg_sym, tpcg_torch.ops.stream_cg_real, "
+            "tpcg_torch.ops.stream_cg_coef, "
             "tpcg_torch.device, tpcg_torch.ops.route_spmv, "
             "tpcg_torch.ops.routing, tpcg_torch.native.routing_native, "
             "tpcg_torch.native.mtx_native; "

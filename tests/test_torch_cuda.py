@@ -630,15 +630,203 @@ def test_sym_kernel_freezes(dev):
 
 def test_planner_on_card_takes_the_sym_path(dev):
     """Symmetric variable coefficients past the whole-solve size take
-    stream-coef, at the height 2049 too (JAX row-pads it); a non-symmetric
-    stencil raises naming its ROADMAP item."""
+    stream-coef through the symmetric kernel, at the height 2049 too (JAX
+    row-pads it); a non-symmetric stencil takes stream-coef through the
+    general kernel (``csrc/stream_cg_coef.cu``), not the symmetric one."""
     from tpcg_torch.sparse import Stencil2D
     S = _sym_case(dev, 2049, 600)[0]
-    assert tpcg_torch.plan_stencil_cg(S, 5).path == "stream-coef"
+    plan = tpcg_torch.plan_stencil_cg(S, 5)
+    assert plan.path == "stream-coef"
+    b = plane_wave_rhs(2049, 40.0)[:, :600]
+    sym0, gen0 = tss.stream_cg_sym_planes.launches, _coef_launches()
+    plan.solve(b)
+    assert (tss.stream_cg_sym_planes.launches, _coef_launches()) == (
+        sym0 + 1, gen0)
     coef = S.coef.clone()
     coef[1] *= 1.5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpcg_torch.plan_stencil_cg(Stencil2D(S.offsets, coef, S.grid), 5)
+    plan = tpcg_torch.plan_stencil_cg(Stencil2D(S.offsets, coef, S.grid), 5)
+    assert plan.path == "stream-coef"
+    x, _ = plan.solve(b)
+    torch.cuda.synchronize()
+    assert np.isfinite(x).all()
+    assert (tss.stream_cg_sym_planes.launches, _coef_launches()) == (
+        sym0 + 1, gen0 + 1)
+
+
+# ---- streaming general-coefficient kernel (csrc/stream_cg_coef.cu), 1..8 RHS
+# The tolerances of the streaming kernels' checks above: the kernel applies
+# the operator bit for bit as the plain version does and, as the sym kernel,
+# sums its dot products in float64 in another order.
+
+tgc = importlib.import_module("tpcg_torch.ops.stream_cg_coef")
+
+
+def _coef_launches():
+    return tgc.stream_cg_coef_planes.launches
+
+
+def _coef_case(dev, nv, nh, nb=1, x0_seed=None):
+    """helm_fe_var(max(nv, nh), 8, C, rho=0.5) on an nv x nh grid (C = 1 +
+    0.5 U(0, 1) from seed 0), made non-symmetric by scaling plane 1 by 1.5;
+    its planes; nb RHS, the plane wave times (1 + 0.1j r) cut to size
+    (2, nb, nv, nh); a seeded 0.1 N(0, 1) initial guess (or zero)."""
+    from tpcg_torch.problems import helm_fe_var
+    from tpcg_torch.sparse import Stencil2D
+    N = max(nv, nh)
+    C = 1.0 + 0.5 * np.random.default_rng(0).random((nv - 1, nh - 1))
+    A = helm_fe_var(N, 8.0, C, rho=0.5, Nhoriz=nh, Nvert=nv, device=dev)
+    coef = A.coef.clone()
+    coef[1] *= 1.5
+    S = Stencil2D(A.offsets, coef, A.grid)
+    bg = plane_wave_rhs(N, 8.0)[:nv, :nh]
+    B = np.stack([bg * (1 + 0.1j * r) for r in range(nb)])
+    X0 = np.zeros_like(B)
+    if x0_seed is not None:
+        rng = np.random.default_rng(x0_seed)
+        X0 = 0.1 * (rng.standard_normal(B.shape)
+                    + 1j * rng.standard_normal(B.shape))
+
+    def planes(z):
+        return torch.from_numpy(
+            np.stack([z.real, z.imag]).astype(np.float32)).to(dev)
+    return S, tgc.prepare_stream_coef(S), planes(B), planes(X0)
+
+
+# odd heights and widths, a width past one tile, and x0 != 0
+@pytest.mark.parametrize("nv,nh,seed", [(256, 256, 1), (301, 517, 2),
+                                        (1031, 1024, 3), (37, 45, None)])
+@pytest.mark.parametrize("nb", [1, 2, 3, 4, 8])
+def test_coef_kernel_matches_plain(dev, nv, nh, seed, nb):
+    """Each NB instance against the plain version, 40 iterations: two
+    launches bit-equal, each RHS within the tolerances above."""
+    S, coefp, bp, x0p = _coef_case(dev, nv, nh, nb, seed)
+    before = _coef_launches()
+    xk, hk = _run_twice(tgc.stream_cg_coef_planes_batched_fat, S.offsets,
+                        coefp, bp, x0p, 40)
+    assert _coef_launches() == before + 2
+    xp, hp = tgc.stream_cg_coef_planes_batched_fat_plain(S.offsets, coefp, bp,
+                                                         x0p, 40)
+    for c in range(nb):
+        _assert_dia_close(xk[:, c], hk[:, c], xp[:, c], hp[:, c])
+
+
+def test_coef_kernel_takes_a_pad2_stencil(dev):
+    """A non-symmetric 13-point stencil two nodes out (pad 2), odd grid, x0
+    != 0, NB = 1 and 4, against the plain version over 30 iterations."""
+    from tpcg_torch.sparse import Stencil2D
+    nv, nh = 203, 311
+    offsets = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0), (0, 2), (0, -2),
+               (2, 0), (-2, 0), (1, 1), (-1, -1), (2, 1), (-1, 2))
+    rng = np.random.default_rng(12)
+    c = -0.2 * (1.0 + 0.3 * rng.random((len(offsets), nv, nh))) + 0.05j
+    c[0] = 4.0 + 0.5j + 0.1 * rng.random((nv, nh))
+    S = Stencil2D(offsets, torch.from_numpy(c).to(dev), (nv, nh))
+    coefp = tgc.prepare_stream_coef(S)
+    for nb in (1, 4):
+        z = rng.standard_normal((2, nb, nv, nh)).astype(np.float32)
+        bp = torch.from_numpy(z).to(dev)
+        x0p = 0.1 * torch.flip(bp, dims=(2,))
+        xk, hk = tgc.stream_cg_coef_planes_batched_fat(offsets, coefp, bp,
+                                                       x0p, 30)
+        xp, hp = tgc.stream_cg_coef_planes_batched_fat_plain(offsets, coefp,
+                                                             bp, x0p, 30)
+        for r in range(nb):
+            _assert_dia_close(xk[:, r], hk[:, r], xp[:, r], hp[:, r])
+
+
+def test_coef_kernel_applies_the_operator(dev):
+    """Zero iterations give r0 = b - A x0 only: x = x0 and hist[0] from the
+    plain operator's residual, with coefficients pointing outside the grid
+    on every edge (they read 0)."""
+    S, coefp, bp, x0p = _coef_case(dev, 37, 45, 2, x0_seed=5)
+    coefp = coefp + 0.25          # every plane nonzero, the edges included
+    x, h = tgc.stream_cg_coef_planes_batched_fat(S.offsets, coefp, bp, x0p, 0)
+    assert torch.equal(x, x0p)
+    for c in range(2):
+        r = bp[:, c] - tgc.apply_coef_planes(S.offsets, coefp, x0p[:, c])
+        dl = torch.stack([torch.sum(r[0].double() ** 2 - r[1].double() ** 2),
+                          2.0 * torch.sum(r[0].double() * r[1].double())])
+        h0 = torch.sqrt(torch.sqrt(dl[0] ** 2 + dl[1] ** 2)).float()
+        assert torch.allclose(h[0, c], h0, rtol=1e-5)
+
+
+def test_coef_nb_instance_against_single_rhs_launches(dev):
+    """Each RHS of an NB launch against its own NB = 1 launch, 40
+    iterations: within the tolerances above, and bit-equal where the
+    partition of the float64 sums is the same (NB = 2 shares NB = 1's tile,
+    and on a grid of fewer tiles than the card holds blocks both launch one
+    block a tile)."""
+    for nv, nh, nb in ((300, 700, 2), (300, 700, 8), (1024, 1024, 4)):
+        S, coefp, bp, x0p = _coef_case(dev, nv, nh, nb, x0_seed=7)
+        xb, hb = tgc.stream_cg_coef_planes_batched_fat(S.offsets, coefp, bp,
+                                                       x0p, 40)
+        for c in range(nb):
+            x1, h1 = tgc.stream_cg_coef_planes(S.offsets, coefp, bp[:, c],
+                                               x0p[:, c], 40)
+            _assert_dia_close(xb[:, c], hb[:, c], x1, h1)
+            diff = float((xb[:, c] - x1).abs().max() / x1.abs().max())
+            print(f"{nv}x{nh} NB={nb} rhs {c}: max|x diff| / max|x| "
+                  f"{diff:.3e}")
+            if nb == 2:
+                assert torch.equal(xb[:, c], x1) and torch.equal(hb[:, c], h1)
+
+
+def test_coef_plan_launches_once_per_chunk(dev):
+    """Through a stream-coef plan: B=1 one launch of the NB = 1 instance,
+    B=3 one launch, B=10 two launches (8 + 2); each column follows the
+    plain version."""
+    S, coefp, bp, _ = _coef_case(dev, 520, 520, 10)
+    for nb, launches in ((1, 1), (3, 1), (10, 2)):
+        plan = tpcg_torch.plan_stencil_cg(S, 30, nb=nb)
+        assert plan.path == "stream-coef"
+        before = _coef_launches()
+        x, h = plan.solve_planes(bp[:, 0] if nb == 1 else bp[:, :nb])
+        assert _coef_launches() == before + launches
+        xp, hp = tgc.stream_cg_coef_planes_batched_fat_plain(
+            S.offsets, coefp, bp[:, :nb], torch.zeros_like(bp[:, :nb]), 30)
+        if nb == 1:
+            x, h = x[:, None], h[:, None]
+        for c in range(nb):
+            _assert_dia_close(x[:, c], h[:, c], xp[:, c], hp[:, c])
+
+
+def test_coef_wrapper_refuses_past_its_limits(dev):
+    """A stencil past the kernel's offsets or pad raises ValueError before
+    any launch; the limits are the ones the kernel states."""
+    max_off, max_pad, max_nb = tgc.kernel_limits()
+    assert (max_off, max_pad, max_nb) == (32, 8, 8)
+    bp = torch.ones((2, 20, 20), device=dev)
+    far = ((0, 0), (0, max_pad + 1))
+    many = tuple((0, 0) for _ in range(max_off + 1))
+    before = _coef_launches()
+    for offsets in (far, many):
+        coefp = torch.ones((2, len(offsets), 20, 20), device=dev)
+        with pytest.raises(ValueError, match="kernel takes at most"):
+            tgc.stream_cg_coef_planes(offsets, coefp, bp, bp, 3)
+    assert _coef_launches() == before
+
+
+def test_coef_kernel_freezes(dev):
+    """2 I as full planes on the helm_fe offsets, b = 1, 2, 3: over 400
+    iterations every RHS of an NB = 3 launch reads 0 from iteration 1, as
+    the plain version does, stays finite, and gives x = b / 2."""
+    from tpcg_torch.sparse import Stencil2D
+    N = 64
+    A = helm_fe(N, 5.0, eps=5.0, device=dev)
+    coef = torch.zeros_like(A.coef)
+    coef[0] = 2.0
+    coefp = tgc.prepare_stream_coef(Stencil2D(A.offsets, coef, A.grid))
+    bp = torch.zeros((2, 3, N, N), device=dev)
+    bp[0] = torch.arange(1, 4, device=dev, dtype=torch.float32)[:, None, None]
+    x0p = torch.zeros_like(bp)
+    xk, hk = tgc.stream_cg_coef_planes_batched_fat(A.offsets, coefp, bp, x0p,
+                                                   400)
+    xp, hp = tgc.stream_cg_coef_planes_batched_fat_plain(A.offsets, coefp, bp,
+                                                         x0p, 400)
+    assert torch.isfinite(xk).all() and torch.isfinite(hk).all()
+    assert torch.equal(hk[0], hp[0]) and torch.all(hk[1:] == 0)
+    assert torch.all(hp[1:] == 0)
+    assert torch.equal(xk, xp) and torch.equal(xk[0], bp[0] / 2)
 
 
 # ---- streaming real kernel (csrc/stream_cg_real.cu), both modes
@@ -907,3 +1095,22 @@ def test_route_wrapper_refuses_overflow_and_aliasing_on_card(dev):
                                    out=out) is out
     torch.cuda.synchronize()
     assert torch.equal(out, D.matvec(x))
+
+
+def test_route_plain_is_deterministic_on_card(dev):
+    """The plain SpMV sums each row in one fixed order on the card too: two
+    runs are bit-equal, real and complex, on the skewed geometry (one row of
+    5,000 nonzeros beside empty rows) and the random-routed class."""
+    for name in ("skewed", "random"):
+        A = _route_matrix(name)
+        rng = np.random.default_rng(9)
+        for cplx in (False, True):
+            D = tpcg_torch.DeviceRouted.from_scipy(
+                A.astype(np.complex64 if cplx else np.float32), device=dev)
+            shape = (2, D.n, 4) if cplx else (D.n, 4)
+            x = torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dev)
+            y1 = trs.routed_matvec_plain(D.row_ptr, D.col, D.val, x)
+            y2 = trs.routed_matvec_plain(D.row_ptr, D.col, D.val, x)
+            torch.cuda.synchronize()
+            assert torch.equal(y1, y2), (name, cplx)

@@ -181,6 +181,39 @@ def test_plain_version_on_empty_rows_and_a_long_row():
     assert not y[1::2].any()
 
 
+@pytest.mark.parametrize("cplx", [False, True])
+def test_plain_version_sums_each_row_in_order(cplx):
+    """Each row is summed from 0 in the order of its nonzeros, one float32
+    addition at a time, on rows of 0 to 40 nonzeros: bit for bit the
+    sequential sum, written out here row by row."""
+    rng = np.random.default_rng(4)
+    n = 300
+    lengths = rng.integers(0, 41, n)
+    rows = np.repeat(np.arange(n), lengths)
+    cols = rng.integers(0, n, len(rows))
+    vals = rng.standard_normal((2, len(rows))).astype(np.float32)
+    row_ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(lengths)])
+                               .astype(np.int32))
+    col = torch.from_numpy(cols.astype(np.int32))
+    x = rng.standard_normal((2, n, 3)).astype(np.float32)
+    if cplx:
+        y = trs.routed_matvec_plain(row_ptr, col, torch.from_numpy(vals),
+                                    torch.from_numpy(x)).numpy()
+    else:
+        y = trs.routed_matvec_plain(row_ptr, col, torch.from_numpy(vals[0]),
+                                    torch.from_numpy(x[0])).numpy()
+    want = np.zeros((2, n, 3), np.float32)
+    for r in range(n):
+        for k in range(row_ptr[r], row_ptr[r + 1]):
+            vr, vi, c = vals[0, k], vals[1, k], cols[k]
+            if cplx:
+                want[0, r] += vr * x[0, c] - vi * x[1, c]
+                want[1, r] += vr * x[1, c] + vi * x[0, c]
+            else:
+                want[0, r] += vr * x[0, c]
+    np.testing.assert_array_equal(y, want if cplx else want[0])
+
+
 def test_wrapper_refuses_overflow_aliasing_and_bad_operands():
     D = tpcg_torch.DeviceRouted.from_scipy(_unstructured(40, 3, seed=1),
                                            device="cpu")

@@ -206,9 +206,21 @@ def test_forced_stream_coef_plan_matches_jax_planner(nb):
 
 
 def test_forced_stream_coef_refuses_a_nonsymmetric_stencil():
+    """The symmetric kernel refuses a non-symmetric stencil: a forced
+    ``stream-coef`` plan then takes the general kernel's full planes
+    (``tpcg_torch.ops.stream_cg_coef``), its plain version here, which no
+    launch of the symmetric kernel's wrapper serves."""
     T = from_tpcg(_broken("nonsymmetric"))
-    with pytest.raises(NotImplementedError, match="non-symmetric.*ROADMAP"):
-        tpcg_torch.plan_stencil_cg(T, 5, path="stream-coef")
+    with pytest.raises(ValueError, match="not symmetric"):
+        tss.prepare_stream_sym(T)
+    plan = tpcg_torch.plan_stencil_cg(T, 5, path="stream-coef")
+    assert plan.path == "stream-coef"
+    before = tss.stream_cg_sym_planes.launches
+    x, h = plan.solve(plane_wave_rhs(24, K))
+    assert tss.stream_cg_sym_planes.launches == before
+    xg, hg = tpcg_torch.stream_cg_coef(T, plane_wave_rhs(24, K), None, 5)
+    np.testing.assert_array_equal(h, hg.numpy())
+    np.testing.assert_array_equal(x, (xg[0] + 1j * xg[1]).numpy())
 
 
 def test_slice_end_to_end_matches_jax_planner(monkeypatch):

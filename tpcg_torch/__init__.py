@@ -12,6 +12,7 @@ from .api import cg, cg_matrix                                # noqa: F401
 from .ops.auto import plan_stencil_cg, stencil_cg             # noqa: F401
 from .ops.stream_cg import stream_cg_const                    # noqa: F401
 from .ops.stream_cg_sym import stream_cg_sym                # noqa: F401
+from .ops.stream_cg_coef import stream_cg_coef              # noqa: F401
 from .sparse import (DiaMatrix, EllMatrix, Stencil2D,         # noqa: F401
                      to_device_matrix)
 from .ops.route_spmv import DeviceRouted                     # noqa: F401

@@ -5,7 +5,8 @@
 ``.grid`` / ``.n`` and ``np.asarray`` of the array fields, so it needs no
 JAX import: the tests build both sides of a comparison from one object
 with it.  ``coef3_from_numpy``, ``stream_operands_from_tpcg``,
-``sym_operands_from_tpcg``, ``stream_real_operands_from_tpcg``,
+``sym_operands_from_tpcg``, ``coef_operands_from_tpcg``,
+``stream_real_operands_from_tpcg``,
 ``coef_real_from_tpcg`` and ``const_operands_from_tpcg`` do the same for the
 operands the JAX kernels take, and ``routed_from_tpcg`` for JAX's routing
 tables.
@@ -73,6 +74,16 @@ def sym_operands_from_tpcg(half_offsets, cplanes, device="cpu"):
                          f"got {c.shape}")
     return ([(int(dm), int(dj)) for dm, dj in half_offsets],
             torch.from_numpy(np.array(c, dtype=np.float32)).to(device))
+
+
+def coef_operands_from_tpcg(coefp, device="cpu") -> torch.Tensor:
+    """The output of ``tpcg.ops.stream_cg.prepare_stream_coef`` (numpy via
+    ``np.asarray``) -> the (2, noff, Nv, Nh) float32 coefficient planes the
+    port's general ``stream-coef`` kernel takes, on ``device``."""
+    c = np.asarray(coefp)
+    if c.ndim != 4 or c.shape[0] != 2:
+        raise ValueError(f"coefp must be (2, noff, Nv, Nh), got {c.shape}")
+    return torch.from_numpy(np.array(c, dtype=np.float32)).to(device)
 
 
 def stream_real_operands_from_tpcg(taps, strips2, device="cpu"):

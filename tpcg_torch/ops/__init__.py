@@ -19,6 +19,12 @@ from .stream_cg_real import (stream_cg_real_planes,              # noqa: F401
 from .stream_cg_sym import (stream_cg_sym_planes,                # noqa: F401
                             stream_cg_sym_planes_plain, prepare_stream_sym,
                             reconstruct_coef, apply_sym_planes)
+# stream_cg_coef() is not re-exported here: it would hide its module
+from .stream_cg_coef import (stream_cg_coef_planes,              # noqa: F401
+                             stream_cg_coef_planes_plain,
+                             stream_cg_coef_planes_batched_fat,
+                             stream_cg_coef_planes_batched_fat_plain,
+                             prepare_stream_coef, apply_coef_planes)
 # stream_cg_dia() itself is not re-exported: it would hide its module
 from .stream_cg_dia import (stream_cg_dia_block,                 # noqa: F401
                             stream_cg_dia_cplx, stream_cg_dia_cplx_block,

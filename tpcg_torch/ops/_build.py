@@ -43,6 +43,9 @@ _SIGNATURES = {
     "tpcg_stream_sym_limits": (_IP, _IP),
     "tpcg_stream_sym_grid": (_I, _I, _I, _IP),
     "tpcg_stream_sym": (_P,) * 9 + (_I,) * 3 + (_IP, _I, _I, _I, _P),
+    "tpcg_stream_coef_limits": (_IP, _IP, _IP),
+    "tpcg_stream_coef_grid": (_I, _I, _I, _I, _IP),
+    "tpcg_stream_coef": (_P,) * 9 + (_I,) * 4 + (_IP, _I, _I, _I, _P),
     "tpcg_fused_cg_limits": (_IP, _IP),
     "tpcg_fused_cg_grid": (_I, _IP),
     "tpcg_fused_cg_stencil": (_P,) * 10 + (_I,) * 4 + (_IP, _I, _I, _I, _P),

@@ -20,12 +20,18 @@ Six paths are ported; each maps to a planner path of the JAX package:
                 succeeds): one launch of the hand-written CUDA kernel
                 ``tpcg_torch.ops.stream_cg.stream_cg_const_planes`` per RHS,
                 the state in device memory.
-  stream-coef : JAX's ``stream-coef`` for symmetric stencils.  Complex
-                stencils past 512^2 nodes with variable coefficients that
-                ``prepare_stream_sym`` accepts: one launch of the
+  stream-coef : JAX's ``stream-coef``.  Complex stencils past 512^2 nodes
+                with variable coefficients.  Where ``prepare_stream_sym``
+                accepts the stencil (symmetric), one launch of the
                 hand-written CUDA kernel
                 ``tpcg_torch.ops.stream_cg_sym.stream_cg_sym_planes`` per
-                RHS, half of the coefficient planes streamed.
+                RHS, half of the coefficient planes streamed; otherwise the
+                hand-written CUDA kernel of
+                ``tpcg_torch.ops.stream_cg_coef`` on the full planes
+                (``prepare_stream_coef``): one launch of
+                ``stream_cg_coef_planes_batched_fat`` per chunk of at most
+                eight RHS, which share one read of the coefficients (one
+                RHS runs the single-RHS instance).
   stream-real : JAX's ``stream-real``.  Real stencils from 1024^2 nodes on a
                 CUDA device: one launch of the hand-written CUDA kernel
                 ``tpcg_torch/csrc/stream_cg_real.cu`` per RHS, in const mode
@@ -42,22 +48,22 @@ Six paths are ported; each maps to a planner path of the JAX package:
                 as on ``stream-real``, so the surface does not change at
                 1024^2.
 
-On the streaming paths several RHS run as sequential single-RHS launches
-queued on one stream, as JAX's ``lax.map`` runs them; any batch size.
+On the streaming paths other than general ``stream-coef`` several RHS run
+as sequential single-RHS launches queued on one stream, as JAX's
+``lax.map`` runs them; any batch size.
 
 Heights JAX cannot stream (no row block of at least 8 rows that leaves two
 blocks, e.g. primes): JAX row-pads them to a multiple of 128
 (``_pad_rows``), and the padded operator lands on ``stream-coef`` or
 ``stream-real``.  The Hopper kernels read any height, so the port does not
 pad: JAX's ``pad->stream-coef`` becomes ``stream`` for constant taps and
-``stream-coef`` for symmetric variable coefficients, and
+``stream-coef`` for variable coefficients, and
 ``pad->stream-real`` becomes ``stream-real``, on the unpadded grid.
 
 The planner dispatches on the torch device of the stencil's coefficients.
-On a CUDA device, a stencil that JAX would send to a tier that is not
-ported yet (``stream-coef`` for a non-symmetric stencil) raises
-``NotImplementedError`` naming the ROADMAP item; it never runs silently on
-the plain path instead.
+Every tier JAX's planner picks has its kernel on a CUDA device; a kernel
+that cannot run raises, and nothing runs silently on the plain path
+instead.
 """
 from __future__ import annotations
 
@@ -71,7 +77,9 @@ from ..cg import block_cg
 from .cplx import block_cg_planes_chunked, make_pair_operator
 from .fused_cg import fused_cg_stencil_chunked, prepare_coef3
 from .fused_cg_const import fused_cg_const_chunked, prepare_const
-from .stream_cg import _streamable, prepare_stream, stream_cg_const_planes
+from .stream_cg import prepare_stream, stream_cg_const_planes
+from .stream_cg_coef import (prepare_stream_coef,
+                             stream_cg_coef_planes_batched_fat)
 from .stream_cg_real import prepare_real, solve_real_planes
 from .stream_cg_sym import prepare_stream_sym, stream_cg_sym_planes
 
@@ -84,20 +92,6 @@ _FUSED_BATCH_MAX = 2
 
 _PORTED = ("l2-coef", "l2-const", "stream", "stream-coef", "stream-real",
            "eager")
-# the one JAX planner tier with no port yet, and where the ROADMAP queues it
-_NOT_PORTED = {
-    "stream-coef": "ROADMAP queue 1 item 11, general (non-symmetric) "
-                   "coefficients (queue 2 items 8 general, 9, 12, 13, the "
-                   "coefficient variant of 16)",
-}
-
-
-def _not_ported(jax_path, grid) -> NotImplementedError:
-    return NotImplementedError(
-        f"grid {grid}: the JAX planner sends this to its {jax_path} tier "
-        "for a non-symmetric stencil (its general-coefficient kernels), "
-        "which tpcg_torch has not ported yet: "
-        f"{_NOT_PORTED[jax_path.removeprefix('pad->')]}")
 
 
 def _norm_b(b, nv, nh):
@@ -157,29 +151,27 @@ class StencilCGPlan:
         return x, hist
 
 
-def _prepare_sym(stencil):
-    """``prepare_stream_sym``, raising the general-coefficient item for a
-    stencil it refuses (JAX's ``stream-coef`` for non-symmetric operators,
-    row-padded where JAX cannot stream the height)."""
+def _prepare_coef(stencil):
+    """The ``stream-coef`` operand: ``prepare_stream_sym``'s
+    ``(half_offsets, cplanes)`` where it accepts the stencil, else
+    ``prepare_stream_coef``'s full planes (one tensor), as JAX's planner
+    tries its sym branch first (``tpcg/ops/auto.py:655-660``)."""
     try:
         return prepare_stream_sym(stencil)
     except ValueError:
-        jax_path = ("stream-coef" if _streamable(stencil.grid[0])
-                    else "pad->stream-coef")
-        raise _not_ported(jax_path, stencil.grid) from None
+        return prepare_stream_coef(stencil)
 
 
 def _pick_path(stencil, nb: int, on_cuda: bool):
     """The planner's default choice: ``(path, prepared)``, where
     ``prepared`` is ``prepare_stream``'s result on the ``stream`` path,
-    ``prepare_stream_sym``'s on ``stream-coef`` and ``prepare_real``'s on
+    :func:`_prepare_coef`'s on ``stream-coef`` and ``prepare_real``'s on
     ``stream-real``.
 
     ``on_cuda`` says whether the solve runs on a card; off the card every
     stencil takes ``eager``.  On the card the rule is JAX's on an
     accelerator (``tpcg/ops/auto.py::plan_stencil_cg``) without its row
-    padding (see the module note), and a tier the port does not have
-    raises."""
+    padding (see the module note)."""
     nv, nh = stencil.grid
     n = nv * nh
     if not on_cuda:
@@ -190,7 +182,7 @@ def _pick_path(stencil, nb: int, on_cuda: bool):
         try:
             return "stream", prepare_stream(stencil)
         except ValueError:
-            return "stream-coef", _prepare_sym(stencil)
+            return "stream-coef", _prepare_coef(stencil)
     if n >= _REAL_STREAM_NODES:
         return "stream-real", prepare_real(stencil)
     return "eager", None
@@ -209,8 +201,9 @@ def plan_stencil_cg(stencil, n_iterations: int, nb: int = 1,
            a stencil whose taps are not constant raises ``ValueError``
            (``prepare_stream``'s, ``prepare_const``'s), as JAX's planner
            does; forcing ``stream-real`` on a complex stencil raises
-           ``ValueError``; forcing ``stream-coef`` on a non-symmetric
-           stencil raises ``NotImplementedError`` naming its ROADMAP item.
+           ``ValueError``.  ``stream-coef`` takes any stencil: the
+           symmetric kernel where ``prepare_stream_sym`` accepts it, else
+           the general one.
     """
     nv, nh = stencil.grid
     prepared = None
@@ -218,8 +211,6 @@ def plan_stencil_cg(stencil, n_iterations: int, nb: int = 1,
         path, prepared = _pick_path(stencil, nb,
                                     stencil.device.type == "cuda")
     elif path not in _PORTED:
-        if path in _NOT_PORTED:
-            raise _not_ported(path, stencil.grid)
         raise ValueError(f"unknown path {path!r}; ported: {_PORTED} (JAX's "
                          "vmem-coef and vmem-const are l2-coef and l2-const; "
                          "the pad-> plans are not needed: the kernels read "
@@ -227,7 +218,7 @@ def plan_stencil_cg(stencil, n_iterations: int, nb: int = 1,
     elif path == "stream":
         prepared = prepare_stream(stencil)
     elif path == "stream-coef":
-        prepared = _prepare_sym(stencil)
+        prepared = _prepare_coef(stencil)
     elif path == "stream-real":
         if stencil.coef.is_complex():
             raise ValueError("stream-real takes a real stencil")
@@ -299,6 +290,12 @@ def _build_solver(stencil, n_iterations, path, prepared=None):
                 return x[0], hist[:, 0]
             return x, hist
         return solve_real, solve_planes
+    elif path == "stream-coef" and torch.is_tensor(prepared):
+        # general coefficients: one launch per chunk of RHS, which share
+        # one read of the planes (a single RHS runs the NB=1 instance)
+        def solve_planes(bp, x0p):
+            return stream_cg_coef_planes_batched_fat(
+                stencil.offsets, prepared, bp, x0p, n_iterations)
     elif path in ("stream", "stream-coef"):
         if path == "stream":
             taps, strips = prepared

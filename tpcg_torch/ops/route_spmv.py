@@ -88,21 +88,38 @@ def _check_args(row_ptr, col, val, x, out):
 def routed_matvec_plain(row_ptr: torch.Tensor, col: torch.Tensor,
                         val: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel: gather x at the column of every
-    nonzero, multiply by its value and sum into its row (row order).
-    ``val`` (nnz,) with ``x`` (n, k), or ``val`` (2, nnz) with ``x``
-    (2, n, k) re/im planes."""
+    nonzero, multiply by its value and sum into its row, in row order on
+    every device.  ``val`` (nnz,) with ``x`` (n, k), or ``val`` (2, nnz)
+    with ``x`` (2, n, k) re/im planes.
+
+    Step p adds the p-th nonzero of every row that has one; the rows, sorted
+    by length (longest first), make each step's rows a prefix.  Each step
+    writes each row once, so the sum has one fixed order: two runs agree
+    bit for bit on a card too (``index_add_`` adds there in no fixed
+    order), and on the CPU it is the sequential sum ``index_add_`` gave."""
     n = row_ptr.numel() - 1
-    rows = torch.repeat_interleave(
-        torch.arange(n, device=x.device),
-        (row_ptr[1:] - row_ptr[:-1]).long())
-    c = col.long()
-    if val.dim() == 1:
-        return torch.zeros_like(x).index_add_(0, rows, val[:, None] * x[c])
-    vr, vi = val[0][:, None], val[1][:, None]
-    xr, xi = x[0][c], x[1][c]
+    lengths = (row_ptr[1:] - row_ptr[:-1]).long()
     y = torch.zeros_like(x)
-    y[0].index_add_(0, rows, vr * xr - vi * xi)
-    y[1].index_add_(0, rows, vr * xi + vi * xr)
+    if n == 0 or col.numel() == 0:
+        return y
+    order = torch.argsort(lengths, descending=True, stable=True)
+    longest = int(lengths[order[0]])
+    # active[p]: how many rows have more than p nonzeros
+    active = torch.searchsorted(-lengths[order],
+                                -torch.arange(longest, device=x.device))
+    starts = row_ptr[:-1].long()[order]
+    cplx = val.dim() == 2
+    for p, m in enumerate(active.tolist()):
+        rows = order[:m]
+        k = starts[:m] + p
+        c = col[k].long()
+        if not cplx:
+            y[rows] = y[rows] + val[k][:, None] * x[c]
+            continue
+        vr, vi = val[0][k][:, None], val[1][k][:, None]
+        xr, xi = x[0][c], x[1][c]
+        y[0, rows] = y[0, rows] + (vr * xr - vi * xi)
+        y[1, rows] = y[1, rows] + (vr * xi + vi * xr)
     return y
 
 

@@ -19,8 +19,6 @@ One Hopper kernel takes the place of the JAX package's tiers for this
 function (v2 ``_build_kernels`` + ``_make_k2``, v4 ``_build_resident``, v5
 ``_build_v5``): their VMEM budgets, row-block sizes, 128-lane column
 padding (``cpos``, ``pad_strips``) and q-residency modes exist for the TPU.
-``_pick_block_rows`` is kept only so that the planner picks ``stream``
-exactly where JAX does; no kernel here uses row blocks.
 """
 from __future__ import annotations
 
@@ -75,25 +73,6 @@ def prepare_stream(stencil):
     planes = np.stack([np.stack([sb.real, sb.imag]),
                        np.stack([st.real, st.imag])]).astype(np.float32)
     return taps, torch.from_numpy(planes).to(stencil.device)
-
-
-def _pick_block_rows(nv: int) -> int:
-    """The JAX package's row-block choice (``tpcg/ops/stream_cg.py``); the
-    planner's streamability rule reads it."""
-    for bv in (128, 64, 256, 32, 16, 8):
-        if nv % bv == 0 and nv // bv >= 2:
-            return bv
-    for bv in range(min(nv // 2, 256), 0, -1):
-        if nv % bv == 0:
-            return bv
-    return nv
-
-
-def _streamable(nv: int) -> bool:
-    """JAX's rule for a grid height its streaming kernels take; other
-    heights it row-pads to a multiple of 128 (the ``pad->`` plans)."""
-    bv = _pick_block_rows(nv)
-    return nv // bv >= 2 and bv >= 8
 
 
 def _taps32(taps):

@@ -1,0 +1,277 @@
+"""Fixed-iteration COCG on general variable-coefficient complex stencils (counterpart of the general-coefficient part of ``tpcg/ops/stream_cg.py``, the planner's ``stream-coef`` path for non-symmetric stencils).
+
+The operator is a complex 2-D stencil with a full coefficient plane per
+offset (:func:`prepare_stream_coef`, (2, noff, Nv, Nh) float32):
+
+    q(n) = sum_s c_s(n) x(n + s),
+
+summed over the offsets in the stencil's order, a neighbour outside the grid
+reading 0 whatever its coefficient says.  Nothing is assumed of the
+coefficients, so this path takes the stencils that ``prepare_stream_sym``
+refuses.
+
+``stream_cg_coef_planes`` runs ``n_iterations`` of single-RHS complex COCG
+with this operator, and ``stream_cg_coef_planes_batched_fat`` the same for B
+right-hand sides with independent alpha and beta.  On CUDA tensors both
+launch the hand-written kernel ``tpcg_torch/csrc/stream_cg_coef.cu`` (one
+persistent cooperative launch per chunk of at most ``kernel_limits()[2]``
+RHS, which share one read of the coefficient planes; see the note at the
+top of that file) and raise if it cannot run;
+``stream_cg_coef_planes.launches`` counts the launches of both.  On CPU
+tensors they run their plain versions, the same functions in plain PyTorch,
+which are also what the kernel is compared with on the card.
+
+One Hopper kernel takes the place of the JAX package's tiers for this
+function: v2 (``_build_k1_coef`` + ``_make_k2``), v3-coef (``_build_merged``),
+v4-coef (``_build_resident``) and, for several RHS, the fat batched kernels
+(``_build_k1_coef_batched_fat`` + ``_make_k2_batched_fat``).  Their row
+blocks, VMEM budgets, ``keep_r``, the 128-row padding and the ``nb*Bv*Nh``
+compile cap exist for the TPU: the kernel reads any height and width.
+
+One deliberate difference from JAX, as on the symmetric path
+(``stream_cg_sym.py``): the dot products <d, q> and <r, r> are summed in
+float64 and rounded to float32 once (JAX sums them in float32 by row
+blocks); every other step is float32, in JAX's order.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+from .fused_cg import _pad_for
+from .stream_cg import cocg_planes_plain
+
+Offset = Tuple[int, int]
+
+
+def prepare_stream_coef(stencil) -> torch.Tensor:
+    """(2, noff, Nv, Nh) float32 coefficient planes [re, im] on the device of
+    the stencil's coefficients (``tpcg/ops/stream_cg.py::
+    prepare_stream_coef``: the same values, bit for bit)."""
+    c = stencil.coef
+    imag = c.imag if c.is_complex() else torch.zeros_like(c)
+    real = c.real if c.is_complex() else c
+    return torch.stack([real, imag]).to(torch.float32)
+
+
+def apply_coef_planes(offsets: Sequence[Offset], coefp: torch.Tensor,
+                      xp: torch.Tensor) -> torch.Tensor:
+    """q = A x on (2, Nv, Nh) float32 planes.
+
+    JAX's order (``stream_cg.py:538-544``) and the kernel's, step for step:
+    from q = 0, for each offset s in the stencil's order,
+    ``q_re + c_re x_re - c_im x_im`` and ``q_im + c_re x_im + c_im x_re``,
+    with x(n + s) read from a zero border: a neighbour outside the grid
+    reads 0.
+    """
+    _, nv, nh = xp.shape
+    P = _pad_for(offsets)
+    xpad = torch.nn.functional.pad(xp, (P, P, P, P))
+    qr = torch.zeros_like(xp[0])
+    qi = torch.zeros_like(xp[0])
+    for s, (dm, dj) in enumerate(offsets):
+        ar, ai = coefp[0, s], coefp[1, s]
+        win = xpad[:, P + dm:P + dm + nv, P + dj:P + dj + nh]
+        qr = qr + ar * win[0] - ai * win[1]
+        qi = qi + ar * win[1] + ai * win[0]
+    return torch.stack([qr, qi])
+
+
+def _check_args(offsets, coefp, b, x0, n_iterations, batched):
+    offsets = [tuple(o) for o in offsets]
+    if not offsets:
+        raise ValueError("offsets must not be empty")
+    if coefp.dim() != 4 or tuple(coefp.shape[:2]) != (2, len(offsets)):
+        raise ValueError(f"coefp must be (2, {len(offsets)}, Nv, Nh), got "
+                         f"{tuple(coefp.shape)}")
+    nv, nh = coefp.shape[2:]
+    want = "(2, B, Nv, Nh)" if batched else "(2, Nv, Nh)"
+    if (b.dim() != (4 if batched else 3) or b.shape[0] != 2
+            or tuple(b.shape[-2:]) != (nv, nh)):
+        raise ValueError(f"b must be {want} with (Nv, Nh) = {(nv, nh)}, got "
+                         f"{tuple(b.shape)}")
+    if x0.shape != b.shape:
+        raise ValueError(f"x0 {tuple(x0.shape)} != b {tuple(b.shape)}")
+    for name, t in (("coefp", coefp), ("b", b), ("x0", x0)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != b.device:
+            raise ValueError(f"{name} is on {t.device}, b on {b.device}")
+    if n_iterations < 0:
+        raise ValueError(f"n_iterations must be >= 0, got {n_iterations}")
+
+
+def stream_cg_coef_planes_plain(offsets: Sequence[Offset],
+                                coefp: torch.Tensor, bp: torch.Tensor,
+                                x0p: torch.Tensor, n_iterations: int):
+    """Plain PyTorch version of the kernel for one RHS: the iteration of
+    ``stream_cg.cocg_planes_plain`` (unconjugated dots, Smith division, the
+    exact-zero freeze guard ``(delta == 0) | (<d,q> == 0)`` evaluated every
+    iteration, as JAX's K1/K2 do) with the operator of
+    :func:`apply_coef_planes`, the dot products summed in float64 and
+    rounded to float32."""
+    _check_args(offsets, coefp, bp, x0p, n_iterations, batched=False)
+    return cocg_planes_plain(
+        lambda v: apply_coef_planes(offsets, coefp, v), bp, x0p,
+        n_iterations, dot_dtype=torch.float64)
+
+
+def stream_cg_coef_planes_batched_fat_plain(offsets: Sequence[Offset],
+                                            coefp: torch.Tensor,
+                                            bp: torch.Tensor,
+                                            x0p: torch.Tensor,
+                                            n_iterations: int):
+    """Plain version of the batched kernel: each RHS of (2, B, Nv, Nh)
+    planes through :func:`stream_cg_coef_planes_plain` (the RHS share
+    nothing but the operator); returns x (2, B, Nv, Nh) and the history
+    (n_iterations + 1, B)."""
+    _check_args(offsets, coefp, bp, x0p, n_iterations, batched=True)
+    runs = [stream_cg_coef_planes_plain(offsets, coefp, bp[:, c], x0p[:, c],
+                                        n_iterations)
+            for c in range(bp.shape[1])]
+    return (torch.stack([x for x, _ in runs], dim=1),
+            torch.stack([h for _, h in runs], dim=1))
+
+
+def kernel_limits() -> Tuple[int, int, int]:
+    """(max offsets, max stencil pad, max RHS in one launch) of the CUDA
+    kernel."""
+    noff, pad, nb = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    _build.check(_build.load().tpcg_stream_coef_limits(
+        ctypes.byref(noff), ctypes.byref(pad), ctypes.byref(nb)),
+        "tpcg_stream_coef_limits")
+    return noff.value, pad.value, nb.value
+
+
+def grid_blocks(nb: int, nv: int, nh: int, pad: int) -> int:
+    """Blocks of one launch of the nb-RHS instance on an (nv, nh) grid on
+    the current CUDA device: one a tile, at most as many as the card holds
+    at once (the instance's occupancy sets that)."""
+    blocks = ctypes.c_int()
+    _build.check(_build.load().tpcg_stream_coef_grid(nb, nv, nh, pad,
+                                                     ctypes.byref(blocks)),
+                 "tpcg_stream_coef_grid")
+    return blocks.value
+
+
+def _launch(offsets, coefp, bp, x0p, n_iterations):
+    """One launch of the CUDA kernel for the (2, nb, Nv, Nh) planes bp, on
+    the current stream of bp's device; returns x (2, nb, Nv, Nh) and the
+    history (n_iterations + 1, nb)."""
+    lib = _build.load()
+    noff, nv, nh = coefp.shape[1:]
+    nb = bp.shape[1]
+    P = _pad_for(offsets)
+    max_off, max_pad, max_nb = kernel_limits()
+    if noff > max_off or P > max_pad or nb > max_nb:
+        raise ValueError(f"kernel takes at most {max_off} offsets within "
+                         f"{max_pad} nodes and {max_nb} RHS a launch, got "
+                         f"{noff} offsets within {P} and {nb} RHS")
+    coefp, bp, x0p = coefp.contiguous(), bp.contiguous(), x0p.contiguous()
+    dev = bp.device
+    with torch.cuda.device(dev):
+        blocks = grid_blocks(nb, nv, nh, P)
+        f32 = dict(dtype=torch.float32, device=dev)
+        x = torch.empty_like(bp)
+        hist = torch.empty((n_iterations + 1, nb), **f32)
+        r = torch.empty_like(bp)
+        q = torch.empty_like(bp)
+        d = torch.empty((2,) + tuple(bp.shape), **f32)
+        part = torch.empty((2, blocks, nb, 2), dtype=torch.float64,
+                           device=dev)
+        offs = (ctypes.c_int * (2 * noff))(
+            *[int(v) for o in offsets for v in o])
+        err = lib.tpcg_stream_coef(
+            bp.data_ptr(), x0p.data_ptr(), coefp.data_ptr(), x.data_ptr(),
+            hist.data_ptr(), r.data_ptr(), q.data_ptr(), d.data_ptr(),
+            part.data_ptr(), nb, nv, nh, noff, offs, P, n_iterations, blocks,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "tpcg_stream_coef")
+    stream_cg_coef_planes.launches += 1
+    return x, hist
+
+
+def stream_cg_coef_planes(offsets: Sequence[Offset], coefp: torch.Tensor,
+                          bp: torch.Tensor, x0p: torch.Tensor,
+                          n_iterations: int):
+    """Fixed-iteration single-RHS complex COCG on a general
+    variable-coefficient stencil.
+
+    offsets : the stencil's offsets ((dm, dj), ...), in the order of the
+              coefficient planes.
+    coefp   : (2, noff, Nv, Nh) float32, from :func:`prepare_stream_coef`.
+    bp, x0p : (2, Nv, Nh) float32 RHS / initial-guess planes.
+    Returns (x_planes (2, Nv, Nh), residual_history (n_iterations+1,)).
+
+    CUDA tensors launch the kernel's single-RHS instance
+    (``stream_cg_coef_planes.launches`` counts the launches); CPU tensors
+    run :func:`stream_cg_coef_planes_plain`.
+    """
+    _check_args(offsets, coefp, bp, x0p, n_iterations, batched=False)
+    if bp.device.type == "cuda":
+        x, hist = _launch(offsets, coefp, bp[:, None], x0p[:, None],
+                          n_iterations)
+        return x[:, 0], hist[:, 0]
+    if bp.device.type == "cpu":
+        return stream_cg_coef_planes_plain(offsets, coefp, bp, x0p,
+                                           n_iterations)
+    raise ValueError(f"no stream_cg_coef_planes for device {bp.device}")
+
+
+stream_cg_coef_planes.launches = 0
+
+
+def stream_cg_coef_planes_batched_fat(offsets: Sequence[Offset],
+                                      coefp: torch.Tensor, bp: torch.Tensor,
+                                      x0p: torch.Tensor, n_iterations: int):
+    """B right-hand sides at once, each with its own alpha, beta and freeze
+    guard, sharing one read of the coefficient planes per launch (the
+    function of JAX's ``stream_cg_coef_planes_batched_fat``).
+
+    bp, x0p : (2, B, Nv, Nh) float32 planes.
+    Returns (x (2, B, Nv, Nh), residual_history (n_iterations+1, B)).
+
+    CUDA tensors launch the kernel once per chunk of at most
+    ``kernel_limits()[2]`` RHS (counted in
+    ``stream_cg_coef_planes.launches``), queued on the current stream; CPU
+    tensors run :func:`stream_cg_coef_planes_batched_fat_plain`.  Each RHS
+    of a launch follows its plain version; its bits may differ from a
+    single-RHS launch's, as the float64 partial sums are cut by the grid's
+    tiles and block count, which depend on the RHS count.
+    """
+    _check_args(offsets, coefp, bp, x0p, n_iterations, batched=True)
+    if bp.device.type == "cpu":
+        return stream_cg_coef_planes_batched_fat_plain(offsets, coefp, bp,
+                                                       x0p, n_iterations)
+    if bp.device.type != "cuda":
+        raise ValueError(f"no stream_cg_coef_planes_batched_fat for device "
+                         f"{bp.device}")
+    cap = kernel_limits()[2]
+    runs = [_launch(offsets, coefp, bp[:, lo:lo + cap], x0p[:, lo:lo + cap],
+                    n_iterations)
+            for lo in range(0, bp.shape[1], cap)]
+    if len(runs) == 1:
+        return runs[0]
+    return (torch.cat([x for x, _ in runs], dim=1),
+            torch.cat([h for _, h in runs], dim=1))
+
+
+def stream_cg_coef(stencil, b, x0=None, n_iterations: int = 10):
+    """Convenience wrapper: a complex (Nv, Nh) numpy grid in, device planes
+    out, on the stencil's device (see :func:`stream_cg_coef_planes`)."""
+    nv, nh = stencil.grid
+    dev = stencil.device
+    coefp = prepare_stream_coef(stencil)
+
+    def planes(z):
+        z = np.asarray(z).reshape(nv, nh)
+        return torch.from_numpy(
+            np.stack([z.real, z.imag]).astype(np.float32)).to(dev)
+    bp = planes(b)
+    x0p = torch.zeros_like(bp) if x0 is None else planes(x0)
+    return stream_cg_coef_planes(stencil.offsets, coefp, bp, x0p,
+                                 n_iterations)
