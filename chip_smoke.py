@@ -56,14 +56,16 @@ Phases, in order; the first failure exits non-zero:
      grid, a non-square grid, an odd height (1031 x 1024) and a width that
      is not a multiple of 128 (x within 2e-3 max|x|, the live history within
      rel 1e-2, two launches bit-equal); a 2-RHS ``stream`` plan whose columns
-     equal their single-RHS launches bit for bit; 2 I over 400 iterations,
+     equal their single-RHS launches bit for bit (whether the plan batches
+     them or not); 2 I over 400 iterations,
      which must freeze at the iteration its plain version freezes and stay
      finite;
   9. the planner's ``stream`` path at full size: helm_fe(N, 12, eps=12) on
      the card through ``plan_stencil_cg(...).solve`` at N=1024 x 5000
      iterations, N=2048, 2896 and 4096 x 1000, and N=1024 with B=2 x 1000,
      each with the launch counts set to 0 just before and read just after
-     (the path must be ``stream`` and only ``stream_cg`` may move).  For
+     (the path must be ``stream`` and only ``stream_cg`` may move, as often
+     as the planner's rule for several RHS says).  For
      each: the host seconds of the assembly and of ``prepare_stream``, a
      100-iteration gate of the kernel against its plain version on the plane
      wave (the tolerances of phase 8), the float64 relative residual of the
@@ -153,7 +155,30 @@ Phases, in order; the first failure exits non-zero:
      general kernel called on the symmetric class at N=2048 x 500, where
      COCG converges, against the symmetric kernel (x within 2e-3 max|x|,
      both residuals printed);
- 19. a JSON line of the kernels (each with its launches on the main paths,
+ 19. the constant-tap kernel with several RHS a launch
+     (``stream_cg_const_planes_batched``, the NB = 1..8 instances of
+     ``csrc/stream_cg.cu``) against its plain version on the card: phase
+     8's geometries at NB = 1..8, 40 iterations, RHS r phase 8's (b, x0)
+     pair times 1 + 0.1j r (x within 2e-3 max|x|, the live history within
+     rel 1e-2), two launches bit-equal; each RHS of every launch against its own NB = 1
+     launch, bit for bit; the instances' registers, spills and blocks an
+     SM; row 6's cell (phase 9's N=4096 x 1000 time) against its time
+     before the RHS template;
+ 20. the planner's ``stream`` path with several RHS at full width:
+     helm_fe(N, 12, eps=12) with RHS the plane wave times (1 + 0.1j r), as
+     phase 18 builds its batch, at N=1024 x 1000 (B=1, 2, 4, 8), 1448 x 500
+     (B=4: one RHS's state past the L2), 2048 x 500 (B=1, 2, 4, 8), 2100 x
+     500 (B=1, 4: JAX's v3-const and batched grid),
+     2500 x 500 (B=4: JAX's v2 and batched grid) and 4096 x 500 (B=2), each
+     with the launch counts set to 0 just before and read just after (only
+     ``stream_cg`` may move, one launch per chunk of the planner's rule);
+     the float64 relative residual of every RHS (printed, not gated), a
+     100-iteration gate of every RHS against the plain version, and the
+     batched (chunks of 8) and sequential (one launch a RHS) solves timed
+     in turns: us/it and us per RHS-iteration, the own-bytes rate (~82 B a
+     node and RHS), GFLOPS by Table II, the bound and the 48 B-a-node-a-RHS
+     state floor;
+ 21. a JSON line of the kernels (each with its launches on the main paths,
      its largest error against its plain version, its time, its plain
      version's time, its bound and what sets it, and ``library_ms``: null
      for the CG kernels, as no single PyTorch call computes a
@@ -1018,6 +1043,15 @@ def stream_spec(sym):
         plain=tsc.stream_cg_const_planes_plain, floor_bytes=48)
 
 
+def stream_launches(nv, nh, nb):
+    """Launches of the ``stream`` path for nb RHS: one per chunk of the
+    planner's rule (``auto._stream_chunk``; None is the kernel's limit)."""
+    from tpcg_torch.ops import auto
+    from tpcg_torch.ops import stream_cg as tsc
+    chunk = auto._stream_chunk(nv, nh) or tsc.kernel_limits()[2]
+    return -(-nb // chunk)
+
+
 def phase_stream_main(dev, N, iters, nb=1, plain_full=False, spread=False,
                       sym=False):
     """A streaming path at full size; returns its numbers.  ``sym`` False:
@@ -1059,9 +1093,10 @@ def phase_stream_main(dev, N, iters, nb=1, plain_full=False, spread=False,
           f"launches {counts}; host s: assembly {t_asm:.3f}, "
           f"{spec['prep_name']} {t_prep:.3f}, plan + solve {wall:.3f} (plan "
           f"runs {spec['prep_name']} again; solve uploads b and downloads x)")
-    if plan.path != spec["path"] or set(counts) != {kname} or launches != nb:
-        fail(f"N={N}: the {spec['path']} path did not run its kernel once "
-             "per RHS")
+    want = nb if sym else stream_launches(N, N, nb)
+    if plan.path != spec["path"] or set(counts) != {kname} or launches != want:
+        fail(f"N={N}: the {spec['path']} path did not launch its kernel "
+             f"{want} times")
 
     X = np.asarray(x).reshape(nb, N, N)
     H = np.asarray(hist).reshape(iters + 1, nb)
@@ -2063,6 +2098,247 @@ def phase_coef_sym_cross(dev, N, iters):
     return err
 
 
+# ---- phases 19-20: several RHS in one launch of csrc/stream_cg.cu ----
+
+# row 6 of PERF.md's kernel table: stream_cg at helm_fe N=4096 x 1000, B=1,
+# before the kernel took several RHS (PR 3, NVIDIA H100 80GB HBM3, 700 W)
+ROW6_MS = 567.212
+
+
+def wave_batch(N, nb):
+    """helm_fe's plane wave times (1 + 0.1j r), r = 0..nb-1, as phase 18
+    builds its batch (exp_batchfat.py:57-58); (nb, N, N) complex."""
+    from tpcg_torch.problems import plane_wave_rhs
+    b = plane_wave_rhs(N, K_WAVE)
+    return np.stack([b * (1 + 0.1j * r) for r in range(nb)])
+
+
+def phase_stream_batched_compare(dev, row6_ms):
+    """The batched constant-tap kernel (``stream_cg_const_planes_batched``)
+    against its plain version on the card: phase 8's geometries at NB =
+    1..8, 40 iterations, seeded x0; each RHS of every launch against its own
+    NB = 1 launch (bit-equal); the instances' registers, spills and blocks
+    an SM; row 6's cell (phase 9's N=4096 time) against its PR 3 time.
+    Returns the max |x err|."""
+    from tpcg_torch.ops import _build
+    from tpcg_torch.ops import stream_cg as tsc
+    worst = 0.0
+    for nv, nh, seed in ((256, 256, 1), (300, 700, 2), (1031, 1024, 3),
+                         (600, 1000, 4)):
+        # phase 8's (b, x0) pair times s_r = 1 + 0.1j r: every RHS as well
+        # conditioned as phase 8's (independent 0.1 N(0, 1) draws of x0
+        # land some RHS near a float32 breakdown, where at 40 iterations
+        # two sum orders part past 2e-3 max|x|: PERF.md, PR 9)
+        S, taps, strips, b, x0 = stream_case(dev, nv, nh, seed)
+        s_r = torch.tensor([1 + 0.1j * r for r in range(8)], device=dev,
+                           dtype=torch.complex64)[:, None, None]
+        B = torch.complex(b[0], b[1])[None] * s_r
+        X0 = torch.complex(x0[0], x0[1])[None] * s_r
+        bp = torch.stack([B.real, B.imag]).contiguous()
+        x0p = torch.stack([X0.real, X0.imag]).contiguous()
+        lead = (S.offsets, S.grid, taps, strips)
+        ones = [tsc.stream_cg_const_planes(*lead, bp[:, c].contiguous(),
+                                           x0p[:, c].contiguous(), 40)
+                for c in range(8)]
+        plain = [tsc.stream_cg_const_planes_plain(
+            *lead, bp[:, c].contiguous(), x0p[:, c].contiguous(), 40)
+            for c in range(8)]
+        for nb in range(1, 9):
+            args = lead + (bp[:, :nb].contiguous(), x0p[:, :nb].contiguous(),
+                           40)
+            xk, hk = tsc.stream_cg_const_planes_batched(*args)
+            xk2, hk2 = tsc.stream_cg_const_planes_batched(*args)
+            torch.cuda.synchronize()
+            ok = torch.equal(xk, xk2) and torch.equal(hk, hk2)
+            same = True
+            err = lim = rel = 0.0
+            for c in range(nb):
+                ok_c, e, li, r = dia_close(xk[:, c], hk[:, c], *plain[c])
+                ok, err, lim, rel = (ok and ok_c, max(err, e), max(lim, li),
+                                     max(rel, r))
+                same = same and torch.equal(xk[:, c], ones[c][0]) and \
+                    torch.equal(hk[:, c], ones[c][1])
+            print(f"compare stream_cg batched {nv}x{nh} NB={nb} 40 it: max|x "
+                  f"err| {err:.3e} (limit {lim:.3e}), hist max rel {rel:.3e} "
+                  f"(limit 1e-2), repeat bit-equal, each RHS bit-equal to its "
+                  f"NB=1 launch {same}")
+            if not (ok and same):
+                fail(f"stream_cg NB={nb} disagrees with its plain version or "
+                     f"its NB=1 launches ({nv}x{nh})")
+            worst = max(worst, err)
+
+    # the instances' registers and spills, and the blocks of a launch
+    name = spill = ""
+    for line in _build.compiler_report().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and \
+                "stream_cg_kernel" in name:
+            print(f"  ptxas {name}: {spill}; "
+                  f"{line.split(':', 1)[1].strip()}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print("stream_cg blocks of 256 threads at 2048 x 2048, pad 1, by NB 1..8 "
+          "(per SM): " + ", ".join(
+              f"{g} ({g / sms:g})" for g in (
+                  tsc.grid_blocks(nb, 2048, 2048, 1) for nb in range(1, 9))))
+    print(f"row 6 (stream_cg, helm_fe N=4096 x 1000, B=1, NB=1 instance): "
+          f"{row6_ms:.3f} ms (phase 9) against {ROW6_MS} ms before the RHS "
+          f"template (PR 3): {100 * (row6_ms / ROW6_MS - 1):+.2f}%")
+    return worst
+
+
+def alternating_ms(fns, reps):
+    """Median device ms of each of fns (CUDA events), run in turns after one
+    warm-up each, so that both see the same card state; and their last
+    results."""
+    outs = [fn() for fn in fns]
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for k, fn in enumerate(fns):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs[k] = fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[k].append(start.elapsed_time(end))
+    return [statistics.median(t) for t in times], outs
+
+
+def phase_stream_batch_main(dev, A, prep, iters, nb, plain_full=False):
+    """The planner's ``stream`` path with nb RHS at full width: helm_fe(N,
+    12, eps=12) and the plane wave times (1 + 0.1j r) through
+    ``plan_stencil_cg(...).solve``, the launch counts set to 0 just before
+    and read just after (only ``stream_cg`` may move, as often as the
+    planner's rule says); the float64 relative residual of every RHS
+    (printed, not gated); a 100-iteration gate of every RHS against the
+    plain version; then the same RHS batched (chunks of 8) and sequential
+    (one launch a RHS), timed in turns.  Returns its numbers."""
+    import tpcg_torch
+    from tpcg_torch.ops import auto
+    from tpcg_torch.ops import stream_cg as tsc
+    nv, nh = A.grid
+    n = nv * nh
+    taps, strips = prep
+    nnz = int(torch.count_nonzero(A.coef))
+    label = f"stream N={nv} B={nb}"
+    B = wave_batch(nv, nb)
+    want = stream_launches(nv, nh, nb)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    plan = tpcg_torch.plan_stencil_cg(A, iters, nb=nb)
+    x, hist = plan.solve(B if nb > 1 else B[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = moved_counts()
+    launches = counts.get("stream_cg", 0)
+    rule = auto._stream_chunk(nv, nh)
+    print(f"{label}: n={n} nnz={nnz} path={plan.path} kernel launches "
+          f"{counts} (expected {want}: chunks of "
+          f"{rule or tsc.kernel_limits()[2]} RHS); host s: plan + solve "
+          f"{wall:.3f} (plan runs prepare_stream; solve uploads b and "
+          "downloads x)")
+    if plan.path != "stream" or set(counts) != {"stream_cg"} or \
+            launches != want:
+        fail(f"{label}: the stream path did not launch stream_cg {want} "
+             "times")
+    X = np.asarray(x).reshape(nb, nv, nh)
+    H = np.asarray(hist).reshape(iters + 1, nb)
+    for c in range(nb):
+        xt = torch.from_numpy(X[c].astype(np.complex128)).to(dev)
+        bt = torch.from_numpy(B[c]).to(dev)
+        res = float(torch.linalg.norm(bt - A.apply_grid(xt))
+                    / torch.linalg.norm(bt))
+        finite = bool(np.isfinite(X[c]).all() and np.isfinite(H[:, c]).all())
+        print(f"{label} rhs {c} {iters} it: finite {finite}, hist[0] "
+              f"{H[0, c]:.4e}, hist[-1] {H[-1, c]:.4e}, relative residual "
+              f"(f64) {res:.3e} (printed, not gated)")
+        if not finite:
+            fail(f"non-finite {label} solve")
+
+    # the 100-iteration gate of every RHS against the plain version
+    bp = planes(B, dev)
+    x0p = torch.zeros_like(bp)
+    args = (A.offsets, A.grid, taps, strips, bp, x0p)
+    xk, hk = tsc.stream_cg_const_planes_batched(*args, 100, chunk=rule)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    xp, hp = tsc.stream_cg_const_planes_batched_plain(*args, 100)
+    end.record()
+    torch.cuda.synchronize()
+    ok, err, lim, rel = True, 0.0, 0.0, 0.0
+    for c in range(nb):
+        ok_c, e, li, r = dia_close(xk[:, c], hk[:, c], xp[:, c], hp[:, c])
+        ok, err, lim, rel = ok and ok_c, max(err, e), max(lim, li), max(rel, r)
+    print(f"{label}: gate 100 it vs plain, every RHS: max|x err| {err:.3e} "
+          f"(limit {lim:.3e}), hist max rel {rel:.3e} (limit 1e-2); plain "
+          f"{start.elapsed_time(end):.3f} ms")
+    if not ok:
+        fail(f"stream_cg disagrees with its plain version ({label})")
+
+    # batched (chunks of 8) and sequential (one launch a RHS), in turns
+    (ms_b, ms_s), _ = alternating_ms(
+        [lambda: tsc.stream_cg_const_planes_batched(*args, iters),
+         lambda: tsc.stream_cg_const_planes_batched(*args, iters, chunk=1)],
+        reps=5)
+    ms = ms_s if rule == 1 else ms_b
+    flop = 8 * nnz + 16 * n + 24 * n
+    bound_ms, bound_by = bound(
+        4 * (strips.numel() + nb * (3 * 2 * n + iters + 1)),
+        nb * iters * flop)
+    floor_ms = nb * iters * 48 * n / HBM_BYTES_PER_S * 1e3
+    plain_ms = None
+    if plain_full:
+        start.record()
+        tsc.stream_cg_const_planes_batched_plain(*args, iters)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+
+    def rates(t):
+        return (f"{t * 1e3 / iters:.3f} us/it, {t * 1e3 / (nb * iters):.3f} "
+                f"us per RHS-iteration, own ~82 B a node and RHS at "
+                f"{nb * iters * 82 * n / (t * 1e-3) / 1e12:.2f} TB/s, "
+                f"{nb * iters * flop / (t * 1e-3) / 1e9:.2f} GFLOPS Table II")
+    print(f"time {label} {iters} it: batched {ms_b:.3f} ms ({rates(ms_b)}); "
+          f"sequential {ms_s:.3f} ms ({rates(ms_s)}); batched / sequential "
+          f"{ms_b / ms_s:.4f}; the plan takes "
+          f"{'sequential' if rule == 1 else 'batched'}; bound "
+          f"{bound_ms:.3f} ms ({bound_by}); state floor (48 B a node and "
+          f"RHS) {floor_ms:.3f} ms"
+          + (f"; plain {plain_ms:.3f} ms (one run, {iters} it)"
+             if plain_ms is not None else ""))
+    return dict(ms=ms, ms_batched=ms_b, ms_seq=ms_s, plain_ms=plain_ms,
+                launches=launches, err=err, bound_ms=bound_ms,
+                bound_by=bound_by, nb=nb)
+
+
+def phase_stream_batch(dev):
+    """Phase 20: the cells of the ``stream`` path with several RHS."""
+    from tpcg_torch.ops.stream_cg import prepare_stream
+    from tpcg_torch.problems import helm_fe
+    runs = []
+    for N, iters, nbs in ((1024, 1000, (1, 2, 4, 8)), (1448, 500, (4,)),
+                          (2048, 500, (1, 2, 4, 8)), (2100, 500, (1, 4)),
+                          (2500, 500, (4,)), (4096, 500, (2,))):
+        t0 = time.perf_counter()
+        A = helm_fe(N, K_WAVE, eps=K_WAVE, device=dev)
+        prep = prepare_stream(A)
+        torch.cuda.synchronize()
+        print(f"stream N={N}: helm_fe assembled and prepare_stream in "
+              f"{time.perf_counter() - t0:.3f} s (host)")
+        runs += [phase_stream_batch_main(dev, A, prep, iters, nb,
+                                         plain_full=(N, nb) == (2048, 8))
+                 for nb in nbs]
+        del A, prep
+    return runs
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -2130,6 +2406,13 @@ def main():
         del A
     coef_err = max([coef_err, phase_coef_sym_cross(dev, 2048, 500)]
                    + [r["err"] for r in coef])
+    batch_err = phase_stream_batched_compare(dev, stream[3]["ms"])
+    sb = phase_stream_batch(dev)
+    # launches of the one-RHS instance (one RHS, or the plan's sequential
+    # rule) and of the NB >= 2 instances on the main paths
+    one = [r for r in sb if r["nb"] == r["launches"]]
+    multi = [r for r in sb if r["nb"] != r["launches"]]
+    head_b = next(r for r in sb if r["plain_ms"] is not None)
     kernels = [{
         "name": "fused_cg_stencil", "route": "cuda",
         "source": "tpcg_torch/csrc/fused_cg.cu",
@@ -2160,10 +2443,20 @@ def main():
         "source": "tpcg_torch/csrc/stream_cg.cu",
         "replaces": "tpcg/ops/stream_cg.py:166; tpcg/ops/stream_cg.py:387; "
                     "tpcg/ops/stream_cg_v4.py:73; tpcg/ops/stream_cg_v5.py:77",
-        "launches": sum(r["launches"] for r in stream),
-        "max_abs_err": max([stream_err] + [r["err"] for r in stream]),
+        "launches": sum(r["launches"] for r in stream + one),
+        "max_abs_err": max([stream_err] + [r["err"] for r in stream + one]),
         "ms": stream[3]["ms"], "plain_ms": stream[3]["plain_ms"],
         "bound_ms": stream[3]["bound_ms"], "bound_by": stream[3]["bound_by"],
+        "library_ms": None})
+    # the NB >= 2 instances' cell: N=2048 x 500, B=8, one launch
+    kernels.append({
+        "name": "stream_cg_batched", "route": "cuda",
+        "source": "tpcg_torch/csrc/stream_cg.cu",
+        "replaces": "tpcg/ops/stream_cg.py:741; tpcg/ops/stream_cg.py:941",
+        "launches": sum(r["launches"] for r in multi),
+        "max_abs_err": max([batch_err] + [r["err"] for r in sb]),
+        "ms": head_b["ms_batched"], "plain_ms": head_b["plain_ms"],
+        "bound_ms": head_b["bound_ms"], "bound_by": head_b["bound_by"],
         "library_ms": None})
     # the sym kernel's headline cell: N=4096, 1000 iterations
     kernels.append({

@@ -482,9 +482,18 @@ def test_stream_kernel_applies_the_operator(dev):
     assert torch.allclose(h[0], h0, rtol=1e-5)
 
 
+def _stream_plan_launches(S, nb):
+    """Launches of a ``stream`` plan for nb RHS: one per chunk of the
+    planner's rule (``auto._stream_chunk``; None is the kernel's limit)."""
+    from tpcg_torch.ops import auto
+    chunk = auto._stream_chunk(*S.grid) or tsc.kernel_limits()[2]
+    return -(-nb // chunk)
+
+
 def test_stream_plan_batch_columns_equal_single_launches(dev):
-    """B=3 through the plan: three launches, each column bit-equal to its
-    single-RHS launch, and the counter moves through plan.solve too."""
+    """B=3 through the plan: one launch per chunk of the planner's rule,
+    each column bit-equal to its single-RHS launch, and the counter moves
+    through plan.solve too."""
     S, taps, strips, bp, _ = _stream_case(dev, 520, 520)
     rng = np.random.default_rng(6)
     cols = [bp] + [bp + 0.1 * torch.from_numpy(
@@ -495,7 +504,8 @@ def test_stream_plan_batch_columns_equal_single_launches(dev):
     assert plan.path == "stream"
     before = tsc.stream_cg_const_planes.launches
     xb, hb = plan.solve_planes(B)
-    assert tsc.stream_cg_const_planes.launches == before + 3
+    assert tsc.stream_cg_const_planes.launches == \
+        before + _stream_plan_launches(S, 3)
     for c in range(3):
         x1, h1 = plan.solve_planes(cols[c])
         assert torch.equal(xb[:, c], x1) and torch.equal(hb[:, c], h1)
@@ -528,6 +538,143 @@ def test_stream_kernel_freezes(dev):
     assert torch.isfinite(xk).all() and torch.isfinite(hk).all()
     assert hk[0] == hp[0] and torch.all(hk[1:] == 0) and torch.all(hp[1:] == 0)
     assert torch.equal(xk, xp) and torch.all(xk[0] == 0.5)
+
+
+# ---- several RHS in one launch of csrc/stream_cg.cu (NB = 1..8) ----
+
+def _stream_batch(dev, nv, nh, nb, seed):
+    """nb RHS as (2, nb, nv, nh) planes: the (b, x0) pair of
+    :func:`_stream_case` (seeded x0) times 1 + 0.1j r, r = 0..nb-1, so that
+    every RHS is as well conditioned as the single-RHS checks' pair
+    (independent random x0 draws put some RHS near a float32 breakdown,
+    where two sum orders part past these tolerances: PERF.md, PR 9)."""
+    S, taps, strips, bp, x0p = _stream_case(dev, nv, nh, x0_seed=seed)
+    s_r = torch.tensor([1.0 + 0.1j * r for r in range(nb)],
+                       dtype=torch.complex64, device=dev)[:, None, None]
+
+    def scaled(p):
+        z = torch.complex(p[0], p[1])[None] * s_r
+        return torch.stack([z.real, z.imag]).contiguous()
+    return S, taps, strips, scaled(bp), scaled(x0p)
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("nv,nh,seed", [(256, 256, 1), (300, 700, 2),
+                                        (1031, 1024, 3), (600, 1000, 4)])
+def test_stream_batched_kernel_matches_plain(dev, nv, nh, seed, nb):
+    """One launch of NB RHS against the plain version, 40 iterations,
+    seeded x0: square, non-square, odd height and a width that is not a
+    multiple of 128; two launches bit-equal."""
+    S, taps, strips, bp, x0p = _stream_batch(dev, nv, nh, nb, seed)
+    args = (S.offsets, S.grid, taps, strips, bp, x0p, 40)
+    before = tsc.stream_cg_const_planes.launches
+    xk, hk = _run_twice(tsc.stream_cg_const_planes_batched, *args)
+    assert tsc.stream_cg_const_planes.launches == before + 2
+    xp, hp = tsc.stream_cg_const_planes_batched_plain(*args)
+    for c in range(nb):
+        _assert_dia_close(xk[:, c], hk[:, c], xp[:, c], hp[:, c])
+
+
+@pytest.mark.parametrize("nb", [2, 4, 8])
+def test_stream_batched_rhs_equal_their_single_launches(dev, nb):
+    """Each RHS of an NB launch gives the bits of its own NB = 1 launch: the
+    grid and each RHS's partial sums do not depend on NB."""
+    S, taps, strips, bp, x0p = _stream_batch(dev, 1031, 1024, nb, 3)
+    xb, hb = tsc.stream_cg_const_planes_batched(S.offsets, S.grid, taps,
+                                                strips, bp, x0p, 40)
+    for c in range(nb):
+        x1, h1 = tsc.stream_cg_const_planes(S.offsets, S.grid, taps, strips,
+                                            bp[:, c].contiguous(),
+                                            x0p[:, c].contiguous(), 40)
+        assert torch.equal(xb[:, c], x1) and torch.equal(hb[:, c], h1)
+    assert len({tsc.grid_blocks(k, 1031, 1024, 1) for k in range(1, 9)}) == 1
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("nb", [1, 3, 10])
+def test_stream_plan_launches_by_batch(dev, monkeypatch, nb, batched):
+    """A ``stream`` plan at B = 1, 3 and 10, with the planner's rule as it
+    is (one launch a RHS at 520 x 520) and with its boundary lowered so
+    that the RHS share launches: the launches the rule names (B = 10 in two
+    chunks of at most 8), every column its single-RHS launch's bits."""
+    from tpcg_torch.ops import auto
+    if batched:
+        monkeypatch.setattr(auto, "_STREAM_BATCH_MIN_NODES", 1)
+    S, taps, strips, bp, x0p = _stream_batch(dev, 520, 520, nb, 5)
+    assert _stream_plan_launches(S, nb) == (-(-nb // 8) if batched else nb)
+    plan = tpcg_torch.plan_stencil_cg(S, 20, nb=nb)
+    assert plan.path == "stream"
+    before = tsc.stream_cg_const_planes.launches
+    xb, hb = plan.solve_planes(bp, x0p)
+    assert tsc.stream_cg_const_planes.launches == \
+        before + _stream_plan_launches(S, nb)
+    for c in (0, nb - 1):
+        x1, h1 = tsc.stream_cg_const_planes(S.offsets, S.grid, taps, strips,
+                                            bp[:, c].contiguous(),
+                                            x0p[:, c].contiguous(), 20)
+        assert torch.equal(xb[:, c], x1) and torch.equal(hb[:, c], h1)
+
+
+def test_stream_batched_limits(dev):
+    """Past the kernel's limits a launch raises ValueError: a chunk of 9
+    RHS, 17 taps, a tap 9 nodes out."""
+    S, taps, strips, bp, x0p = _stream_batch(dev, 64, 64, 9, 1)
+    max_taps, max_pad, max_rhs = tsc.kernel_limits()
+    assert (max_taps, max_pad, max_rhs) == (16, 8, 8)
+    with pytest.raises(ValueError, match="RHS a launch"):
+        tsc.stream_cg_const_planes_batched(S.offsets, S.grid, taps, strips,
+                                           bp, x0p, 3, chunk=9)
+    x, h = tsc.stream_cg_const_planes_batched(S.offsets, S.grid, taps,
+                                              strips, bp, x0p, 3)
+    assert x.shape == bp.shape and h.shape == (4, 9)
+    offs = [(0, j) for j in range(-8, 9)]          # 17 taps
+    many = tuple(t + (0.0,) * (17 - len(t)) for t in taps)
+    with pytest.raises(ValueError, match="taps"):
+        tsc.stream_cg_const_planes_batched(
+            offs, S.grid, many, torch.zeros((2, 2, 17, 64), device=dev), bp,
+            x0p, 3)
+    far = list(S.offsets[:-1]) + [(0, 9)]
+    with pytest.raises(ValueError, match="taps"):
+        tsc.stream_cg_const_planes_batched(far, S.grid, taps, strips, bp,
+                                           x0p, 3)
+
+
+def test_stream_batched_kernel_freezes(dev):
+    """2 I at NB = 3 over 400 iterations: every RHS reads 0 from iteration
+    1, stays finite and equals its plain version."""
+    from tpcg_torch.sparse import Stencil2D
+    N = 64
+    A = helm_fe(N, 5.0, eps=5.0, device=dev)
+    coef = torch.zeros_like(A.coef)
+    coef[0] = 2.0
+    S = Stencil2D(A.offsets, coef, A.grid)
+    taps, strips = tsc.prepare_stream(S)
+    bp = torch.zeros((2, 3, N, N), device=dev)
+    bp[0] = torch.arange(1, 4, device=dev, dtype=torch.float32)[:, None, None]
+    args = (S.offsets, S.grid, taps, strips, bp, torch.zeros_like(bp), 400)
+    xk, hk = tsc.stream_cg_const_planes_batched(*args)
+    xp, hp = tsc.stream_cg_const_planes_batched_plain(*args)
+    assert torch.isfinite(xk).all() and torch.isfinite(hk).all()
+    assert torch.all(hk[1:] == 0) and torch.all(hp[1:] == 0)
+    assert torch.equal(xk, xp) and torch.equal(xk[0], bp[0] / 2)
+
+
+def test_stream_dia_latch_resumes_as_jax(dev):
+    """Kernel A on the exact latch system of tests/test_torch_dia_cg.py
+    (JAX's 256-iteration latch): frozen at iteration 2, restarted at 256,
+    r = 0 exactly at 260; x = (0, 1, -2, 4) and the history of the plain
+    version, real and complex."""
+    import scipy.sparse as sp
+    A = sp.diags([[1.0, -1.0, 1.0], [-1.0, -1.0, 1.0, 1.0],
+                  [1.0, -1.0, 1.0]], [-1, 0, 1], format="csr")
+    for dtype, solve in ((np.float32, tsd.stream_cg_dia),
+                         (np.complex64, tsd.stream_cg_dia_cplx)):
+        b = np.array([1.0, 1.0, 1.0, 2.0], dtype)
+        xk, hk = solve(_dia(A, dtype, dev), b, n_iterations=600)
+        xp, hp = solve(_dia(A, dtype, "cpu"), b, n_iterations=600)
+        assert torch.equal(xk.cpu(), xp) and torch.equal(hk.cpu(), hp)
+        np.testing.assert_array_equal(xp.numpy(), [0.0, 1.0, -2.0, 4.0])
+        assert hp[257] != hp[0] and torch.all(hp[260:] == 0)
 
 
 # ---- streaming symmetric variable-coefficient kernel (csrc/stream_cg_sym.cu)

@@ -273,3 +273,58 @@ def test_zero_rhs_column_freezes_at_zero():
         X, H = solve(Tc, Bc, n_iterations=30)
         assert (X[:, 1] == 0).all() and (H[:, 1] == 0).all()
         assert torch.isfinite(X).all() and H[0, 0] > 0
+
+
+def latch_system():
+    """A real indefinite tridiagonal system on which float32 CG is exact:
+    diagonal (-1, -1, 1, 1), off-diagonals (1, -1, 1), b = (1, 1, 1, 2),
+    x0 = 0 (found by a search over small integer bands).  Every value of
+    the recurrence is a short dyadic fraction, so any order of the sums
+    gives the same bits.  At iteration 2 <d, A d> is exactly 0 while
+    delta is not, and d is not r; for d = r, <r, A r> is not 0."""
+    A = sp.diags([[1.0, -1.0, 1.0], [-1.0, -1.0, 1.0, 1.0], [1.0, -1.0, 1.0]],
+                 [-1, 0, 1], format="csr")
+    return A, np.array([1.0, 1.0, 1.0, 2.0])
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+def test_freeze_latch_resumes_every_256_iterations_as_jax(cplx):
+    """Kernel A's freeze latch against JAX's, over 600 iterations: both
+    freeze at iteration 2 (<d, q> == 0, delta not 0), hold until the
+    iteration-256 call boundary, restart from d = r there, and reach r = 0
+    exactly at iteration 260 (x = (0, 1, -2, 4)), where they freeze for
+    good.  Exact arithmetic on both sides: x and the history are equal."""
+    A, b = latch_system()
+    dtype = np.complex64 if cplx else np.float32
+    Aj, At = both(A, dtype)
+    bb = b.astype(dtype)
+    if cplx:
+        xj, hj = jsd.stream_cg_dia_cplx(Aj, bb, n_iterations=600,
+                                        interpret=True)
+        xt, ht = tsd.stream_cg_dia_cplx(At, bb, n_iterations=600)
+    else:
+        xj, hj = jsd.stream_cg_dia(Aj, bb, n_iterations=600, interpret=True)
+        xt, ht = tsd.stream_cg_dia(At, bb, n_iterations=600)
+    xj, hj, xt, ht = (np.asarray(v) for v in (xj, hj, xt, ht))
+    np.testing.assert_array_equal(xt, np.array([0.0, 1.0, -2.0, 4.0]))
+    np.testing.assert_array_equal(xt, xj)
+    np.testing.assert_array_equal(ht, hj)
+    assert np.all(ht[:257] == ht[0]) and ht[257] != ht[0]
+    assert np.all(ht[260:] == 0) and ht[259] > 0
+
+
+def test_freeze_latch_in_a_batch_as_jax():
+    """The latch system as two columns, b and 2 b, through the batched
+    entry points (JAX's fat batch kernel, the port's batched plain
+    version), 600 iterations: each column freezes at iteration 2 and
+    resumes at 256 on its own flag, as in JAX; exact, so equal."""
+    A, b = latch_system()
+    Aj, At = both(A, np.float32)
+    B = np.stack([b, 2.0 * b], axis=1).astype(np.float32)
+    xj, hj = jsd.stream_cg_dia_block(Aj, B, n_iterations=600, interpret=True)
+    xt, ht = tsd.stream_cg_dia_block(At, B, n_iterations=600)
+    xj, hj, xt, ht = (np.asarray(v) for v in (xj, hj, xt, ht))
+    np.testing.assert_array_equal(xt, xj)
+    np.testing.assert_array_equal(ht, hj)
+    np.testing.assert_array_equal(xt[:, 1], 2.0 * xt[:, 0])
+    np.testing.assert_array_equal(xt[:, 0], [0.0, 1.0, -2.0, 4.0])

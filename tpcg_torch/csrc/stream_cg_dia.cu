@@ -15,7 +15,10 @@
 //   alpha = delta / <d,q>, beta = delta' / delta (complex: Smith division)
 //   done |= (delta == 0) | (<d,q> == 0)            real freeze guard
 //   done |= (|delta|^2 == 0) | (|<d,q>|^2 == 0)    complex freeze guard
-//   latched per RHS; a frozen RHS keeps alpha = beta = 0 and its delta;
+//   latched per RHS until the next multiple of kLatchIters = 256 iterations
+//   (JAX's latch lasts one call of _CHUNK = 256 iterations); a frozen RHS
+//   keeps alpha = beta = 0 and its delta, so its direction is r and it
+//   resumes from d = r where <d,q> reached 0 with delta not 0;
 //   hist[it+1] = sqrt(delta) (real), sqrt(sqrt(|delta|^2)) (complex)
 // with unconjugated dots <u,v> = sum u*v.
 //
@@ -68,6 +71,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBlocksPerSm = 2;
 constexpr int kMaxRhs = 8;
 constexpr int kMaxDiags = 4096;
+constexpr int kLatchIters = 256;  // tpcg/ops/stream_cg_dia.py::_CHUNK
 
 struct Params {
   const float* vals;  // (P, ndiag, n)                      read-only
@@ -310,8 +314,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
       const float2 dq = grid_total(p.part_dq, nblocks, NB, warp);
       if (lane == 0) {
         const float2 dl = s_delta[warp];
-        const int done =
-            s_done[warp] || is_zero<CPLX>(dl) || is_zero<CPLX>(dq);
+        const int done = (s_done[warp] && it % kLatchIters != 0) ||
+                         is_zero<CPLX>(dl) || is_zero<CPLX>(dq);
         s_done[warp] = done;
         s_alpha[warp] =
             done ? make_float2(0.f, 0.f) : div_scalar<CPLX>(dl, dq);

@@ -7,7 +7,9 @@ from .fused_cg import (fused_cg, fused_cg_stencil,               # noqa: F401
                        prepare_coef3)
 from .auto import plan_stencil_cg, stencil_cg, StencilCGPlan     # noqa: F401
 from .stream_cg import (stream_cg_const, stream_cg_const_planes,  # noqa: F401
-                        stream_cg_const_planes_plain, prepare_stream,
+                        stream_cg_const_planes_plain,
+                        stream_cg_const_planes_batched,
+                        stream_cg_const_planes_batched_plain, prepare_stream,
                         apply_const_planes)
 from .fused_cg_const import (fused_cg_const_planes,              # noqa: F401
                              fused_cg_const_planes_plain, prepare_const)
@@ -22,6 +24,8 @@ from .stream_cg_sym import (stream_cg_sym_planes,                # noqa: F401
 # stream_cg_coef() is not re-exported here: it would hide its module
 from .stream_cg_coef import (stream_cg_coef_planes,              # noqa: F401
                              stream_cg_coef_planes_plain,
+                             stream_cg_coef_planes_batched,
+                             stream_cg_coef_planes_batched_plain,
                              stream_cg_coef_planes_batched_fat,
                              stream_cg_coef_planes_batched_fat_plain,
                              prepare_stream_coef, apply_coef_planes)

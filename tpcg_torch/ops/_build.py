@@ -32,14 +32,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _IP = ctypes.POINTER(_I)
 _FP = ctypes.POINTER(ctypes.c_float)
 # C entry points of csrc/*.cu: name -> argument types (all return an int
 # cudaError_t, except tpcg_error_string)
 _SIGNATURES = {
-    "tpcg_stream_cg_limits": (_IP, _IP),
-    "tpcg_stream_cg_grid": (_I, _I, _I, _IP),
-    "tpcg_stream_cg": (_P,) * 9 + (_I,) * 3 + (_IP, _FP, _I, _I, _I, _P),
+    "tpcg_stream_cg_limits": (_IP, _IP, _IP),
+    "tpcg_stream_cg_grid": (_I, _I, _I, _I, _IP),
+    "tpcg_stream_cg": (_P,) * 9 + (_I, _LL, _I, _I, _I, _IP, _FP, _I, _I,
+                                   _I, _P),
     "tpcg_stream_sym_limits": (_IP, _IP),
     "tpcg_stream_sym_grid": (_I, _I, _I, _IP),
     "tpcg_stream_sym": (_P,) * 9 + (_I,) * 3 + (_IP, _I, _I, _I, _P),

@@ -17,9 +17,10 @@ Six paths are ported; each maps to a planner path of the JAX package:
                 scalars and four boundary strips, no coefficient planes.
   stream      : JAX's ``stream``.  Complex stencils past 512^2 nodes whose
                 interior and edge taps are constant (``prepare_stream``
-                succeeds): one launch of the hand-written CUDA kernel
-                ``tpcg_torch.ops.stream_cg.stream_cg_const_planes`` per RHS,
-                the state in device memory.
+                succeeds): the hand-written CUDA kernel of
+                ``tpcg_torch.ops.stream_cg.stream_cg_const_planes_batched``,
+                the state in device memory, one launch per chunk of up to
+                eight RHS or one per RHS (see below).
   stream-coef : JAX's ``stream-coef``.  Complex stencils past 512^2 nodes
                 with variable coefficients.  Where ``prepare_stream_sym``
                 accepts the stencil (symmetric), one launch of the
@@ -48,9 +49,15 @@ Six paths are ported; each maps to a planner path of the JAX package:
                 as on ``stream-real``, so the surface does not change at
                 1024^2.
 
-On the streaming paths other than general ``stream-coef`` several RHS run
-as sequential single-RHS launches queued on one stream, as JAX's
-``lax.map`` runs them; any batch size.
+Several RHS on ``stream`` share a launch (chunks of up to eight) on grids
+of 1448^2 to below 4096^2 nodes, where that was faster per RHS-iteration
+on the H100, and run one launch a RHS elsewhere (``_stream_chunk``; the
+numbers are beside ``_STREAM_BATCH_MIN_NODES`` and in PERF.md, PR 9); each
+RHS gives the same bits either way.  JAX takes its batched kernels only
+where no resident tier fits, and chunks of 16.  On the other streaming
+paths but general ``stream-coef`` several RHS run as sequential
+single-RHS launches queued on one stream, as JAX's ``lax.map`` runs them;
+any batch size.
 
 Heights JAX cannot stream (no row block of at least 8 rows that leaves two
 blocks, e.g. primes): JAX row-pads them to a multiple of 128
@@ -77,7 +84,7 @@ from ..cg import block_cg
 from .cplx import block_cg_planes_chunked, make_pair_operator
 from .fused_cg import fused_cg_stencil_chunked, prepare_coef3
 from .fused_cg_const import fused_cg_const_chunked, prepare_const
-from .stream_cg import prepare_stream, stream_cg_const_planes
+from .stream_cg import prepare_stream, stream_cg_const_planes_batched
 from .stream_cg_coef import (prepare_stream_coef,
                              stream_cg_coef_planes_batched_fat)
 from .stream_cg_real import prepare_real, solve_real_planes
@@ -89,6 +96,32 @@ _L2_NODES = 512 * 512
 _REAL_STREAM_NODES = 1024 * 1024
 # JAX's _FUSED_BATCH_MAX: larger complex batches take the plain path
 _FUSED_BATCH_MAX = 2
+
+
+# stream: on grids of at least _STREAM_BATCH_MIN_NODES and fewer than
+# _STREAM_BATCH_MAX_NODES nodes several RHS share a launch of
+# csrc/stream_cg.cu (chunks of up to 8); elsewhere each RHS has its own
+# launch.  Per RHS-iteration, batched / sequential on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md, PR 9; chip_smoke.py phase 20 and
+# probes/stream_batch_boundary.py): 1.05-1.16 at N=1024 and 1.02 at N=1200
+# B=2 (one RHS's state nearly fits the 50 MB L2 and stays there between
+# one-RHS launches; several RHS in a launch evict each other), 0.91-0.96
+# at N=1448, 0.96-0.98 at 2048, 0.97 at 2100, 0.98 at 2500, 0.99 at 2896,
+# 0.998 at 3072, and 1.007-1.017 at 4096 (B=2, 4), against 0.9998-1.003
+# between two identical launches.
+_STREAM_BATCH_MIN_NODES = 1448 * 1448
+_STREAM_BATCH_MAX_NODES = 4096 * 4096
+
+
+def _stream_chunk(nv: int, nh: int):
+    """RHS a launch on the ``stream`` path for an (nv, nh) grid: ``None``
+    (the kernel's limit, 8) where several RHS sharing a launch of
+    ``csrc/stream_cg.cu`` were faster per RHS-iteration than one launch per
+    RHS (``_STREAM_BATCH_MIN_NODES`` <= nodes < ``_STREAM_BATCH_MAX_NODES``),
+    else 1.  Each RHS gives the same bits either way."""
+    batched = _STREAM_BATCH_MIN_NODES <= nv * nh < _STREAM_BATCH_MAX_NODES
+    return None if batched else 1
+
 
 _PORTED = ("l2-coef", "l2-const", "stream", "stream-coef", "stream-real",
            "eager")
@@ -296,20 +329,21 @@ def _build_solver(stencil, n_iterations, path, prepared=None):
         def solve_planes(bp, x0p):
             return stream_cg_coef_planes_batched_fat(
                 stencil.offsets, prepared, bp, x0p, n_iterations)
-    elif path in ("stream", "stream-coef"):
-        if path == "stream":
-            taps, strips = prepared
+    elif path == "stream":
+        taps, strips = prepared
+        chunk = _stream_chunk(nv, nh)
 
-            def solve_one(b, x0):
-                return stream_cg_const_planes(stencil.offsets, stencil.grid,
-                                              taps, strips, b, x0,
-                                              n_iterations)
-        else:
-            half_offsets, cplanes = prepared
+        def solve_planes(bp, x0p):
+            # one launch per chunk of RHS, queued on the current stream
+            return stream_cg_const_planes_batched(
+                stencil.offsets, stencil.grid, taps, strips, bp, x0p,
+                n_iterations, chunk=chunk)
+    elif path == "stream-coef":
+        half_offsets, cplanes = prepared
 
-            def solve_one(b, x0):
-                return stream_cg_sym_planes(half_offsets, cplanes, b, x0,
-                                            n_iterations)
+        def solve_one(b, x0):
+            return stream_cg_sym_planes(half_offsets, cplanes, b, x0,
+                                        n_iterations)
 
         def solve_planes(bp, x0p):
             # one launch per RHS, queued back to back on the current

@@ -2,12 +2,17 @@
 
 ``stream_cg_const_planes`` runs ``n_iterations`` of single-RHS complex COCG
 on a stencil whose interior taps are constant, with the CG state (x, r, the
-direction d and q = A d) in device memory.  On a CUDA tensor it launches the
-hand-written kernel ``tpcg_torch/csrc/stream_cg.cu`` (one persistent
-cooperative launch per solve; see the note at the top of that file) and
-raises if the kernel cannot run.  On a CPU tensor it runs
-:func:`stream_cg_const_planes_plain`, the same function in plain PyTorch,
-which is also what the kernel is compared with on the card.
+direction d and q = A d) in device memory; ``stream_cg_const_planes_batched``
+runs the same for B right-hand sides, each with its own alpha, beta and
+freeze guard.  On CUDA tensors both launch the hand-written kernel
+``tpcg_torch/csrc/stream_cg.cu`` (one persistent cooperative launch per
+solve, or per chunk of at most ``kernel_limits()[2]`` RHS; see the note at
+the top of that file) and raise if the kernel cannot run;
+``stream_cg_const_planes.launches`` counts the launches of both.  Each RHS
+of a chunk gives the bits of its own single-RHS launch.  On CPU tensors
+they run :func:`stream_cg_const_planes_plain` (per RHS), the same function
+in plain PyTorch, which is also what the kernel is compared with on the
+card.
 
 The operator (``prepare_stream``) is the JAX package's: constant interior
 taps, constant left/right edge taps applied to columns 0 and Nh-1 of every
@@ -16,9 +21,12 @@ application on rows 0 and Nv-1 is cancelled where it does not belong.  A
 neighbour outside the grid reads 0.
 
 One Hopper kernel takes the place of the JAX package's tiers for this
-function (v2 ``_build_kernels`` + ``_make_k2``, v4 ``_build_resident``, v5
-``_build_v5``): their VMEM budgets, row-block sizes, 128-lane column
-padding (``cpos``, ``pad_strips``) and q-residency modes exist for the TPU.
+function (v2 ``_build_kernels`` + ``_make_k2``, the batched
+``_build_k1_const_batched`` + ``_make_k2_batched``, v3 const
+``_build_merged``, v4 ``_build_resident``, v5 ``_build_v5``): their VMEM
+budgets, row-block sizes, 128-lane column padding (``cpos``,
+``pad_strips``), q-residency modes and the batched tier's chunk of 16 exist
+for the TPU.
 """
 from __future__ import annotations
 
@@ -80,7 +88,8 @@ def _taps32(taps):
     return [[float(np.float32(v)) for v in t] for t in taps]
 
 
-def _check_args(offsets, grid, taps, strips, b, x0, n_iterations):
+def _check_args(offsets, grid, taps, strips, b, x0, n_iterations,
+                batched=False):
     nv, nh = grid
     noff = len(offsets)
     if len(taps) != 6 or any(len(t) != noff for t in taps):
@@ -88,7 +97,12 @@ def _check_args(offsets, grid, taps, strips, b, x0, n_iterations):
     if tuple(strips.shape) != (2, 2, noff, nh):
         raise ValueError(f"strips must be (2, 2, {noff}, {nh}), got "
                          f"{tuple(strips.shape)}")
-    if tuple(b.shape) != (2, nv, nh):
+    if batched:
+        if (b.dim() != 4 or b.shape[0] != 2 or b.shape[1] < 1
+                or tuple(b.shape[2:]) != (nv, nh)):
+            raise ValueError(f"b must be (2, B, {nv}, {nh}) with B >= 1, got "
+                             f"{tuple(b.shape)}")
+    elif tuple(b.shape) != (2, nv, nh):
         raise ValueError(f"b must be (2, {nv}, {nh}), got {tuple(b.shape)}")
     if x0.shape != b.shape:
         raise ValueError(f"x0 {tuple(x0.shape)} != b {tuple(b.shape)}")
@@ -211,50 +225,92 @@ def stream_cg_const_planes_plain(offsets: Sequence[Tuple[int, int]], grid,
         n_iterations)
 
 
-def kernel_limits() -> Tuple[int, int]:
-    """(max taps, max stencil pad) of the CUDA kernel."""
-    taps, pad = ctypes.c_int(), ctypes.c_int()
-    _build.check(_build.load().tpcg_stream_cg_limits(ctypes.byref(taps),
-                                                     ctypes.byref(pad)),
-                 "tpcg_stream_cg_limits")
-    return taps.value, pad.value
+def stream_cg_const_planes_batched_plain(offsets: Sequence[Tuple[int, int]],
+                                         grid, taps, strips: torch.Tensor,
+                                         bp: torch.Tensor, x0p: torch.Tensor,
+                                         n_iterations: int):
+    """Plain version of the batched kernel: each RHS of (2, B, Nv, Nh)
+    planes through :func:`stream_cg_const_planes_plain` (the RHS share
+    nothing but the operator); returns x (2, B, Nv, Nh) and the history
+    (n_iterations + 1, B)."""
+    _check_args(offsets, grid, taps, strips, bp, x0p, n_iterations,
+                batched=True)
+    runs = [stream_cg_const_planes_plain(offsets, grid, taps, strips,
+                                         bp[:, c], x0p[:, c], n_iterations)
+            for c in range(bp.shape[1])]
+    return (torch.stack([x for x, _ in runs], dim=1),
+            torch.stack([h for _, h in runs], dim=1))
 
 
-def _launch(offsets, grid, taps, strips, bp, x0p, n_iterations):
-    """Launch the CUDA kernel on the current stream of bp's device."""
+def kernel_limits() -> Tuple[int, int, int]:
+    """(max taps, max stencil pad, max RHS in one launch) of the CUDA
+    kernel."""
+    taps, pad, rhs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    _build.check(_build.load().tpcg_stream_cg_limits(
+        ctypes.byref(taps), ctypes.byref(pad), ctypes.byref(rhs)),
+        "tpcg_stream_cg_limits")
+    return taps.value, pad.value, rhs.value
+
+
+def grid_blocks(nb: int, nv: int, nh: int, pad: int) -> int:
+    """Blocks of one launch of the nb-RHS instance on an (nv, nh) grid on
+    the current CUDA device: the single-RHS grid, whatever nb."""
+    blocks = ctypes.c_int()
+    _build.check(_build.load().tpcg_stream_cg_grid(nb, nv, nh, pad,
+                                                   ctypes.byref(blocks)),
+                 "tpcg_stream_cg_grid")
+    return blocks.value
+
+
+def _launch(offsets, grid, taps, strips, bp, x0p, n_iterations,
+            chunk=None):
+    """Launch the CUDA kernel on the current stream of bp's device for the
+    (2, B, Nv, Nh) planes bp, once per chunk of at most ``chunk`` RHS (the
+    kernel's limit by default), queued with no host sync; returns x
+    (2, B, Nv, Nh) and the history (n_iterations + 1, B)."""
     lib = _build.load()
     nv, nh = grid
+    n = nv * nh
     noff = len(offsets)
+    nb = bp.shape[1]
     P = _pad_for(offsets)
-    max_taps, max_pad = kernel_limits()
-    if noff > max_taps or P > max_pad:
+    max_taps, max_pad, max_rhs = kernel_limits()
+    chunk = max_rhs if chunk is None else chunk
+    if noff > max_taps or P > max_pad or not 1 <= chunk <= max_rhs:
         raise ValueError(f"kernel takes at most {max_taps} taps within "
-                         f"{max_pad} nodes, got {noff} taps within {P}")
+                         f"{max_pad} nodes and {max_rhs} RHS a launch, got "
+                         f"{noff} taps within {P} and chunks of {chunk}")
     strips, bp, x0p = strips.contiguous(), bp.contiguous(), x0p.contiguous()
     dev = bp.device
+    m = min(nb, chunk)
     with torch.cuda.device(dev):
-        blocks = ctypes.c_int()
-        _build.check(lib.tpcg_stream_cg_grid(nv, nh, P, ctypes.byref(blocks)),
-                     "tpcg_stream_cg_grid")
         f32 = dict(dtype=torch.float32, device=dev)
         x = torch.empty_like(bp)
-        hist = torch.empty((n_iterations + 1,), **f32)
-        r = torch.empty_like(bp)
-        q = torch.empty_like(bp)
-        d = torch.empty((2, 2, nv, nh), **f32)
-        part = torch.empty((2, blocks.value, 2), **f32)
+        # scratch for the largest chunk, reused by the chunks in turn
+        r = torch.empty((m, 2, nv, nh), **f32)
+        q = torch.empty((m, 2, nv, nh), **f32)
+        d = torch.empty((2, m, 2, nv, nh), **f32)
         offs = (ctypes.c_int * (2 * noff))(
             *[int(v) for tap in offsets for v in tap])
         tap_vals = (ctypes.c_float * (6 * noff))(
             *[v for t in _taps32(taps) for v in t])
-        err = lib.tpcg_stream_cg(
-            bp.data_ptr(), x0p.data_ptr(), strips.data_ptr(), x.data_ptr(),
-            hist.data_ptr(), r.data_ptr(), q.data_ptr(), d.data_ptr(),
-            part.data_ptr(), nv, nh, noff, offs, tap_vals, P, n_iterations,
-            blocks.value, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "tpcg_stream_cg")
-    stream_cg_const_planes.launches += 1
-    return x, hist
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        hists = []
+        for lo in range(0, nb, chunk):
+            k = min(chunk, nb - lo)
+            blocks = grid_blocks(k, nv, nh, P)
+            hist = torch.empty((n_iterations + 1, k), **f32)
+            part = torch.empty((2, k, blocks, 2), **f32)
+            err = lib.tpcg_stream_cg(
+                bp[:, lo].data_ptr(), x0p[:, lo].data_ptr(),
+                strips.data_ptr(), x[:, lo].data_ptr(), hist.data_ptr(),
+                r.data_ptr(), q.data_ptr(), d.data_ptr(), part.data_ptr(), k,
+                nb * n, nv, nh, noff, offs, tap_vals, P, n_iterations,
+                blocks, stream)
+            _build.check(err, "tpcg_stream_cg")
+            stream_cg_const_planes.launches += 1
+            hists.append(hist)
+    return x, hists[0] if len(hists) == 1 else torch.cat(hists, dim=1)
 
 
 def stream_cg_const_planes(offsets: Sequence[Tuple[int, int]], grid, taps,
@@ -268,13 +324,15 @@ def stream_cg_const_planes(offsets: Sequence[Tuple[int, int]], grid, taps,
     bp, x0p : (2, Nv, Nh) float32 RHS / initial-guess planes.
     Returns (x_planes (2, Nv, Nh), residual_history (n_iterations+1,)).
 
-    CUDA tensors launch the kernel (``stream_cg_const_planes.launches``
-    counts the launches); CPU tensors run
-    :func:`stream_cg_const_planes_plain`.
+    CUDA tensors launch the kernel's single-RHS instance
+    (``stream_cg_const_planes.launches`` counts the launches); CPU tensors
+    run :func:`stream_cg_const_planes_plain`.
     """
     _check_args(offsets, grid, taps, strips, bp, x0p, n_iterations)
     if bp.device.type == "cuda":
-        return _launch(offsets, grid, taps, strips, bp, x0p, n_iterations)
+        x, hist = _launch(offsets, grid, taps, strips, bp[:, None],
+                          x0p[:, None], n_iterations)
+        return x[:, 0], hist[:, 0]
     if bp.device.type == "cpu":
         return stream_cg_const_planes_plain(offsets, grid, taps, strips, bp,
                                             x0p, n_iterations)
@@ -282,6 +340,41 @@ def stream_cg_const_planes(offsets: Sequence[Tuple[int, int]], grid, taps,
 
 
 stream_cg_const_planes.launches = 0
+
+
+def stream_cg_const_planes_batched(offsets: Sequence[Tuple[int, int]], grid,
+                                   taps, strips: torch.Tensor,
+                                   bp: torch.Tensor, x0p: torch.Tensor,
+                                   n_iterations: int, chunk: int = None):
+    """B right-hand sides at once, each with its own alpha, beta and freeze
+    guard (the function and contract of JAX's
+    ``stream_cg_const_planes_batched``).
+
+    bp, x0p : (2, B, Nv, Nh) float32 planes; taps, strips from
+              :func:`prepare_stream`.
+    chunk   : RHS a launch on a card, at most (and by default) the
+              kernel's ``kernel_limits()[2]``.
+    Returns (x (2, B, Nv, Nh), residual_history (n_iterations+1, B)).
+
+    CUDA tensors launch the kernel once per chunk of RHS (counted in
+    ``stream_cg_const_planes.launches``), queued on the current stream with
+    no host sync; each RHS gives the bits of its own single-RHS launch, so
+    the chunking changes no result.  CPU tensors run
+    :func:`stream_cg_const_planes_batched_plain`.
+    """
+    _check_args(offsets, grid, taps, strips, bp, x0p, n_iterations,
+                batched=True)
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if bp.device.type == "cuda":
+        return _launch(offsets, grid, taps, strips, bp, x0p, n_iterations,
+                       chunk)
+    if bp.device.type == "cpu":
+        return stream_cg_const_planes_batched_plain(offsets, grid, taps,
+                                                    strips, bp, x0p,
+                                                    n_iterations)
+    raise ValueError(f"no stream_cg_const_planes_batched for device "
+                     f"{bp.device}")
 
 
 def stream_cg_const(stencil, b, x0=None, n_iterations: int = 10):

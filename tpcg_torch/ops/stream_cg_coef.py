@@ -12,19 +12,22 @@ refuses.
 
 ``stream_cg_coef_planes`` runs ``n_iterations`` of single-RHS complex COCG
 with this operator, and ``stream_cg_coef_planes_batched_fat`` the same for B
-right-hand sides with independent alpha and beta.  On CUDA tensors both
-launch the hand-written kernel ``tpcg_torch/csrc/stream_cg_coef.cu`` (one
-persistent cooperative launch per chunk of at most ``kernel_limits()[2]``
-RHS, which share one read of the coefficient planes; see the note at the
-top of that file) and raise if it cannot run;
-``stream_cg_coef_planes.launches`` counts the launches of both.  On CPU
-tensors they run their plain versions, the same functions in plain PyTorch,
-which are also what the kernel is compared with on the card.
+right-hand sides with independent alpha and beta
+(``stream_cg_coef_planes_batched`` is the same function under the name of
+JAX's other batched entry point).  On CUDA tensors they launch the
+hand-written kernel ``tpcg_torch/csrc/stream_cg_coef.cu`` (one persistent
+cooperative launch per chunk of at most ``kernel_limits()[2]`` RHS, which
+share one read of the coefficient planes; see the note at the top of that
+file) and raise if it cannot run; ``stream_cg_coef_planes.launches`` counts
+the launches of all of them.  On CPU tensors they run their plain
+versions, the same functions in plain PyTorch, which are also what the
+kernel is compared with on the card.
 
 One Hopper kernel takes the place of the JAX package's tiers for this
 function: v2 (``_build_k1_coef`` + ``_make_k2``), v3-coef (``_build_merged``),
-v4-coef (``_build_resident``) and, for several RHS, the fat batched kernels
-(``_build_k1_coef_batched_fat`` + ``_make_k2_batched_fat``).  Their row
+v4-coef (``_build_resident``) and, for several RHS, the batched kernels
+(``_build_k1_coef_batched`` and the fat ``_build_k1_coef_batched_fat``, each
+with its K2).  Their row
 blocks, VMEM budgets, ``keep_r``, the 128-row padding and the ``nb*Bv*Nh``
 compile cap exist for the TPU: the kernel reads any height and width.
 
@@ -258,6 +261,30 @@ def stream_cg_coef_planes_batched_fat(offsets: Sequence[Offset],
         return runs[0]
     return (torch.cat([x for x, _ in runs], dim=1),
             torch.cat([h for _, h in runs], dim=1))
+
+
+def stream_cg_coef_planes_batched(offsets: Sequence[Offset],
+                                  coefp: torch.Tensor, bp: torch.Tensor,
+                                  x0p: torch.Tensor, n_iterations: int):
+    """JAX's ``stream_cg_coef_planes_batched`` (a (row block, RHS) grid,
+    one RHS a grid column): the function of
+    :func:`stream_cg_coef_planes_batched_fat`, which it runs, the same
+    kernel on a card (one launch per chunk of RHS, counted in
+    ``stream_cg_coef_planes.launches``) and the plain version on the CPU.
+    bp, x0p : (2, B, Nv, Nh); returns (x (2, B, Nv, Nh), residual_history
+    (n_iterations+1, B))."""
+    return stream_cg_coef_planes_batched_fat(offsets, coefp, bp, x0p,
+                                             n_iterations)
+
+
+def stream_cg_coef_planes_batched_plain(offsets: Sequence[Offset],
+                                        coefp: torch.Tensor,
+                                        bp: torch.Tensor, x0p: torch.Tensor,
+                                        n_iterations: int):
+    """Plain version of :func:`stream_cg_coef_planes_batched`: each RHS
+    through :func:`stream_cg_coef_planes_plain`."""
+    return stream_cg_coef_planes_batched_fat_plain(offsets, coefp, bp, x0p,
+                                                   n_iterations)
 
 
 def stream_cg_coef(stencil, b, x0=None, n_iterations: int = 10):

@@ -19,8 +19,12 @@ deferred update exist because of TPU lanes and VMEM; they are not ported.
 
 Freeze guards, as in the JAX kernels: real ``(delta == 0) | (<d,q> == 0)``,
 complex ``|delta|^2 == 0 | |<d,q>|^2 == 0`` (``_mag2_zero``); both latch
-per RHS for the whole solve (the JAX kernels latch within a 256-iteration
-call).  A frozen RHS keeps its delta, so its history stays constant.
+per RHS until the next multiple of 256 iterations, as the JAX kernels latch
+within one call of ``_CHUNK = 256`` iterations and its wrapper clears the
+flag between calls.  A frozen RHS keeps its delta, so its history stays
+constant, and its direction is r (beta = 0): where <d,q> reached 0 with
+delta not 0, the RHS resumes at the next multiple of 256 from d = r, a
+steepest-descent restart, as JAX's does.
 
 Public surface as in the JAX module: ``stream_cg_dia`` /
 ``stream_cg_dia_block`` (real), ``stream_cg_dia_cplx`` /
@@ -42,6 +46,9 @@ from .cplx import cdiv, udot_planes
 # are 32-bit; operands past the card's memory fail to allocate and raise
 _MAX_DIAGS = 4096
 _MAX_RHS = 8
+# a frozen RHS stays frozen until the next multiple of this many iterations
+# (JAX's ``_CHUNK``, the iterations of one kernel call)
+_LATCH_ITERS = 256
 
 
 def _pad_for(offsets) -> int:
@@ -154,7 +161,9 @@ def _stream_plain(offsets, values, b, x0, n_iterations):
     hist = [hist_of(delta)]
     done = torch.zeros(b.shape[1], dtype=torch.bool, device=b.device)
     one = torch.ones_like(delta)
-    for _ in range(n_iterations):
+    for it in range(n_iterations):
+        if it % _LATCH_ITERS == 0:
+            done = torch.zeros_like(done)
         q = apply()
         dc = d.clone()
         dq = _dot(dc, q, cplx)
