@@ -53,16 +53,19 @@ Phases, in order; the first failure exits non-zero:
      on one of them;
   8. the streaming constant-tap kernel (``stream_cg_const_planes``) against
      its plain version on the card, 40 iterations, seeded x0: a square
-     grid, a non-square grid, an odd height (1031 x 1024) and a width that
-     is not a multiple of 128 (x within 2e-3 max|x|, the live history within
-     rel 1e-2, two launches bit-equal); a 2-RHS ``stream`` plan whose columns
+     grid, a non-square grid, an odd height (1031 x 1024), a width that
+     is not a multiple of 128, an odd width (513 x 1027, rows padded to
+     1056 floats) and a grid whose blocks take uneven numbers of tiles
+     (700 x 901) (x within 2e-3 max|x|, the live history within rel 1e-2,
+     two launches bit-equal); a 2-RHS ``stream`` plan whose columns
      equal their single-RHS launches bit for bit (whether the plan batches
      them or not); 2 I over 400 iterations,
      which must freeze at the iteration its plain version freezes and stay
      finite;
   9. the planner's ``stream`` path at full size: helm_fe(N, 12, eps=12) on
      the card through ``plan_stencil_cg(...).solve`` at N=1024 x 5000
-     iterations, N=2048, 2896 and 4096 x 1000, and N=1024 with B=2 x 1000,
+     iterations, N=2048, 2896 and 4096 x 1000, N=1024 with B=2 x 1000 and
+     N=2049 x 1000 (an odd width),
      each with the launch counts set to 0 just before and read just after
      (the path must be ``stream`` and only ``stream_cg`` may move, as often
      as the planner's rule for several RHS says).  For
@@ -161,9 +164,10 @@ Phases, in order; the first failure exits non-zero:
      8's geometries at NB = 1..8, 40 iterations, RHS r phase 8's (b, x0)
      pair times 1 + 0.1j r (x within 2e-3 max|x|, the live history within
      rel 1e-2), two launches bit-equal; each RHS of every launch against its own NB = 1
-     launch, bit for bit; the instances' registers, spills and blocks an
-     SM; row 6's cell (phase 9's N=4096 x 1000 time) against its time
-     before the RHS template;
+     launch, bit for bit; the instances' registers and spills (the NB = 1
+     instance must not spill), the layout and blocks an SM; row 6's cell
+     (phase 9's N=4096 x 1000 time) against the kernel's time before its
+     redesign (PERF.md, row 6);
  20. the planner's ``stream`` path with several RHS at full width:
      helm_fe(N, 12, eps=12) with RHS the plane wave times (1 + 0.1j r), as
      phase 18 builds its batch, at N=1024 x 1000 (B=1, 2, 4, 8), 1448 x 500
@@ -173,11 +177,12 @@ Phases, in order; the first failure exits non-zero:
      with the launch counts set to 0 just before and read just after (only
      ``stream_cg`` may move, one launch per chunk of the planner's rule);
      the float64 relative residual of every RHS (printed, not gated), a
-     100-iteration gate of every RHS against the plain version, and the
-     batched (chunks of 8) and sequential (one launch a RHS) solves timed
-     in turns: us/it and us per RHS-iteration, the own-bytes rate (~82 B a
-     node and RHS), GFLOPS by Table II, the bound and the 48 B-a-node-a-RHS
-     state floor;
+     100-iteration gate of every RHS against the plain version, the device
+     memory one batched launch takes, and the batched (chunks of 8) and
+     sequential (one launch a RHS) solves timed in turns: us/it and us per
+     RHS-iteration, the own-bytes rate (the kernel's bytes a node and RHS
+     from ``stream_layout``: 68.69 B at its 16 x 128 tiles), GFLOPS by
+     Table II, the bound and the 48 B-a-node-a-RHS state floor;
  21. a JSON line of the kernels (each with its launches on the main paths,
      its largest error against its plain version, its time, its plain
      version's time, its bound and what sets it, and ``library_ms``: null
@@ -845,6 +850,14 @@ def phase_fig5(dev):
     return out
 
 
+# phases 8 and 19: square, non-square, an odd height, a width that is not a
+# multiple of 128, an odd width (513 x 1027: csrc/stream_cg.cu pads its rows
+# to 1056 floats) and a grid whose blocks take uneven numbers of tiles
+# (700 x 901; 513 x 1027 too), with their x0 seeds
+STREAM_GEOMETRIES = ((256, 256, 1), (300, 700, 2), (1031, 1024, 3),
+                     (600, 1000, 4), (513, 1027, 5), (700, 901, 6))
+
+
 def stream_case(dev, nv, nh, seed, direction=None):
     """local_rect(max(nv, nh), 12) cut to nv x nh (helm_fe when square), with
     its operands for the streaming kernel, the square grid's plane wave cut
@@ -884,8 +897,7 @@ def phase_stream_compare(dev):
     from tpcg_torch.problems import helm_fe
     from tpcg_torch.sparse import Stencil2D
     worst = 0.0
-    for nv, nh, seed in ((256, 256, 1), (300, 700, 2), (1031, 1024, 3),
-                         (600, 1000, 4)):
+    for nv, nh, seed in STREAM_GEOMETRIES:
         S, taps, strips, bp, x0p = stream_case(dev, nv, nh, seed)
         args = (S.offsets, S.grid, taps, strips, bp, x0p, 40)
         xk, hk = tsc.stream_cg_const_planes(*args)
@@ -1176,7 +1188,7 @@ def phase_stream_main(dev, N, iters, nb=1, plain_full=False, spread=False,
           + (f"; plain {plain_ms:.3f} ms (one run, {iters} it)"
              if plain_ms is not None else ""))
     return dict(ms=ms, plain_ms=plain_ms, launches=launches, err=err,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, nb=nb)
 
 
 REAL_OWN_BYTES = 41     # csrc/stream_cg_real.cu's bytes a node and iteration
@@ -2101,8 +2113,9 @@ def phase_coef_sym_cross(dev, N, iters):
 # ---- phases 19-20: several RHS in one launch of csrc/stream_cg.cu ----
 
 # row 6 of PERF.md's kernel table: stream_cg at helm_fe N=4096 x 1000, B=1,
-# before the kernel took several RHS (PR 3, NVIDIA H100 80GB HBM3, 700 W)
-ROW6_MS = 567.212
+# before its redesign (no stored q, padded pitch, TMA ring): the NB=1
+# instance, 556.841 ms (NVIDIA H100 80GB HBM3, 700 W; PERF.md, row 6)
+ROW6_MS = 556.841
 
 
 def wave_batch(N, nb):
@@ -2123,8 +2136,7 @@ def phase_stream_batched_compare(dev, row6_ms):
     from tpcg_torch.ops import _build
     from tpcg_torch.ops import stream_cg as tsc
     worst = 0.0
-    for nv, nh, seed in ((256, 256, 1), (300, 700, 2), (1031, 1024, 3),
-                         (600, 1000, 4)):
+    for nv, nh, seed in STREAM_GEOMETRIES:
         # phase 8's (b, x0) pair times s_r = 1 + 0.1j r: every RHS as well
         # conditioned as phase 8's (independent 0.1 N(0, 1) draws of x0
         # land some RHS near a float32 breakdown, where at 40 iterations
@@ -2178,14 +2190,19 @@ def phase_stream_batched_compare(dev, row6_ms):
                 "stream_cg_kernel" in name:
             print(f"  ptxas {name}: {spill}; "
                   f"{line.split(':', 1)[1].strip()}")
+            if "stream_cg_kernelILi1EE" in name and \
+                    "0 bytes spill stores" not in spill:
+                fail(f"the NB=1 instance of stream_cg spills: {spill}")
+    lay = tsc.stream_layout(2048, 2048, 1)
+    print(f"stream_cg layout at 2048 x 2048, pad 1: {lay}")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print("stream_cg blocks of 256 threads at 2048 x 2048, pad 1, by NB 1..8 "
           "(per SM): " + ", ".join(
               f"{g} ({g / sms:g})" for g in (
                   tsc.grid_blocks(nb, 2048, 2048, 1) for nb in range(1, 9))))
     print(f"row 6 (stream_cg, helm_fe N=4096 x 1000, B=1, NB=1 instance): "
-          f"{row6_ms:.3f} ms (phase 9) against {ROW6_MS} ms before the RHS "
-          f"template (PR 3): {100 * (row6_ms / ROW6_MS - 1):+.2f}%")
+          f"{row6_ms:.3f} ms (phase 9) against {ROW6_MS} ms of the kernel "
+          f"before its redesign: {100 * (row6_ms / ROW6_MS - 1):+.2f}%")
     return worst
 
 
@@ -2281,6 +2298,18 @@ def phase_stream_batch_main(dev, A, prep, iters, nb, plain_full=False):
     if not ok:
         fail(f"stream_cg disagrees with its plain version ({label})")
 
+    # the device memory of one batched launch (chunks of 8)
+    lay = tsc.stream_layout(nv, nh, 1)
+    own = lay.bytes_a + lay.bytes_b
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    tsc.stream_cg_const_planes_batched(*args, 1)
+    torch.cuda.synchronize()
+    print(f"{label}: one batched launch takes "
+          f"{(torch.cuda.max_memory_allocated(dev) - base) / 2**20:.1f} MiB "
+          f"past its operands (state {min(nb, 8)} x {lay.pitch}-float rows: "
+          f"r, two d, x; x out, history, partials)")
     # batched (chunks of 8) and sequential (one launch a RHS), in turns
     (ms_b, ms_s), _ = alternating_ms(
         [lambda: tsc.stream_cg_const_planes_batched(*args, iters),
@@ -2302,8 +2331,8 @@ def phase_stream_batch_main(dev, A, prep, iters, nb, plain_full=False):
 
     def rates(t):
         return (f"{t * 1e3 / iters:.3f} us/it, {t * 1e3 / (nb * iters):.3f} "
-                f"us per RHS-iteration, own ~82 B a node and RHS at "
-                f"{nb * iters * 82 * n / (t * 1e-3) / 1e12:.2f} TB/s, "
+                f"us per RHS-iteration, own {own:.2f} B a node and RHS at "
+                f"{nb * iters * own * n / (t * 1e-3) / 1e12:.2f} TB/s, "
                 f"{nb * iters * flop / (t * 1e-3) / 1e9:.2f} GFLOPS Table II")
     print(f"time {label} {iters} it: batched {ms_b:.3f} ms ({rates(ms_b)}); "
           f"sequential {ms_s:.3f} ms ({rates(ms_s)}); batched / sequential "
@@ -2357,7 +2386,8 @@ def main():
               phase_stream_main(dev, 2048, 1000),
               phase_stream_main(dev, 2896, 1000),
               phase_stream_main(dev, 4096, 1000, plain_full=True),
-              phase_stream_main(dev, 1024, 1000, nb=2)]
+              phase_stream_main(dev, 1024, 1000, nb=2),
+              phase_stream_main(dev, 2049, 1000)]
     sym_err = phase_sym_compare(dev)
     sym = [phase_stream_main(dev, 1024, 1000, spread=True, sym=True),
            phase_stream_main(dev, 2048, 1000, sym=True),
@@ -2409,9 +2439,9 @@ def main():
     batch_err = phase_stream_batched_compare(dev, stream[3]["ms"])
     sb = phase_stream_batch(dev)
     # launches of the one-RHS instance (one RHS, or the plan's sequential
-    # rule) and of the NB >= 2 instances on the main paths
-    one = [r for r in sb if r["nb"] == r["launches"]]
-    multi = [r for r in sb if r["nb"] != r["launches"]]
+    # rule) and of the NB >= 2 instances on the main paths (phases 9, 20)
+    one = [r for r in stream + sb if r["nb"] == r["launches"]]
+    multi = [r for r in stream + sb if r["nb"] != r["launches"]]
     head_b = next(r for r in sb if r["plain_ms"] is not None)
     kernels = [{
         "name": "fused_cg_stencil", "route": "cuda",
@@ -2443,8 +2473,8 @@ def main():
         "source": "tpcg_torch/csrc/stream_cg.cu",
         "replaces": "tpcg/ops/stream_cg.py:166; tpcg/ops/stream_cg.py:387; "
                     "tpcg/ops/stream_cg_v4.py:73; tpcg/ops/stream_cg_v5.py:77",
-        "launches": sum(r["launches"] for r in stream + one),
-        "max_abs_err": max([stream_err] + [r["err"] for r in stream + one]),
+        "launches": sum(r["launches"] for r in one),
+        "max_abs_err": max([stream_err] + [r["err"] for r in one]),
         "ms": stream[3]["ms"], "plain_ms": stream[3]["plain_ms"],
         "bound_ms": stream[3]["bound_ms"], "bound_by": stream[3]["bound_by"],
         "library_ms": None})
@@ -2454,7 +2484,7 @@ def main():
         "source": "tpcg_torch/csrc/stream_cg.cu",
         "replaces": "tpcg/ops/stream_cg.py:741; tpcg/ops/stream_cg.py:941",
         "launches": sum(r["launches"] for r in multi),
-        "max_abs_err": max([batch_err] + [r["err"] for r in sb]),
+        "max_abs_err": max([batch_err] + [r["err"] for r in multi]),
         "ms": head_b["ms_batched"], "plain_ms": head_b["plain_ms"],
         "bound_ms": head_b["bound_ms"], "bound_by": head_b["bound_by"],
         "library_ms": None})

@@ -8,8 +8,8 @@ Run from the root of a checkout on a machine with an NVIDIA GPU:
     python3 probes/stream_batch_boundary.py
 
 For helm_fe(N, 12, eps=12) and B RHS (the plane wave times 1 + 0.1j r,
-x0 = 0) at N = 1200 (B = 2, 4), 1448 (2, 8), 2896 (2), 3072 (2) and 4096
-(1, 2, 4), it times ``stream_cg_const_planes_batched`` with chunks of 8 and
+x0 = 0) at N = 1024 (B = 2, 8), 1200 (2, 4), 1448 (2, 8), 2048 (2, 8),
+2896 (2), 3072 (2) and 4096 (1, 2, 4), it times ``stream_cg_const_planes_batched`` with chunks of 8 and
 with chunks of 1 in turns, 7 times each after a warm-up (CUDA events), and
 prints the median and range of each in us per RHS-iteration and their
 ratio.  At B = 1 both sides run the same launch: that ratio is the spread
@@ -27,8 +27,9 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 from tpcg_torch.ops import stream_cg as tsc  # noqa: E402
 from tpcg_torch.problems import helm_fe, plane_wave_rhs  # noqa: E402
 
-CELLS = ((1200, 500, (2, 4)), (1448, 500, (2, 8)), (2896, 300, (2,)),
-         (3072, 300, (2,)), (4096, 300, (1, 2, 4)))
+CELLS = ((1024, 1000, (2, 8)), (1200, 500, (2, 4)), (1448, 500, (2, 8)),
+         (2048, 500, (2, 8)), (2896, 300, (2,)), (3072, 300, (2,)),
+         (4096, 300, (1, 2, 4)))
 
 
 def main():

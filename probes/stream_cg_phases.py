@@ -1,0 +1,384 @@
+"""Probe: phase A and phase B of ``csrc/stream_cg.cu`` timed apart, the
+kernel's tile and ring swept, and two versions of the kernel timed in
+turns, on one card.
+
+Run from the root of a checkout on a machine with an NVIDIA GPU:
+
+    python3 probes/stream_cg_phases.py split [--tree DIR]
+    python3 probes/stream_cg_phases.py sweep
+    python3 probes/stream_cg_phases.py compare --tree DIR
+
+``--tree DIR`` names a directory that holds another ``tpcg_torch`` package
+(for example an earlier commit's, unpacked with ``git archive`` under
+``probes/_variants/``, which git ignores); the default is this checkout's.
+
+Phase timing: the probe copies the package into
+``probes/_variants/<name>-stamped/`` and edits the copy's
+``csrc/stream_cg.cu`` so that thread 0 of block 0 reads ``%globaltimer``
+and ``clock64()`` after every ``grid.sync()`` of the kernel and adds the
+time since the previous stamp to a slot of that barrier (the last stamp
+is kept in shared memory, so the stamps cost the kernel no registers).  The last two
+barriers of the kernel's source close phase A (the direction and <d, q>)
+and phase B (the update and <r, r>) of an iteration: their slots, over an
+n-iteration solve, are the two phases' times, each with its scalar step
+and its barrier wait.  The clock64 shares of the two phases, times the
+solve's CUDA-event time, give the split; the globaltimer sums are printed
+beside them.  Each phase's rate is its own bytes (the kernel's count a
+node and RHS, from ``stream_layout`` where the package has it, else the
+earlier kernel's 16 x 128 tiles with q stored) over its time.
+
+``split``: helm_fe(N, 12, eps=12) and its plane wave (times 1 + 0.1j r for
+RHS r) at N = 1024 (1000 iterations), 2048 (500) and 4096 (300), one RHS
+and one launch of NB = 4.
+
+``sweep``: this checkout's kernel at every tile height {8, 16, 32, 64} and
+ring depth {2, 3} that fits the shared memory, at every count of blocks an
+SM that it allows,
+first with the source's launch bounds (2 blocks of 256 threads an SM, at
+most 128 registers a thread), then built with bounds of 3 and 4 blocks an
+SM (at most 85 and 64 registers) for the configurations of that many
+blocks, and with 512 threads a block (at most 64 registers) for those of
+1 and 2 blocks:
+us per RHS-iteration and the split at N = 2048 (500 iterations) and 4096
+(300), then N = 1024 (1000) for the best few of each build, one RHS.
+
+``variants``: this checkout's kernel at its default layout, built as it is
+and with one edit each (``EDITS``: the tensor maps' L2 promotion, the
+unrolling of the node loop, the shared-memory proxy fence left out, which
+the memory model needs: a measurement only), then as it is again, at
+N = 2048, 4096 and 1024, one RHS.
+
+``compare``: DIR's package and this checkout's in turns (DIR, this, this,
+DIR), each in its own process with its own build, median of 3 CUDA-event
+timings at N = 1024 x 1000 (B = 1), 2048 x 500 (B = 1 and one launch of
+NB = 8) and 4096 x 1000 (B = 1): us per RHS-iteration and the rate of the
+kernel's own bytes.
+
+Every mode prints the card's name and power limit first.
+"""
+import argparse
+import json
+import pathlib
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+VARIANTS = ROOT / "probes" / "_variants"
+
+STAMP_HEADER = r"""
+// ---- phase stamps (probes/stream_cg_phases.py) ----
+__device__ unsigned long long tpcg_probe_slots[32];
+#define TPCG_PROBE_STAMP(k)                                               \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {                              \
+    unsigned long long ns_;                                               \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns_));               \
+    const unsigned long long cy_ = clock64();                             \
+    if (tpcg_probe_last[0]) {                                             \
+      tpcg_probe_slots[2 * (k)] += ns_ - tpcg_probe_last[0];              \
+      tpcg_probe_slots[2 * (k) + 1] += cy_ - tpcg_probe_last[1];          \
+    }                                                                     \
+    tpcg_probe_last[0] = ns_;                                             \
+    tpcg_probe_last[1] = cy_;                                             \
+  }
+extern "C" int tpcg_probe_read(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, tpcg_probe_slots,
+                                       sizeof(tpcg_probe_slots));
+  if (e != cudaSuccess) return e;
+  static const unsigned long long zero[32] = {};
+  return cudaMemcpyToSymbol(tpcg_probe_slots, zero, sizeof(zero));
+}
+"""
+GRID_DECL = "cg::grid_group grid = cg::this_grid();"
+BOUNDS = "__launch_bounds__(kThreads, 2)"
+THREADS = "constexpr int kThreads = 256;"
+# builds of the sweep: name, blocks an SM in the launch bounds, threads a
+# block (at most 65536 / (blocks x threads) registers a thread)
+BUILDS = (("b2", 2, 256), ("b3", 3, 256), ("b4", 4, 256), ("t512", 2, 512))
+# builds of ``variants``, each one edit of the source, run at the module's
+# default layout: name, (text, replacement)
+EDITS = (
+    ("base", None),
+    ("l2-none", ("CU_TENSOR_MAP_L2_PROMOTION_L2_256B",
+                 "CU_TENSOR_MAP_L2_PROMOTION_NONE")),
+    ("l2-128", ("CU_TENSOR_MAP_L2_PROMOTION_L2_256B",
+                "CU_TENSOR_MAP_L2_PROMOTION_L2_128B")),
+    ("unroll-2", ("#pragma unroll 1\n        for (int tm",
+                  "#pragma unroll 2\n        for (int tm")),
+    ("no-smem-fence", ("        fence_async_smem();  // the slot is refilled",
+                       "        // the slot is refilled")),
+)
+
+
+def card_line():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def stamped_copy(tree, name, min_blocks=None, threads=None, edit=None):
+    """Copy ``tree/tpcg_torch`` to ``probes/_variants/<name>-stamped`` with
+    the phase stamps in its stream_cg.cu (and, given ``min_blocks``, its
+    launch bounds asking for that many blocks an SM, which caps the
+    registers a thread; given ``threads``, that many threads a block; given
+    ``edit``, a (text, replacement) pair); returns (copy root, number of
+    barriers)."""
+    dst = VARIANTS / f"{name}-stamped"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(tree / "tpcg_torch", dst / "tpcg_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    src = dst / "tpcg_torch" / "csrc" / "stream_cg.cu"
+    text = src.read_text()
+    if GRID_DECL not in text:
+        sys.exit(f"{GRID_DECL} not found in {src}")
+    text = text.replace(
+        GRID_DECL, GRID_DECL + " __shared__ unsigned long long"
+        " tpcg_probe_last[2]; if (threadIdx.x == 0) tpcg_probe_last[0] = 0;",
+        1)
+    count = 0
+
+    def stamp(_m):
+        nonlocal count
+        count += 1
+        return f"grid.sync(); TPCG_PROBE_STAMP({count - 1});"
+    text = re.sub(r"grid\.sync\(\);", stamp, text)
+    if count < 2 or count > 16:
+        sys.exit(f"{src}: {count} grid barriers")
+    if edit is not None:
+        if edit[0] not in text:
+            sys.exit(f"{edit[0]!r} not found in {src}")
+        text = text.replace(edit[0], edit[1])
+    if threads is not None:
+        if THREADS not in text:
+            sys.exit(f"{THREADS} not found in {src}")
+        text = text.replace(THREADS, f"constexpr int kThreads = {threads};")
+    if min_blocks is not None:
+        if BOUNDS not in text:
+            sys.exit(f"{BOUNDS} not found in {src}")
+        text = text.replace(BOUNDS,
+                            f"__launch_bounds__(kThreads, {min_blocks})")
+    first = text.index("namespace {")
+    text = text[:first] + STAMP_HEADER + text[first:]
+    src.write_text(text)
+    return dst, count
+
+
+# ---- one tree in one process ----
+
+# tile rows, ring stages, blocks an SM
+SWEEP = [(r, s, m) for r in (8, 16, 32, 64) for s in (2, 3)
+         for m in (1, 2, 3, 4)]
+SM_SHARED = 233472          # shared memory of one H100 SM, bytes
+BLOCK_SHARED = 232448       # the most one block may take
+BLOCK_RESERVED = 1024       # the runtime's own share of each block
+
+
+def fits(tsc, config):
+    """Whether a sweep configuration's ring fits m blocks on an SM."""
+    rows, stages, m = config
+    smem = tsc.stream_layout(2048, 2048, 1, rows, stages).smem_bytes
+    return smem <= BLOCK_SHARED and m * (smem + BLOCK_RESERVED) <= SM_SHARED
+
+
+def run_tree(tree, mode, nbar, min_blocks=2, threads=256):
+    sys.path.insert(0, str(tree))
+    import ctypes
+    import hashlib
+    import numpy as np
+    import torch
+    from tpcg_torch.ops import _build
+    from tpcg_torch.ops import stream_cg as tsc
+    from tpcg_torch.problems import helm_fe, plane_wave_rhs
+    lib = _build.load()
+    lib.tpcg_probe_read.argtypes = [ctypes.c_void_p]
+    lib.tpcg_probe_read.restype = ctypes.c_int
+    slots = np.zeros(32, dtype=np.uint64)
+    name = ""
+    for line in _build.compiler_report().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "stream_cg_kernel" in name and ("Used" in line
+                                             or "spill" in line):
+            print(f"{tree.name}: ptxas {name}: {line.strip()}")
+
+    def read_slots():
+        torch.cuda.synchronize()
+        _build.check(lib.tpcg_probe_read(slots.ctypes.data), "probe read")
+        return slots.copy()
+
+    def own_bytes(N, pad=1):
+        """(phase A, phase B) bytes a node and RHS of the tree's kernel."""
+        if hasattr(tsc, "stream_layout"):
+            lay = tsc.stream_layout(N, N, pad)
+            return lay.bytes_a, lay.bytes_b
+        h = (16 + 2) * (128 + 2) / (16 * 128)     # PR 9: 16 x 128, q stored
+        return 16 * h + 16, 48.0
+
+    dev = torch.device("cuda:0")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if mode == "compare":
+        cells = [(1024, 1000, 1, None), (2048, 500, 1, None),
+                 (2048, 500, 8, None), (4096, 1000, 1, None)]
+    elif mode == "variants":
+        cells = [(N, it, 1, None) for N, it in ((2048, 500), (4096, 300),
+                                                (1024, 1000))]
+    elif mode == "split":
+        cells = [(N, it, nb, None) for N, it in ((1024, 1000), (2048, 500),
+                                                 (4096, 300))
+                 for nb in (1, 4)]
+    else:
+        # the source's own bounds (2 blocks an SM): every configuration that
+        # fits; a tighter register cap: the configurations it is for
+        configs = [c for c in SWEEP if fits(tsc, c) and (
+            (min_blocks, threads) == (2, 256)
+            or (c[2] == min_blocks if threads == 256
+                else c[2] <= min_blocks))]
+        cells = [(N, it, 1, c) for N, it in ((2048, 500), (4096, 300))
+                 for c in configs]
+    defaults = tuple(getattr(tsc, k, None) for k in
+                     ("TILE_ROWS", "STAGES", "BLOCKS_PER_SM"))
+    last_N = None
+    out = []
+
+    def cell(N, iters, nb, config):
+        nonlocal last_N, A, taps, strips, b
+        if N != last_N:
+            A = helm_fe(N, 12.0, eps=12.0, device=dev)
+            taps, strips = tsc.prepare_stream(A)
+            b = plane_wave_rhs(N, 12.0)
+            last_N = N
+        if config is not None:
+            tsc.TILE_ROWS, tsc.STAGES, tsc.BLOCKS_PER_SM = config
+        tag = tree.name if config is None else \
+            "R{} S{} cap {}/SM".format(*config) + (
+                f" ({threads} threads, launch bounds {min_blocks})"
+                if (min_blocks, threads) != (2, 256) else "")
+        B = np.stack([b * (1 + 0.1j * r) for r in range(nb)])
+        bp = torch.from_numpy(np.stack([B.real, B.imag]).astype(
+            np.float32)).to(dev)
+        x0 = torch.zeros_like(bp)
+
+        def solve():
+            return tsc.stream_cg_const_planes_batched(
+                A.offsets, A.grid, taps, strips, bp, x0, iters)
+        try:
+            x, _ = solve()
+            blocks = tsc.grid_blocks(1, N, N, 1)
+        except (RuntimeError, ValueError) as e:
+            print(f"{tag}: N={N} NB={nb}: refused ({e})", flush=True)
+            return
+        read_slots()
+        times, split = [], []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            solve()
+            end.record()
+            s = read_slots()
+            t_ms = start.elapsed_time(end)
+            times.append(t_ms)
+            ns = [int(s[2 * k]) for k in range(nbar)]
+            cy = [int(s[2 * k + 1]) for k in range(nbar)]
+            share_a = cy[-2] / max(1, sum(cy))
+            share_b = cy[-1] / max(1, sum(cy))
+            split.append((t_ms * share_a, t_ms * share_b, ns[-2] * 1e-6,
+                          ns[-1] * 1e-6))
+        t = statistics.median(times)
+        ta, tb, na, nbns = split[times.index(t)]
+        ba, bb = own_bytes(N)
+        n = N * N
+        per = 1e3 / (iters * nb)
+        digest = hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:12]
+        row = dict(tree=tree.name, config=config, bounds=min_blocks,
+                   threads=threads, N=N,
+                   nb=nb, iters=iters,
+                   ms=t, us_rhs_it=t * per, a_us=ta * per, b_us=tb * per,
+                   a_tbs=ba * n * nb * iters / (ta * 1e-3) / 1e12,
+                   b_tbs=bb * n * nb * iters / (tb * 1e-3) / 1e12,
+                   own_b=ba + bb, blocks=blocks,
+                   own_tbs=(ba + bb) * n * nb * iters / (t * 1e-3) / 1e12)
+        out.append(row)
+        print(f"{tag}: N={N} NB={nb} {iters} it, {blocks} blocks "
+              f"({blocks / sms:g} an SM): median {t:.3f} ms "
+              f"[{min(times):.3f}, {max(times):.3f}] = {t * per:.3f} us per "
+              f"RHS-iteration, own {ba + bb:.2f} B a node and RHS at "
+              f"{row['own_tbs']:.3f} TB/s; phase A {ta * per:.3f} us "
+              f"({ba:.2f} B, {row['a_tbs']:.3f} TB/s; globaltimer "
+              f"{na * per:.3f}), phase B {tb * per:.3f} us ({bb:.2f} B, "
+              f"{row['b_tbs']:.3f} TB/s; globaltimer {nbns * per:.3f}); "
+              f"x digest {digest}", flush=True)
+
+    A = taps = strips = b = None
+    for c in cells:
+        cell(*c)
+    if mode == "sweep":
+        # the three fastest at N = 2048 and 4096 together, at N = 1024 too
+        tot = {}
+        for r in out:
+            tot.setdefault(tuple(r["config"]), []).append(r["us_rhs_it"])
+        best = sorted((c for c, v in tot.items() if len(v) == 2),
+                      key=lambda c: sum(tot[c]))[:3]
+        for c in best + ([defaults] if defaults[0] is not None
+                         and defaults not in best else []):
+            cell(1024, 1000, 1, c)
+    return out
+
+
+def sub(tree, mode, nbar, min_blocks=2, threads=256):
+    cmd = [sys.executable, __file__, "_run", "--tree", str(tree), "--mode",
+           mode, "--nbar", str(nbar), "--bounds", str(min_blocks),
+           "--threads", str(threads)]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=2400)
+    sys.stdout.write(res.stdout)
+    sys.stdout.flush()
+    if res.returncode != 0:
+        sys.stdout.write(res.stderr[-3000:])
+        raise SystemExit(f"{tree}: exit {res.returncode}")
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("mode", choices=("split", "sweep", "variants", "compare",
+                                     "_run"))
+    ap.add_argument("--tree", type=pathlib.Path, default=ROOT)
+    ap.add_argument("--mode", dest="inner")
+    ap.add_argument("--nbar", type=int)
+    ap.add_argument("--bounds", type=int, default=2)
+    ap.add_argument("--threads", type=int, default=256)
+    a = ap.parse_args()
+    if a.mode == "_run":
+        rows = run_tree(a.tree.resolve(), a.inner, a.nbar, a.bounds,
+                        a.threads)
+        print("ROWS " + json.dumps(rows))
+        return
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    print(card_line(), flush=True)
+    tree = a.tree.resolve()
+    name = "this" if tree == ROOT else tree.name
+    if a.mode == "split":
+        copy, nbar = stamped_copy(tree, name)
+        sub(copy, a.mode, nbar)
+    elif a.mode == "variants":
+        for name_e, edit in EDITS + EDITS[:1]:
+            copy, nbar = stamped_copy(tree, f"{name}-{name_e}", edit=edit)
+            sub(copy, a.mode, nbar)
+    elif a.mode == "sweep":
+        for build, b, threads in BUILDS:
+            copy, nbar = stamped_copy(tree, f"{name}-{build}", b, threads)
+            sub(copy, a.mode, nbar, b, threads)
+    else:
+        other, nbar_o = stamped_copy(tree, name)
+        this, nbar_t = stamped_copy(ROOT, "this")
+        for t, nb in ((other, nbar_o), (this, nbar_t), (this, nbar_t),
+                      (other, nbar_o)):
+            sub(t, "compare", nb)
+    print(card_line(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

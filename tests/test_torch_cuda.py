@@ -452,11 +452,13 @@ def _stream_case(dev, nv, nh, x0_seed=None, k=12.0):
 
 
 # the smoke's geometries: square, non-square, an odd height, a width that is
-# not a multiple of 128 (40 iterations, seeded x0), and helm_fe at the first
-# two main-path sizes (100 iterations, plane wave)
+# not a multiple of 128, an odd width (513 x 1027) and a grid whose blocks
+# take uneven numbers of tiles (700 x 901) (40 iterations, seeded x0), and
+# helm_fe at the first two main-path sizes (100 iterations, plane wave)
 @pytest.mark.parametrize("nv,nh,seed,iters", [
     (256, 256, 1, 40), (300, 700, 2, 40), (1031, 1024, 3, 40),
-    (600, 1000, 4, 40), (1024, 1024, None, 100), (2048, 2048, None, 100)])
+    (600, 1000, 4, 40), (1024, 1024, None, 100), (2048, 2048, None, 100),
+    (513, 1027, 5, 40), (700, 901, 6, 40)])
 def test_stream_kernel_matches_plain(dev, nv, nh, seed, iters):
     S, taps, strips, bp, x0p = _stream_case(dev, nv, nh, seed)
     before = tsc.stream_cg_const_planes.launches
@@ -560,11 +562,12 @@ def _stream_batch(dev, nv, nh, nb, seed):
 
 @pytest.mark.parametrize("nb", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("nv,nh,seed", [(256, 256, 1), (300, 700, 2),
-                                        (1031, 1024, 3), (600, 1000, 4)])
+                                        (1031, 1024, 3), (600, 1000, 4),
+                                        (513, 1027, 5)])
 def test_stream_batched_kernel_matches_plain(dev, nv, nh, seed, nb):
     """One launch of NB RHS against the plain version, 40 iterations,
-    seeded x0: square, non-square, odd height and a width that is not a
-    multiple of 128; two launches bit-equal."""
+    seeded x0: square, non-square, odd height, a width that is not a
+    multiple of 128 and an odd width; two launches bit-equal."""
     S, taps, strips, bp, x0p = _stream_batch(dev, nv, nh, nb, seed)
     args = (S.offsets, S.grid, taps, strips, bp, x0p, 40)
     before = tsc.stream_cg_const_planes.launches
@@ -588,6 +591,27 @@ def test_stream_batched_rhs_equal_their_single_launches(dev, nb):
                                             x0p[:, c].contiguous(), 40)
         assert torch.equal(xb[:, c], x1) and torch.equal(hb[:, c], h1)
     assert len({tsc.grid_blocks(k, 1031, 1024, 1) for k in range(1, 9)}) == 1
+
+
+@pytest.mark.parametrize("nb", [3, 8])
+@pytest.mark.parametrize("nv,nh", [(513, 1027), (700, 901)])
+def test_stream_odd_width_uneven_tiles_equal_single_launches(dev, nv, nh, nb):
+    """At an odd width whose rows the kernel pads to a multiple of 32 floats,
+    on a grid whose blocks take uneven numbers of tiles (so the mbarrier
+    ring's parity runs on unevenly across blocks), each RHS of an NB launch
+    gives its NB = 1 launch's bits, and a repeat gives the same bits."""
+    S, taps, strips, bp, x0p = _stream_batch(dev, nv, nh, nb, 7)
+    lay = tsc.stream_layout(nv, nh, 1)
+    blocks = tsc.grid_blocks(nb, nv, nh, 1)
+    assert nh % 4 and lay.pitch % 32 == 0
+    assert lay.tiles > blocks and lay.tiles % blocks
+    xb, hb = _run_twice(tsc.stream_cg_const_planes_batched, S.offsets,
+                        S.grid, taps, strips, bp, x0p, 30)
+    for c in range(nb):
+        x1, h1 = tsc.stream_cg_const_planes(S.offsets, S.grid, taps, strips,
+                                            bp[:, c].contiguous(),
+                                            x0p[:, c].contiguous(), 30)
+        assert torch.equal(xb[:, c], x1) and torch.equal(hb[:, c], h1)
 
 
 @pytest.mark.parametrize("batched", [False, True])

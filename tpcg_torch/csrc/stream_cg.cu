@@ -17,7 +17,7 @@
 //   * tpcg/ops/stream_cg_v5.py::_build_v5: the v4 loop with state row panels
 //     round-tripping HBM by DMA, including the column-padded `cpos` route.
 // Their VMEM budgets, row-block sizes and 128-lane padding have no purpose
-// here: Hopper reads any width, and the state lives in device memory.
+// here: the state lives in device memory.
 //
 // What it computes, for each of the NB RHS of a launch independently
 // (tpcg_torch/ops/stream_cg.py::stream_cg_const_planes_plain is the same
@@ -35,45 +35,72 @@
 // launch and the two grid barriers of an iteration, and nothing else: each
 // has its own alpha, beta, delta, freeze guard and history column.
 //
-// What bounds it on the H100: device-memory bytes.  At N = 4096 the five
-// complex fields (b, x, r, d, q; float32 re/im planes) take 670 MB a RHS,
-// far past the 50 MB L2, so every iteration streams the state from HBM.
-// This design moves per node, RHS and iteration: phase A reads r and the
-// old d (8 B each, plus a halo of 2 rows and 2 columns per 16 x 128 tile,
-// ~14%) and writes the new d and q (8 B each), ~34 B; phase B reads x, d, r,
-// q and writes x and r, 48 B: ~82 B, against the 48 B that reading and
-// writing x, r and d once would need.  Up to N = 1024 one RHS's state
-// (~42 MB) nearly fits the L2 and the two grid barriers per iteration weigh
-// in; several RHS in a launch pay those barriers once an iteration, and
-// their states together no longer fit the L2.  On an H100 80GB HBM3 at
-// 700 W a shared launch was 2-9% faster per RHS-iteration than one launch
-// a RHS from 1448^2 to 2500^2 nodes, and 5-16% slower at 1024^2 (the L2)
-// and 1-2% slower at 4096^2 (PERF.md, PR 9); the planner batches only
-// where it won (tpcg_torch/ops/auto.py::_stream_chunk).
+// What bounds it on the H100: device-memory bytes, and past them the work
+// of a tile on the SM (below).  At N = 4096 one RHS's state takes 537 MB,
+// far past the 50 MB L2, so every iteration streams it from HBM.  Per node, RHS and iteration this design moves, with tiles of
+// R rows and 128 columns whose halo boxes span R + 2 pad rows and
+// 128 + 2 hc columns (hc = pad rounded up to 4; h = box / tile - 1):
+//   phase A reads r and the old d with their halo and writes d',
+//     16 (1 + h) + 8 B;
+//   phase B reads d' with its halo, r and x, and writes r and x,
+//     8 (1 + h) + 32 B;
+// 64 + 24 h in all: 68.69 B at R = 16, pad 1 (h = 0.195), against the
+// 48 B floor of reading and writing x, r and d once and the ~82 B of the
+// kernel before this design, which stored q = A d' in phase A and read it
+// back in phase B (tpcg_torch.ops.stream_cg.stream_layout counts it).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, Findings;
+// probes/stream_cg_phases.py; us per iteration at N = 1024 / 2048 / 4096,
+// one RHS): the kernel before this design spent 22.9 / 82.7 / 287.6 in
+// phase A, its halo tile loaded element by element into one buffer with
+// no load in flight while a tile was applied (1.6-2.0 TB/s of its own
+// bytes), and 13.5 / 71.2 / 277.3 in its flat phase B (2.8-3.7 TB/s).
+// This design spends 22.6 / 69.4 / 199.1 in phase A (1.3-2.3 TB/s) and
+// 22.1 / 77.1 / 271.9 in phase B (2.0-2.6 TB/s): 0.83x the earlier
+// kernel's iteration at N = 4096, 0.95x at 2048 and 1.22x at 1024.  Phase
+// B, which now applies the stencil a second time, sets the pace: a tile
+// takes about as long on an SM when the state sits in the L2 (N = 1024)
+// as when it streams from HBM, and neither the ring's depth, the blocks an
+// SM, 512 threads a block, the L2 promotion nor cp.async in place of TMA
+// moved it, so the bound is on the SM, not the bytes.
 //
 // What the design does about it:
-//   * two grid barriers per iteration for all NB RHS, not three per RHS:
-//     phase A recomputes the new direction d' = r + beta d on its tile's
-//     halo from r and the old d (a ping-pong pair of d buffers), as v2 and
-//     v4 do, instead of waiting on a barrier after the d update.  The halo
-//     copies are computed by the same non-contracting float operations
-//     (__fmul_rn, __fadd_rn) as the owner's, so every block applies A to
-//     bit-identical values;
-//   * phase A stages d' for a tile and its halo in shared memory, so each
-//     node's 7 taps read shared memory and each of r and d is read from
-//     device memory about once; phase B is a flat, vectorised sweep;
+//   * no stored q: phase B recomputes q = A d' from a halo tile of d',
+//     which phase A wrote, with the same non-contracting operations
+//     (__fmul_rn, __fadd_rn) in the same tap order, so it is bit-identical
+//     to the q phase A formed for <d', q>;
+//   * the Tensor Memory Accelerator feeds every tile: phase A's r and d_old
+//     halo boxes, phase B's d' halo box and its own tiles of r and x, and
+//     the init's x0 halo box are 3-D tile copies (columns, rows, re/im
+//     planes of every RHS) into a ring of `stages` slots of dynamic shared
+//     memory, one mbarrier a slot; thread 0 keeps the next tiles' copies in
+//     flight while the block works on the current one.  TMA's
+//     out-of-bounds fill gives the zero neighbours at rows -1 / nv and
+//     columns -1 / nh with no branch.  The box's first column is j0 - hc,
+//     so its rows are 16-byte multiples as TMA needs;
+//   * the state (r, both d buffers and a working copy of x) lives in planes
+//     whose row pitch is nh + pad rounded up to 32 floats: every row starts
+//     128-byte aligned at every width, so an odd width takes the same path
+//     as any other; the columns past nh are zero and never written.  The
+//     init copies x0 in and the end copies x out, once a launch;
+//   * two grid barriers per iteration for all NB RHS: phase A recomputes
+//     d' = r + beta d on its tile's halo from r and the old d (a ping-pong
+//     pair of d buffers) with the same operations as the owner, so every
+//     block applies A to bit-identical values;
+//   * cross-proxy order: every thread that stores state that a TMA copy
+//     will read (d' in phase A, r and x in phase B, x0's copy and r0 in the
+//     init) runs fence.proxy.async before the grid barrier, and thread 0
+//     runs it again after the barrier before it issues copies; threads that
+//     wrote d' into a ring slot run fence.proxy.async.shared::cta before
+//     the slot is refilled;
 //   * within each phase a block runs the RHS one after another, each over
-//     the same tiles (phase A) or nodes (phase B) in the same order as a
-//     one-RHS launch, on one halo tile of shared memory; the grid is the
-//     one-RHS grid whatever NB.  So each RHS's dot products are cut into
-//     the same partial sums and every RHS of an NB launch gives the bits of
-//     its own NB = 1 launch: a batch may be chunked freely.  Staging all NB
-//     tiles at once (fewer tile rows as NB grows) would change the tiles,
-//     the grid and so the bits, and would spend registers and shared memory
-//     that the one-RHS kernel uses to keep 4 blocks an SM in flight;
+//     the same tiles in the same order as a one-RHS launch; the grid is the
+//     one-RHS grid whatever NB, and the ring's slot and mbarrier parity
+//     follow one running count of copies over RHS, phases and iterations
+//     (nothing is reset mid-solve).  So each RHS's dot products are cut
+//     into the same partial sums and every RHS of an NB launch gives the
+//     bits of its own NB = 1 launch: a batch may be chunked freely;
 //   * taps and edge taps are kernel parameters; strips, b and x0 go through
-//     the read-only path; state that other blocks write is read with __ldcg
-//     (L2, coherent) after a grid barrier;
+//     the read-only path;
 //   * dot products reduce in a fixed order (per thread, warp shuffle, block,
 //     then over blocks in block order, the same in every block), so every
 //     block derives bit-identical alpha and beta and reruns agree bit for
@@ -81,21 +108,28 @@
 //   * offsets into the planes are 64-bit (N = 4096 has 16.8 M nodes a
 //     plane; b, x0 and x of a batch are (2, B, nv, nh) planes, so a RHS's
 //     imaginary plane lies B planes past its real one).
-// The stencil apply uses the same non-contracting operations in the order
-// of the plain version, so A d' agrees with it bit for bit on equal inputs;
-// only the reductions' order differs.  wgmma and TMA have no place in this
-// first version: there is no matrix product, and TMA panels, clusters and
-// keeping q on chip are the ways to cut the 82 B per node toward 48 B.
+// Tile height, ring depth and blocks an SM are arguments, chosen by
+// tpcg_torch.ops.stream_cg.stream_layout from the sweep of
+// probes/stream_cg_phases.py.  Not used yet: thread-block clusters (a
+// cluster could share a halo between neighbouring tiles' SMs, which the
+// L2 already serves) and keeping the state resident on chip at N <= 1448
+// (one RHS's state nearly fits the 50 MB L2 at N = 1024; a resident
+// variant is an open question in PERF.md).  wgmma has no place: there is
+// no matrix product.
 //
 // Numerics: build without --use_fast_math (flush-to-zero and approximate
 // division would move the freeze guard and the Smith division).  Plain C
 // interface, loaded with ctypes (tpcg_torch/ops/_build.py); every entry
-// point returns a cudaError_t as int.
+// point returns a cudaError_t as int.  The tensor maps are encoded on the
+// host per launch with cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint so that the library need not link libcuda.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 #include <cstdlib>
 
 namespace cg = cooperative_groups;
@@ -104,13 +138,17 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBlocksPerSm = 4;
-constexpr int kTileRows = 16;
 constexpr int kTileCols = 128;
+constexpr int kMaxStages = 4;
+constexpr int kMaxBox = 256;        // TMA's largest box extent
 constexpr int kMaxTaps = 16;
 constexpr int kMaxPad = 8;
 constexpr int kMaxRhs = 8;  // one warp a RHS for the scalar steps
+constexpr size_t kMaxSmem = 232448;  // the most dynamic shared memory a block may take
 static_assert(kMaxRhs <= kWarps, "one warp a RHS");
+static_assert(kThreads % kTileCols == 0, "whole tile rows a sweep");
+
+enum Phase { kInit, kApply, kUpdate };
 
 struct Params {
   const float* b;       // (2, B, nv, nh); RHS c at c * n, im cs further  read-only
@@ -118,22 +156,126 @@ struct Params {
   const float* strips;  // (2 bottom/top, 2 re/im, noff, nh)             read-only
   float* x;             // as b                                          out
   float* hist;          // (n_iterations + 1, NB)                        out
-  float* r;             // (NB, 2, nv, nh)                               scratch
-  float* q;             // (NB, 2, nv, nh)                               scratch
-  float* d;             // (2 ping/pong, NB, 2, nv, nh)                  scratch
+  float* r;             // (NB, 2, nv, pitch)                            scratch
+  float* d;             // (2 ping/pong, NB, 2, nv, pitch)               scratch
+  float* xw;            // (NB, 2, nv, pitch): the working copy of x     scratch
   float* part;          // (2 dq/rr, NB, gridDim.x, 2)                   scratch
   size_t cs;            // elements from a RHS's real plane of b, x0, x to its
                         // imaginary one (B * nv * nh)
-  int nv, nh, noff, pad, n_iterations;
-  int disp[kMaxTaps];   // tap displacement in the shared tile
+  int nv, nh, pitch, noff, pad, n_iterations;
+  int rows;             // tile rows
+  int hc;               // box columns each side of the tile (pad rounded up to 4)
+  int stages;           // ring slots
+  int disp[kMaxTaps];   // tap displacement in a halo box
   float cr[kMaxTaps], ci[kMaxTaps];    // interior taps
   float lr[kMaxTaps], li[kMaxTaps];    // left edge taps (column 0)
   float rr[kMaxTaps], ri[kMaxTaps];    // right edge taps (column nh - 1)
 };
 
+// TMA descriptors of the state, each over (nh, nv, planes) floats with row
+// pitch `pitch`; a box is (columns, rows, 2 re/im planes).
+struct Maps {
+  CUtensorMap r;      // halo boxes of r: planes 2 NB
+  CUtensorMap d;      // halo boxes of both d buffers: planes 4 NB
+  CUtensorMap x;      // halo boxes of xw (the init): planes 2 NB
+  CUtensorMap r_own;  // (128, rows) tiles of r
+  CUtensorMap x_own;  // (128, rows) tiles of xw
+};
+
+// Shared-memory geometry of one launch, the same in every block.
+struct Ring {
+  int br, bc;         // halo box rows, columns
+  int halo;           // floats of one halo box (both planes), 128-B multiple
+  int own;            // floats of one own tile (both planes)
+  int stage;          // floats of a ring slot
+};
+
+__host__ __device__ inline int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+__host__ __device__ inline Ring ring_of(int rows, int pad, int hc) {
+  Ring g;
+  g.br = rows + 2 * pad;
+  g.bc = kTileCols + 2 * hc;
+  g.halo = round_up(2 * g.br * g.bc, 32);
+  g.own = 2 * rows * kTileCols;
+  const int a = 2 * g.halo, b = g.halo + 2 * g.own;
+  g.stage = a > b ? a : b;
+  return g;
+}
+
+__host__ __device__ inline size_t smem_bytes(int rows, int pad, int hc,
+                                             int stages) {
+  return static_cast<size_t>(stages) * ring_of(rows, pad, hc).stage *
+         sizeof(float);
+}
+
 __device__ __forceinline__ float fmul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float fsub(float a, float b) { return __fsub_rn(a, b); }
+
+// ---- TMA, mbarriers and proxy fences (PTX) ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// Wait for the phase of the given parity to complete; trap after ~20 s
+// (a copy that never lands is a fault, not a hang).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  if (mbar_try(a, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(a, parity))
+    if (clock64() - t0 > (1ll << 35)) __trap();
+}
+
+__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int row,
+                                         int plane) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col),
+      "r"(row), "r"(plane)
+      : "memory");
+}
+
+// Order this thread's generic-proxy accesses before later async-proxy
+// (TMA) accesses, and the reverse.
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async;" ::: "memory");
+}
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// ---- reductions and scalars ----
 
 __device__ __forceinline__ float2 warp_sum(float2 v) {
   // xor butterfly: every lane ends with the same sum
@@ -182,6 +324,8 @@ __device__ __forceinline__ float2 cdiv_smith(float ar, float ai, float br,
   return make_float2((ar * b0 + ai * b1) / d, (ai * b0 - ar * b1) / d);
 }
 
+// ---- the stencil ----
+
 // sum_s (er_s + i ei_s) x_s over the taps, from 0 in tap order, for one
 // boundary term: kEdge 0 / 1 the left / right edge taps (parameters), 2 / 3
 // the bottom / top strip at column j.
@@ -213,7 +357,7 @@ __device__ __forceinline__ float2 edge_sum(const Params& p, const float* sr,
   return make_float2(ar, ai);
 }
 
-// (A v) at node (m, j); sr / si point at the node in the shared tile.
+// (A v) at node (m, j); sr / si point at the node in a halo box.
 __device__ __forceinline__ float2 apply_at(const Params& p, const float* sr,
                                            const float* si, int m, int j) {
   float qr = 0.f, qi = 0.f;
@@ -248,90 +392,6 @@ __device__ __forceinline__ float2 apply_at(const Params& p, const float* sr,
   return make_float2(qr, qi);
 }
 
-// One RHS's planes: b, x0 and x with their imaginary plane p.cs further,
-// the state (r, q, the two d buffers) with it n further.
-struct Rhs {
-  const float* b;
-  const float* x0;
-  float* x;
-  float* r;
-  float* q;
-};
-
-__device__ __forceinline__ Rhs rhs_of(const Params& p, int c) {
-  const size_t n = static_cast<size_t>(p.nv) * p.nh;
-  const size_t io = static_cast<size_t>(c) * n, st = 2 * io;
-  return Rhs{p.b + io, p.x0 + io, p.x + io, p.r + st, p.q + st};
-}
-
-// Phase A over the block's tiles for one RHS.  kInit: stage x0 and form
-// r0 = b - A x0, accumulating <r0, r0>.  Otherwise: stage d' = r + beta
-// d_old, write d' for the tile's own nodes to d_new and q = A d',
-// accumulating <d', q>.  Returns this thread's partial sum.
-template <bool kInit>
-__device__ float2 phase_apply(const Params& p, const Rhs& v, float* s_re,
-                              float* s_im, const float* d_old, float* d_new,
-                              float2 beta) {
-  const int nv = p.nv, nh = p.nh, P = p.pad;
-  const size_t n = static_cast<size_t>(nv) * nh, cs = p.cs;
-  const int ph = kTileCols + 2 * P, hr = kTileRows + 2 * P;
-  const int tiles_h = (nh + kTileCols - 1) / kTileCols;
-  const int ntiles = ((nv + kTileRows - 1) / kTileRows) * tiles_h;
-  float2 acc = make_float2(0.f, 0.f);
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int m0 = (tile / tiles_h) * kTileRows;
-    const int j0 = (tile % tiles_h) * kTileCols;
-    for (int k = threadIdx.x; k < hr * ph; k += kThreads) {
-      const int lm = k / ph, lj = k - lm * ph;
-      const int gm = m0 + lm - P, gj = j0 + lj - P;
-      float vr = 0.f, vi = 0.f;
-      if (gm >= 0 && gm < nv && gj >= 0 && gj < nh) {
-        const size_t e = static_cast<size_t>(gm) * nh + gj;
-        if (kInit) {
-          vr = __ldg(v.x0 + e);
-          vi = __ldg(v.x0 + cs + e);
-        } else {
-          const float rr = __ldcg(v.r + e), ri = __ldcg(v.r + n + e);
-          const float dr = __ldcg(d_old + e), di = __ldcg(d_old + n + e);
-          vr = fsub(fadd(rr, fmul(beta.x, dr)), fmul(beta.y, di));
-          vi = fadd(fadd(ri, fmul(beta.x, di)), fmul(beta.y, dr));
-          if (lm >= P && lm < P + kTileRows && lj >= P && lj < P + kTileCols) {
-            d_new[e] = vr;
-            d_new[n + e] = vi;
-          }
-        }
-      }
-      s_re[k] = vr;
-      s_im[k] = vi;
-    }
-    __syncthreads();
-    for (int k = threadIdx.x; k < kTileRows * kTileCols; k += kThreads) {
-      const int tm = k / kTileCols, tj = k - tm * kTileCols;
-      const int gm = m0 + tm, gj = j0 + tj;
-      if (gm >= nv || gj >= nh) continue;
-      const int c = (tm + P) * ph + tj + P;
-      const float2 aq = apply_at(p, s_re + c, s_im + c, gm, gj);
-      const size_t e = static_cast<size_t>(gm) * nh + gj;
-      if (kInit) {
-        const float rr = fsub(__ldg(v.b + e), aq.x);
-        const float ri = fsub(__ldg(v.b + cs + e), aq.y);
-        v.r[e] = rr;
-        v.r[n + e] = ri;
-        acc.x += rr * rr - ri * ri;
-        acc.y += rr * ri;
-      } else {
-        v.q[e] = aq.x;
-        v.q[n + e] = aq.y;
-        const float dr = s_re[c], di = s_im[c];
-        acc.x += dr * aq.x - di * aq.y;
-        acc.y += dr * aq.y + di * aq.x;
-      }
-    }
-    __syncthreads();
-  }
-  return acc;
-}
-
 // x += alpha d, r -= alpha q at one node; returns its <r, r> terms
 // (rr^2 - ri^2, rr ri).
 __device__ __forceinline__ float2 update_node(float2 a, float dr, float di,
@@ -345,98 +405,226 @@ __device__ __forceinline__ float2 update_node(float2 a, float dr, float di,
   return make_float2(rr * rr - ri * ri, rr * ri);
 }
 
-// Phase B for one RHS: x += alpha d', r -= alpha q over all nodes; returns
-// this thread's partial of (sum rr^2 - ri^2, sum rr ri).
-__device__ float2 phase_update(const Params& p, const Rhs& v, const float* dn,
-                               float2 a) {
-  const size_t n = static_cast<size_t>(p.nv) * p.nh, cs = p.cs;
-  const size_t t0 = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const size_t stride = static_cast<size_t>(gridDim.x) * kThreads;
-  float2 acc = make_float2(0.f, 0.f);
-  if ((n & 3) == 0 && (cs & 3) == 0) {
-    // float4 sweep: every plane starts 16-byte aligned when n (and so cs)
-    // is a multiple of 4
-    const size_t n4 = n / 4, cs4 = cs / 4;
-    const float4* d4 = reinterpret_cast<const float4*>(dn);
-    const float4* q4 = reinterpret_cast<const float4*>(v.q);
-    float4* x4 = reinterpret_cast<float4*>(v.x);
-    float4* r4 = reinterpret_cast<float4*>(v.r);
-    for (size_t e = t0; e < n4; e += stride) {
-      const float4 dr = __ldcg(d4 + e), di = __ldcg(d4 + n4 + e);
-      const float4 qr = __ldcg(q4 + e), qi = __ldcg(q4 + n4 + e);
-      float4 xr = __ldcg(x4 + e), xi = __ldcg(x4 + cs4 + e);
-      float4 rr = __ldcg(r4 + e), ri = __ldcg(r4 + n4 + e);
-      float2 t;
-      t = update_node(a, dr.x, di.x, qr.x, qi.x, xr.x, xi.x, rr.x, ri.x);
-      acc.x += t.x; acc.y += t.y;
-      t = update_node(a, dr.y, di.y, qr.y, qi.y, xr.y, xi.y, rr.y, ri.y);
-      acc.x += t.x; acc.y += t.y;
-      t = update_node(a, dr.z, di.z, qr.z, qi.z, xr.z, xi.z, rr.z, ri.z);
-      acc.x += t.x; acc.y += t.y;
-      t = update_node(a, dr.w, di.w, qr.w, qi.w, xr.w, xi.w, rr.w, ri.w);
-      acc.x += t.x; acc.y += t.y;
-      x4[e] = xr;
-      x4[cs4 + e] = xi;
-      r4[e] = rr;
-      r4[n4 + e] = ri;
+// ---- one phase over the block's tiles, fed by the ring ----
+
+// The block's share of the tiles and the running count of the ring.
+struct Walk {
+  float* slots;       // ring slot 0
+  uint64_t* full;     // one mbarrier a slot
+  Ring g;
+  int tiles_h;        // tiles across a row of tiles
+  int mine;           // tiles of this block: blockIdx.x + t gridDim.x
+  unsigned pos;       // copies consumed so far in this launch (every thread)
+  unsigned issued;    // copies issued so far (thread 0)
+};
+
+// Thread 0: issue the copies of item k of a phase (RHS k / mine, the
+// block's tile k % mine) into the next ring slot.  dbuf: the d buffer the
+// phase reads (A: the old one, B: the new one).
+template <Phase kPhase>
+__device__ __forceinline__ void issue(const Params& p, const Maps& m, Walk& w, int k, int nb,
+                      int dbuf) {
+  const int c = k / w.mine;
+  const int tile = blockIdx.x + (k - c * w.mine) * gridDim.x;
+  const int m0 = (tile / w.tiles_h) * p.rows;
+  const int j0 = (tile % w.tiles_h) * kTileCols;
+  const int slot = w.issued % p.stages;
+  float* st = w.slots + static_cast<size_t>(slot) * w.g.stage;
+  uint64_t* bar = w.full + slot;
+  const uint32_t box = 2u * w.g.br * w.g.bc * sizeof(float);
+  const uint32_t own = 2u * p.rows * kTileCols * sizeof(float);
+  const int hj = j0 - p.hc, hm = m0 - p.pad;
+  if (kPhase == kInit) {
+    mbar_expect(bar, box);
+    tma_load(st, &m.x, bar, hj, hm, 2 * c);
+  } else if (kPhase == kApply) {
+    mbar_expect(bar, 2 * box);
+    tma_load(st, &m.r, bar, hj, hm, 2 * c);
+    tma_load(st + w.g.halo, &m.d, bar, hj, hm, 2 * (dbuf * nb + c));
+  } else {
+    mbar_expect(bar, box + 2 * own);
+    tma_load(st, &m.d, bar, hj, hm, 2 * (dbuf * nb + c));
+    tma_load(st + w.g.halo, &m.r_own, bar, j0, m0, 2 * c);
+    tma_load(st + w.g.halo + w.g.own, &m.x_own, bar, j0, m0, 2 * c);
+  }
+  ++w.issued;
+}
+
+// One phase for all NB RHS: for each RHS c, over the block's tiles, the
+// phase's work on each tile; this block's partial sum of RHS c to
+// part + c * pstride.  kInit: r0 = b - A x0 and <r0, r0>; kApply: d' =
+// r + beta d_old on the halo, d' stored, <d', A d'>; kUpdate: q = A d',
+// x += alpha d', r -= alpha q, <r, r>.
+template <Phase kPhase, int NB>
+__device__ void run_phase(const Params& p, const Maps& m, Walk& w,
+                          float2* red, float* part, size_t pstride, int dbuf,
+                          const float2* coef) {
+  const int nv = p.nv, nh = p.nh, P = p.pad;
+  const int total = NB * w.mine;
+  const size_t plane = static_cast<size_t>(nv) * p.pitch;
+  const size_t n = static_cast<size_t>(nv) * nh;
+  const int bc = w.g.bc, hb = w.g.br * w.g.bc;
+  if (threadIdx.x == 0) {
+    fence_async();  // state stored before the grid barrier, read by TMA
+    for (int k = 0; k < total && k < p.stages; ++k)
+      issue<kPhase>(p, m, w, k, NB, dbuf);
+  }
+  const size_t mine = 2 * static_cast<size_t>(blockIdx.x);
+#pragma unroll 1
+  for (int c = 0; c < NB; ++c) {
+    float2 acc = make_float2(0.f, 0.f);
+    const float2 s = coef[c];
+    float* const r = p.r + static_cast<size_t>(c) * 2 * plane;
+    float* const xw = p.xw + static_cast<size_t>(c) * 2 * plane;
+    float* const dn =
+        p.d + (static_cast<size_t>(dbuf ^ 1) * NB + c) * 2 * plane;
+#pragma unroll 1
+    for (int t = 0; t < w.mine; ++t) {
+      const int k = c * w.mine + t;
+      const int tile = blockIdx.x + t * gridDim.x;
+      const int m0 = (tile / w.tiles_h) * p.rows;
+      const int j0 = (tile % w.tiles_h) * kTileCols;
+      const int slot = w.pos % p.stages;
+      float* const st = w.slots + static_cast<size_t>(slot) * w.g.stage;
+      mbar_wait(w.full + slot, (w.pos / p.stages) & 1u);
+      float* const s_re = st;
+      float* const s_im = st + hb;
+      if (kPhase == kApply) {
+        // d' = r + beta d_old over the whole box, in place of r
+        float4* const r4 = reinterpret_cast<float4*>(st);
+        const float4* const d4 = reinterpret_cast<const float4*>(st + w.g.halo);
+        const int hb4 = hb / 4;
+        for (int e = threadIdx.x; e < hb4; e += kThreads) {
+          const float4 rr = r4[e], ri = r4[hb4 + e];
+          const float4 dr = d4[e], di = d4[hb4 + e];
+          float4 vr, vi;
+#define TPCG_DIR(L)                                                    \
+  vr.L = fsub(fadd(rr.L, fmul(s.x, dr.L)), fmul(s.y, di.L));           \
+  vi.L = fadd(fadd(ri.L, fmul(s.x, di.L)), fmul(s.y, dr.L));
+          TPCG_DIR(x) TPCG_DIR(y) TPCG_DIR(z) TPCG_DIR(w)
+#undef TPCG_DIR
+          r4[e] = vr;
+          r4[hb4 + e] = vi;
+        }
+        fence_async_smem();  // the slot is refilled by TMA later
+        __syncthreads();
+      }
+      const float* const o_r = st + w.g.halo;            // phase B: r tile
+      const float* const o_x = st + w.g.halo + w.g.own;  // phase B: x tile
+      // node (tm, tj) of the tile, tm = threadIdx.x / 128 + 2 i: each thread
+      // keeps one column, and its rows in order
+      const int tj = threadIdx.x % kTileCols, gj = j0 + tj;
+      const int rows = nv - m0 < p.rows ? nv - m0 : p.rows;
+      if (gj < nh) {
+#pragma unroll 1
+        for (int tm = threadIdx.x / kTileCols; tm < rows;
+             tm += kThreads / kTileCols) {
+          const int gm = m0 + tm;
+          const int ci = (tm + P) * bc + tj + p.hc;
+          const int e = tm * kTileCols + tj;  // in an own tile
+          const float2 aq = apply_at(p, s_re + ci, s_im + ci, gm, gj);
+          const size_t g = static_cast<size_t>(gm) * p.pitch + gj;
+          if (kPhase == kInit) {
+            const size_t eb = static_cast<size_t>(c) * n +
+                              static_cast<size_t>(gm) * nh + gj;
+            const float rr = fsub(__ldg(p.b + eb), aq.x);
+            const float ri = fsub(__ldg(p.b + p.cs + eb), aq.y);
+            r[g] = rr;
+            r[plane + g] = ri;
+            acc.x += rr * rr - ri * ri;
+            acc.y += rr * ri;
+          } else if (kPhase == kApply) {
+            const float dr = s_re[ci], di = s_im[ci];
+            dn[g] = dr;
+            dn[plane + g] = di;
+            acc.x += dr * aq.x - di * aq.y;
+            acc.y += dr * aq.y + di * aq.x;
+          } else {
+            float xr, xi, rr, ri;
+            rr = o_r[e];
+            ri = o_r[p.rows * kTileCols + e];
+            xr = o_x[e];
+            xi = o_x[p.rows * kTileCols + e];
+            const float2 tr = update_node(s, s_re[ci], s_im[ci], aq.x, aq.y,
+                                          xr, xi, rr, ri);
+            acc.x += tr.x;
+            acc.y += tr.y;
+            xw[g] = xr;
+            xw[plane + g] = xi;
+            r[g] = rr;
+            r[plane + g] = ri;
+          }
+        }
+      }
+      __syncthreads();  // the slot is free
+      ++w.pos;
+      if (threadIdx.x == 0 && k + p.stages < total)
+        issue<kPhase>(p, m, w, k + p.stages, NB, dbuf);
     }
-    return acc;
+    block_partial(acc, red, part + c * pstride + mine);
   }
-  for (size_t e = t0; e < n; e += stride) {
-    float xr = __ldcg(v.x + e), xi = __ldcg(v.x + cs + e);
-    float rr = __ldcg(v.r + e), ri = __ldcg(v.r + n + e);
-    const float2 t = update_node(a, __ldcg(dn + e), __ldcg(dn + n + e),
-                                 __ldcg(v.q + e), __ldcg(v.q + n + e), xr, xi,
-                                 rr, ri);
-    acc.x += t.x;
-    acc.y += t.y;
-    v.x[e] = xr;
-    v.x[cs + e] = xi;
-    v.r[e] = rr;
-    v.r[n + e] = ri;
-  }
-  return acc;
+  fence_async();  // stores above are read by TMA after the grid barrier
 }
 
 template <int NB>
-__global__ void __launch_bounds__(kThreads) stream_cg_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, 2)
+    stream_cg_kernel(Params p, const __grid_constant__ Maps maps) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ float tile[];
+  extern __shared__ __align__(128) float ring[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
   __shared__ float2 red[kWarps];
   __shared__ float2 s_delta[NB], s_alpha[NB], s_beta[NB];
   __shared__ int s_done[NB];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nblocks = gridDim.x;
-  const size_t n = static_cast<size_t>(p.nv) * p.nh;
-  const size_t t0 = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const size_t stride = static_cast<size_t>(nblocks) * kThreads;
-  const int tile_len = (kTileRows + 2 * p.pad) * (kTileCols + 2 * p.pad);
-  float* const s_re = tile;
-  float* const s_im = tile + tile_len;
+  const int nv = p.nv, nh = p.nh;
+  const size_t n = static_cast<size_t>(nv) * nh;
+  const size_t plane = static_cast<size_t>(nv) * p.pitch;
+  const int tiles_h = (nh + kTileCols - 1) / kTileCols;
+  const int ntiles = ((nv + p.rows - 1) / p.rows) * tiles_h;
+  Walk w;
+  w.slots = ring;
+  w.full = full;
+  w.g = ring_of(p.rows, p.pad, p.hc);
+  w.tiles_h = tiles_h;
+  w.mine = (ntiles - static_cast<int>(blockIdx.x) + nblocks - 1) / nblocks;
+  w.pos = w.issued = 0;
   // partials of RHS c: <d', q> at part_dq(c), <r, r> at part_rr(c); this
   // block's pair at + 2 blockIdx.x
   const size_t pstride = 2 * static_cast<size_t>(nblocks);
   float* const part_dq = p.part;
   float* const part_rr = p.part + NB * pstride;
-  const size_t mine = 2 * static_cast<size_t>(blockIdx.x);
-  const size_t dstride = NB * 2 * n;  // one d buffer of all NB RHS
   const float2 zero = make_float2(0.f, 0.f);
 
-  // init: x = x0, d = 0 (the ping buffer, read by iteration 0),
-  // r0 = b - A x0 and the partials of <r0, r0>.
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) mbar_init(full + s);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // init: xw = x0 and d = 0 (the ping buffer, read by iteration 0) on the
+  // grid's nodes; then r0 = b - A x0 and the partials of <r0, r0>
 #pragma unroll 1
   for (int c = 0; c < NB; ++c) {
-    const Rhs v = rhs_of(p, c);
-    float* const dc = p.d + static_cast<size_t>(c) * 2 * n;
-    for (size_t e = t0; e < n; e += stride) {
-      v.x[e] = __ldg(v.x0 + e);
-      v.x[p.cs + e] = __ldg(v.x0 + p.cs + e);
-      dc[e] = 0.f;
-      dc[n + e] = 0.f;
-    }
-    block_partial(phase_apply<true>(p, v, s_re, s_im, nullptr, nullptr, zero),
-                  red, part_rr + c * pstride + mine);
+    const float* x0 = p.x0 + static_cast<size_t>(c) * n;
+    float* xw = p.xw + static_cast<size_t>(c) * 2 * plane;
+    float* dc = p.d + static_cast<size_t>(c) * 2 * plane;
+    for (int row = blockIdx.x; row < nv; row += nblocks)
+      for (int j = threadIdx.x; j < nh; j += kThreads) {
+        const size_t e = static_cast<size_t>(row) * nh + j;
+        const size_t g = static_cast<size_t>(row) * p.pitch + j;
+        xw[g] = __ldg(x0 + e);
+        xw[plane + g] = __ldg(x0 + p.cs + e);
+        dc[g] = 0.f;
+        dc[plane + g] = 0.f;
+      }
+  }
+  fence_async();
+  __syncthreads();  // the mbarriers are initialised
+  grid.sync();
+  {
+    float2 none[NB];
+    for (int c = 0; c < NB; ++c) none[c] = zero;
+    run_phase<kInit, NB>(p, maps, w, red, part_rr, pstride, 0, none);
   }
   grid.sync();
   if (warp < NB) {
@@ -453,16 +641,9 @@ __global__ void __launch_bounds__(kThreads) stream_cg_kernel(Params p) {
   __syncthreads();
 
   for (int it = 0; it < p.n_iterations; ++it) {
-    const float* d_old = p.d + static_cast<size_t>(it & 1) * dstride;
-    float* d_new = p.d + static_cast<size_t>((it + 1) & 1) * dstride;
-    // phase A: d' = r + beta d, q = A d', partials of <d', q>
-#pragma unroll 1
-    for (int c = 0; c < NB; ++c) {
-      const size_t dc = static_cast<size_t>(c) * 2 * n;
-      block_partial(phase_apply<false>(p, rhs_of(p, c), s_re, s_im,
-                                       d_old + dc, d_new + dc, s_beta[c]),
-                    red, part_dq + c * pstride + mine);
-    }
+    const int d_old = it & 1;  // d_new is the other buffer
+    // phase A: d' = r + beta d, partials of <d', A d'>
+    run_phase<kApply, NB>(p, maps, w, red, part_dq, pstride, d_old, s_beta);
     grid.sync();
 
     // alpha, bit-identical in every block; warp c for RHS c
@@ -478,14 +659,9 @@ __global__ void __launch_bounds__(kThreads) stream_cg_kernel(Params p) {
     }
     __syncthreads();
 
-    // phase B: x += alpha d', r -= alpha q, partials of <r, r>
-#pragma unroll 1
-    for (int c = 0; c < NB; ++c) {
-      const float2 pr = phase_update(p, rhs_of(p, c),
-                                     d_new + static_cast<size_t>(c) * 2 * n,
-                                     s_alpha[c]);
-      block_partial(pr, red, part_rr + c * pstride + mine);
-    }
+    // phase B: q = A d', x += alpha d', r -= alpha q, partials of <r, r>
+    run_phase<kUpdate, NB>(p, maps, w, red, part_rr, pstride, d_old ^ 1,
+                           s_alpha);
     grid.sync();
 
     // beta and the history
@@ -503,17 +679,23 @@ __global__ void __launch_bounds__(kThreads) stream_cg_kernel(Params p) {
     }
     __syncthreads();
   }
+
+  // x = xw on the grid's nodes
+#pragma unroll 1
+  for (int c = 0; c < NB; ++c) {
+    float* x = p.x + static_cast<size_t>(c) * n;
+    const float* xw = p.xw + static_cast<size_t>(c) * 2 * plane;
+    for (int row = blockIdx.x; row < nv; row += nblocks)
+      for (int j = threadIdx.x; j < nh; j += kThreads) {
+        const size_t e = static_cast<size_t>(row) * nh + j;
+        const size_t g = static_cast<size_t>(row) * p.pitch + j;
+        x[e] = __ldcg(xw + g);
+        x[p.cs + e] = __ldcg(xw + plane + g);
+      }
+  }
 }
 
-// Dynamic shared memory: the re and im planes of one halo tile (at most
-// 36,864 bytes, under the 48 KB a launch may take without opting in).
-constexpr size_t smem_bytes(int pad) {
-  return static_cast<size_t>(2) * (kTileRows + 2 * pad) *
-         (kTileCols + 2 * pad) * sizeof(float);
-}
-static_assert(smem_bytes(kMaxPad) <= 48 * 1024, "halo tile past 48 KB");
-
-using Kernel = void (*)(Params);
+using Kernel = void (*)(Params, Maps);
 
 Kernel kernel_for(int nb) {
   switch (nb) {
@@ -530,6 +712,77 @@ Kernel kernel_for(int nb) {
 }
 static_assert(kMaxRhs == 8, "kernel_for lists the instances");
 
+// The tile geometry the caller passes: refuse what the kernel cannot run.
+bool geometry_ok(int nv, int nh, int pitch, int pad, int rows, int hc,
+                 int stages) {
+  return nv >= 1 && nh >= 1 && pad >= 0 && pad <= kMaxPad && rows >= 1 &&
+         rows + 2 * pad <= kMaxBox && hc >= pad && hc % 4 == 0 &&
+         kTileCols + 2 * hc <= kMaxBox && pitch % 32 == 0 &&
+         pitch >= nh + pad && stages >= 2 && stages <= kMaxStages &&
+         smem_bytes(rows, pad, hc, stages) <= kMaxSmem;
+}
+
+// Every instance may take the ring's dynamic shared memory (past 48 KB a
+// kernel must opt in, before the occupancy query and the launch).
+cudaError_t allow_smem(size_t bytes) {
+  for (int nb = 1; nb <= kMaxRhs; ++nb) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(kernel_for(nb)),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, through the runtime's entry-point query.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                         cudaEnableDefault,
+                                         &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#endif
+    fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// A map over `planes` float planes of (nv, nh) with row pitch `pitch` at
+// base, read in boxes of (cols, rows, 2); out-of-bounds elements read 0.
+bool encode(EncodeTiled fn, CUtensorMap* map, float* base, int nh, int nv,
+            int planes, int pitch, int cols, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(nh),
+                              static_cast<cuuint64_t>(nv),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(pitch) * sizeof(float),
+      static_cast<cuuint64_t>(pitch) * nv * sizeof(float)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols),
+                             static_cast<cuuint32_t>(rows), 2};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
 extern "C" {
@@ -542,18 +795,24 @@ int tpcg_stream_cg_limits(int* max_taps, int* max_pad, int* max_rhs) {
   return 0;
 }
 
-// Grid size of an nb-RHS launch on an (nv, nh) grid on the current device:
-// the one-RHS instance's grid, one block per 16 x 128 tile where the card
-// has room, at most kBlocksPerSm blocks per SM, never more than can be
+// Grid size of an nb-RHS launch on an (nv, nh) grid with tiles of `rows`
+// rows, box halo `hc` columns and a ring of `stages` slots on the current
+// device: the one-RHS instance's grid, one block per tile where the card
+// has room, at most `per_sm_cap` blocks per SM, never more than can be
 // co-resident (a larger cooperative launch is refused).  Every nb gets the
 // same grid, so a RHS's partial sums, and bits, do not depend on nb; an
 // instance that cannot hold that grid on the card is refused.
-int tpcg_stream_cg_grid(int nb, int nv, int nh, int pad, int* grid_out) {
+int tpcg_stream_cg_grid(int nb, int nv, int nh, int pitch, int pad, int rows,
+                        int hc, int stages, int per_sm_cap, int* grid_out) {
   const Kernel k = kernel_for(nb);
-  if (k == nullptr || nv < 1 || nh < 1 || pad < 0 || pad > kMaxPad)
+  if (k == nullptr || per_sm_cap < 1 ||
+      !geometry_ok(nv, nh, pitch, pad, rows, hc, stages))
     return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(rows, pad, hc, stages);
+  cudaError_t err = allow_smem(smem);
+  if (err != cudaSuccess) return err;
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   int sms = 0, coop = 0, per_sm = 0, per_sm_nb = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -562,17 +821,16 @@ int tpcg_stream_cg_grid(int nb, int nv, int nh, int pad, int* grid_out) {
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, stream_cg_kernel<1>, kThreads, smem_bytes(pad));
+      &per_sm, stream_cg_kernel<1>, kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  if (per_sm > kBlocksPerSm) per_sm = kBlocksPerSm;
-  const long long tiles =
-      static_cast<long long>((nv + kTileRows - 1) / kTileRows) *
-      ((nh + kTileCols - 1) / kTileCols);
+  if (per_sm > per_sm_cap) per_sm = per_sm_cap;
+  const long long tiles = static_cast<long long>((nv + rows - 1) / rows) *
+                          ((nh + kTileCols - 1) / kTileCols);
   long long g = tiles;
   if (g > static_cast<long long>(per_sm) * sms) g = per_sm * sms;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm_nb, k, kThreads,
-                                                      smem_bytes(pad));
+                                                      smem);
   if (err != cudaSuccess) return err;
   if (static_cast<long long>(per_sm_nb) * sms < g)
     return cudaErrorCooperativeLaunchTooLarge;
@@ -582,19 +840,22 @@ int tpcg_stream_cg_grid(int nb, int nv, int nh, int pad, int* grid_out) {
 
 // b, x0, x: nb RHS of (2, B, nv, nh) float planes, RHS c's real plane at
 // c * nv * nh and its imaginary one cs further (cs = B * nv * nh, B >= nb);
-// strips: (2, 2, noff, nh); r, q: (nb, 2, nv, nh); d: (2, nb, 2, nv, nh);
-// hist: (n_iterations + 1, nb); part: 4 * nb * grid.  offsets: host array
-// of 2 * noff ints (dm, dj), |dm|, |dj| <= pad; taps: host array of
-// 6 * noff floats (cr, ci, lcr, lci, rcr, rci).  grid: from
-// tpcg_stream_cg_grid.
+// strips: (2, 2, noff, nh); r, xw: (nb, 2, nv, pitch); d: (2, nb, 2, nv,
+// pitch), all three zero past column nh; hist: (n_iterations + 1, nb);
+// part: 4 * nb * grid.  offsets: host array of 2 * noff ints (dm, dj),
+// |dm|, |dj| <= pad; taps: host array of 6 * noff floats (cr, ci, lcr,
+// lci, rcr, rci).  pitch, rows, hc, stages: the layout of
+// tpcg_torch.ops.stream_cg.stream_layout; grid: from tpcg_stream_cg_grid
+// with the same layout.
 int tpcg_stream_cg(const float* b, const float* x0, const float* strips,
-                   float* x, float* hist, float* r, float* q, float* d,
+                   float* x, float* hist, float* r, float* d, float* xw,
                    float* part, int nb, long long cs, int nv, int nh,
-                   int noff, const int* offsets, const float* taps, int pad,
+                   int pitch, int noff, const int* offsets, const float* taps,
+                   int pad, int rows, int hc, int stages,
                    int n_iterations, int grid, void* stream) {
   const Kernel k = kernel_for(nb);
-  if (k == nullptr || nv < 1 || nh < 1 || noff < 1 || noff > kMaxTaps ||
-      pad < 0 || pad > kMaxPad || n_iterations < 0 || grid < 1 ||
+  if (k == nullptr || noff < 1 || noff > kMaxTaps || n_iterations < 0 ||
+      grid < 1 || !geometry_ok(nv, nh, pitch, pad, rows, hc, stages) ||
       cs < static_cast<long long>(nb) * nv * nh)
     return cudaErrorInvalidValue;
   Params p;
@@ -604,15 +865,20 @@ int tpcg_stream_cg(const float* b, const float* x0, const float* strips,
   p.x = x;
   p.hist = hist;
   p.r = r;
-  p.q = q;
   p.d = d;
+  p.xw = xw;
   p.part = part;
   p.cs = static_cast<size_t>(cs);
   p.nv = nv;
   p.nh = nh;
+  p.pitch = pitch;
   p.noff = noff;
   p.pad = pad;
   p.n_iterations = n_iterations;
+  p.rows = rows;
+  p.hc = hc;
+  p.stages = stages;
+  const int bc = kTileCols + 2 * hc;
   for (int s = 0; s < kMaxTaps; ++s) {
     p.disp[s] = 0;
     p.cr[s] = p.ci[s] = p.lr[s] = p.li[s] = p.rr[s] = p.ri[s] = 0.f;
@@ -620,7 +886,7 @@ int tpcg_stream_cg(const float* b, const float* x0, const float* strips,
   for (int s = 0; s < noff; ++s) {
     const int dm = offsets[2 * s], dj = offsets[2 * s + 1];
     if (std::abs(dm) > pad || std::abs(dj) > pad) return cudaErrorInvalidValue;
-    p.disp[s] = dm * (kTileCols + 2 * pad) + dj;
+    p.disp[s] = dm * bc + dj;
     p.cr[s] = taps[s];
     p.ci[s] = taps[noff + s];
     p.lr[s] = taps[2 * noff + s];
@@ -628,10 +894,23 @@ int tpcg_stream_cg(const float* b, const float* x0, const float* strips,
     p.rr[s] = taps[4 * noff + s];
     p.ri[s] = taps[5 * noff + s];
   }
-  void* args[] = {&p};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(k), dim3(grid), dim3(kThreads), args,
-      smem_bytes(pad), static_cast<cudaStream_t>(stream));
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  Maps maps;
+  const int br = rows + 2 * pad;
+  if (!encode(fn, &maps.r, r, nh, nv, 2 * nb, pitch, bc, br) ||
+      !encode(fn, &maps.d, d, nh, nv, 4 * nb, pitch, bc, br) ||
+      !encode(fn, &maps.x, xw, nh, nv, 2 * nb, pitch, bc, br) ||
+      !encode(fn, &maps.r_own, r, nh, nv, 2 * nb, pitch, kTileCols, rows) ||
+      !encode(fn, &maps.x_own, xw, nh, nv, 2 * nb, pitch, kTileCols, rows))
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(rows, pad, hc, stages);
+  cudaError_t err = allow_smem(smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&p, &maps};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(k),
+                                    dim3(grid), dim3(kThreads), args, smem,
+                                    static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

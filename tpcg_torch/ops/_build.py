@@ -39,9 +39,9 @@ _FP = ctypes.POINTER(ctypes.c_float)
 # cudaError_t, except tpcg_error_string)
 _SIGNATURES = {
     "tpcg_stream_cg_limits": (_IP, _IP, _IP),
-    "tpcg_stream_cg_grid": (_I, _I, _I, _I, _IP),
-    "tpcg_stream_cg": (_P,) * 9 + (_I, _LL, _I, _I, _I, _IP, _FP, _I, _I,
-                                   _I, _P),
+    "tpcg_stream_cg_grid": (_I,) * 9 + (_IP,),
+    "tpcg_stream_cg": (_P,) * 9 + (_I, _LL, _I, _I, _I, _I, _IP, _FP) +
+    (_I,) * 6 + (_P,),
     "tpcg_stream_sym_limits": (_IP, _IP),
     "tpcg_stream_sym_grid": (_I, _I, _I, _IP),
     "tpcg_stream_sym": (_P,) * 9 + (_I,) * 3 + (_IP, _I, _I, _I, _P),

@@ -50,9 +50,9 @@ Six paths are ported; each maps to a planner path of the JAX package:
                 1024^2.
 
 Several RHS on ``stream`` share a launch (chunks of up to eight) on grids
-of 1448^2 to below 4096^2 nodes, where that was faster per RHS-iteration
+of 1024^2 to below 4096^2 nodes, where that was faster per RHS-iteration
 on the H100, and run one launch a RHS elsewhere (``_stream_chunk``; the
-numbers are beside ``_STREAM_BATCH_MIN_NODES`` and in PERF.md, PR 9); each
+numbers are beside ``_STREAM_BATCH_MIN_NODES`` and in PERF.md); each
 RHS gives the same bits either way.  JAX takes its batched kernels only
 where no resident tier fits, and chunks of 16.  On the other streaming
 paths but general ``stream-coef`` several RHS run as sequential
@@ -102,14 +102,15 @@ _FUSED_BATCH_MAX = 2
 # _STREAM_BATCH_MAX_NODES nodes several RHS share a launch of
 # csrc/stream_cg.cu (chunks of up to 8); elsewhere each RHS has its own
 # launch.  Per RHS-iteration, batched / sequential on an NVIDIA H100 80GB
-# HBM3 at 700 W (PERF.md, PR 9; chip_smoke.py phase 20 and
-# probes/stream_batch_boundary.py): 1.05-1.16 at N=1024 and 1.02 at N=1200
-# B=2 (one RHS's state nearly fits the 50 MB L2 and stays there between
-# one-RHS launches; several RHS in a launch evict each other), 0.91-0.96
-# at N=1448, 0.96-0.98 at 2048, 0.97 at 2100, 0.98 at 2500, 0.99 at 2896,
-# 0.998 at 3072, and 1.007-1.017 at 4096 (B=2, 4), against 0.9998-1.003
-# between two identical launches.
-_STREAM_BATCH_MIN_NODES = 1448 * 1448
+# HBM3 at 700 W (PERF.md, Findings;
+# probes/stream_batch_boundary.py): 1.003 at N=1024 B=2 and 0.932 at B=8,
+# 1.025 / 0.953 at N=1200 B=2 / 4, 0.901 / 0.839 at 1448 B=2 / 8, 0.949 /
+# 0.890 at 2048 B=2 / 8, 0.958 at 2896, 0.962 at 3072, and 0.990 / 1.013 at
+# 4096 B=2 / 4, against 0.9986 between two identical launches.  (The
+# kernel's earlier design, which stored q, lost 5-16% at 1024: one RHS's
+# state stayed in the L2 between one-RHS launches; the padded, TMA-fed
+# design's one-RHS launch gains nothing there.)
+_STREAM_BATCH_MIN_NODES = 1024 * 1024
 _STREAM_BATCH_MAX_NODES = 4096 * 4096
 
 

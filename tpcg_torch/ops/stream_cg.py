@@ -1,8 +1,8 @@
 """Fixed-iteration COCG on constant-tap complex stencils beyond the whole-solve size (counterpart of ``tpcg/ops/stream_cg.py``, the planner's ``stream`` path).
 
 ``stream_cg_const_planes`` runs ``n_iterations`` of single-RHS complex COCG
-on a stencil whose interior taps are constant, with the CG state (x, r, the
-direction d and q = A d) in device memory; ``stream_cg_const_planes_batched``
+on a stencil whose interior taps are constant, with the CG state (x, r and
+the direction d) in device memory; ``stream_cg_const_planes_batched``
 runs the same for B right-hand sides, each with its own alpha, beta and
 freeze guard.  On CUDA tensors both launch the hand-written kernel
 ``tpcg_torch/csrc/stream_cg.cu`` (one persistent cooperative launch per
@@ -31,7 +31,7 @@ for the TPU.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -242,6 +242,58 @@ def stream_cg_const_planes_batched_plain(offsets: Sequence[Tuple[int, int]],
             torch.stack([h for _, h in runs], dim=1))
 
 
+# The kernel's tile and ring (csrc/stream_cg.cu), from the sweep of
+# probes/stream_cg_phases.py on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
+# Findings): tile rows, ring slots and the most blocks an SM.
+TILE_ROWS = 16
+STAGES = 2
+BLOCKS_PER_SM = 2
+TILE_COLS = 128
+
+
+class StreamLayout(NamedTuple):
+    """Where ``csrc/stream_cg.cu`` keeps its state and how it tiles it."""
+    pitch: int        # row pitch of r, d and the working x (floats)
+    tile_rows: int    # a tile is tile_rows x TILE_COLS nodes
+    col_halo: int     # box columns each side of a tile: pad rounded up to 4
+    box_rows: int     # halo box: tile_rows + 2 pad rows ...
+    box_cols: int     # ... by TILE_COLS + 2 col_halo columns
+    stages: int       # ring slots of shared memory, one mbarrier each
+    blocks_per_sm: int
+    tiles: int        # tiles of the grid
+    smem_bytes: int   # the ring's dynamic shared memory
+    bytes_a: float    # bytes a node and RHS: phase A (r, d_old halos; d')
+    bytes_b: float    # phase B (d' halo; r, x read and written)
+
+
+def stream_layout(nv: int, nh: int, pad: int, tile_rows: int = None,
+                  stages: int = None) -> StreamLayout:
+    """The layout of one launch of ``csrc/stream_cg.cu`` on an (nv, nh) grid
+    with a stencil of reach ``pad`` (defaults: the module's ``TILE_ROWS``,
+    ``STAGES``, ``BLOCKS_PER_SM``).
+
+    The state planes' row pitch is nh + pad rounded up to 32 floats
+    (128 B), so every row starts aligned and at least ``pad`` zero columns
+    follow nh.  A tile's halo box starts ``col_halo`` columns left of the
+    tile, so that its rows are 16-byte multiples (TMA's rule).  Bytes a
+    node and RHS per iteration, with h = box / tile - 1 the halo's share:
+    phase A 16 (1 + h) + 8, phase B 8 (1 + h) + 32.  ``smem_bytes`` is the
+    kernel's own formula (``smem_bytes`` in the source)."""
+    rows = TILE_ROWS if tile_rows is None else tile_rows
+    stages = STAGES if stages is None else stages
+    pitch = -(-(nh + pad) // 32) * 32
+    hc = -(-pad // 4) * 4
+    br, bc = rows + 2 * pad, TILE_COLS + 2 * hc
+    halo = -(-(2 * br * bc) // 32) * 32
+    own = 2 * rows * TILE_COLS
+    stage = max(2 * halo, halo + 2 * own)
+    tiles = -(-nv // rows) * -(-nh // TILE_COLS)
+    share = br * bc / (rows * TILE_COLS)
+    return StreamLayout(pitch, rows, hc, br, bc, stages,
+                        BLOCKS_PER_SM, tiles, 4 * stages * stage,
+                        16 * share + 8, 8 * share + 32)
+
+
 def kernel_limits() -> Tuple[int, int, int]:
     """(max taps, max stencil pad, max RHS in one launch) of the CUDA
     kernel."""
@@ -254,11 +306,13 @@ def kernel_limits() -> Tuple[int, int, int]:
 
 def grid_blocks(nb: int, nv: int, nh: int, pad: int) -> int:
     """Blocks of one launch of the nb-RHS instance on an (nv, nh) grid on
-    the current CUDA device: the single-RHS grid, whatever nb."""
+    the current CUDA device, with :func:`stream_layout`'s tiles: the
+    single-RHS grid, whatever nb."""
+    lay = stream_layout(nv, nh, pad)
     blocks = ctypes.c_int()
-    _build.check(_build.load().tpcg_stream_cg_grid(nb, nv, nh, pad,
-                                                   ctypes.byref(blocks)),
-                 "tpcg_stream_cg_grid")
+    _build.check(_build.load().tpcg_stream_cg_grid(
+        nb, nv, nh, lay.pitch, pad, lay.tile_rows, lay.col_halo, lay.stages,
+        lay.blocks_per_sm, ctypes.byref(blocks)), "tpcg_stream_cg_grid")
     return blocks.value
 
 
@@ -283,13 +337,15 @@ def _launch(offsets, grid, taps, strips, bp, x0p, n_iterations,
     strips, bp, x0p = strips.contiguous(), bp.contiguous(), x0p.contiguous()
     dev = bp.device
     m = min(nb, chunk)
+    lay = stream_layout(nv, nh, P)
     with torch.cuda.device(dev):
         f32 = dict(dtype=torch.float32, device=dev)
         x = torch.empty_like(bp)
-        # scratch for the largest chunk, reused by the chunks in turn
-        r = torch.empty((m, 2, nv, nh), **f32)
-        q = torch.empty((m, 2, nv, nh), **f32)
-        d = torch.empty((2, m, 2, nv, nh), **f32)
+        # state for the largest chunk in the kernel's padded rows, reused by
+        # the chunks in turn; the columns past nh stay zero
+        r = torch.zeros((m, 2, nv, lay.pitch), **f32)
+        d = torch.zeros((2, m, 2, nv, lay.pitch), **f32)
+        xw = torch.zeros((m, 2, nv, lay.pitch), **f32)
         offs = (ctypes.c_int * (2 * noff))(
             *[int(v) for tap in offsets for v in tap])
         tap_vals = (ctypes.c_float * (6 * noff))(
@@ -304,8 +360,9 @@ def _launch(offsets, grid, taps, strips, bp, x0p, n_iterations,
             err = lib.tpcg_stream_cg(
                 bp[:, lo].data_ptr(), x0p[:, lo].data_ptr(),
                 strips.data_ptr(), x[:, lo].data_ptr(), hist.data_ptr(),
-                r.data_ptr(), q.data_ptr(), d.data_ptr(), part.data_ptr(), k,
-                nb * n, nv, nh, noff, offs, tap_vals, P, n_iterations,
+                r.data_ptr(), d.data_ptr(), xw.data_ptr(), part.data_ptr(),
+                k, nb * n, nv, nh, lay.pitch, noff, offs, tap_vals, P,
+                lay.tile_rows, lay.col_halo, lay.stages, n_iterations,
                 blocks, stream)
             _build.check(err, "tpcg_stream_cg")
             stream_cg_const_planes.launches += 1
