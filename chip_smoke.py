@@ -141,20 +141,25 @@ Phases, in order; the first failure exits non-zero:
      class helm_fe_var(N, 8, C, rho=0.5) made non-symmetric (plane 1 times
      1.5) cut to 256 x 256 (NB=1), 301 x 517 (2), 1031 x 1024 (3), 600 x
      1000 (4), 37 x 45 (5), 300 x 700 and 1024 x 1024 (8), 40 iterations
-     from a seeded x0; a 13-point pad-2 stencil at NB=1 and 4; each RHS of
-     NB=2, 4 and 8 launches against its own NB=1 launch (bit-equal at NB=2,
-     where the partition of the float64 sums is the same); 2 I over 400
-     iterations at NB=3 (x within 2e-3 max|x|, the live history within rel
-     1e-2, two launches bit-equal);
+     from a seeded x0; a 13-point pad-2 stencil at NB=1 and 4; a 32-offset
+     pad-8 stencil (the kernel's limits) at NB=1 and 8, 20 iterations; each
+     RHS of NB=2, 4 and 8 launches, among them the odd width 513 x 1027
+     and the uneven tiles of 700 x 901, against the plain version and,
+     bit for bit, against its own NB=1 launch; 2 I over 400 iterations at
+     NB=3 (x within 2e-3 max|x|, the live history within rel 1e-2, two
+     launches bit-equal); the eight instances' registers (none may spill)
+     and ``coef_layout`` at pads 1, 2 and 8;
  18. the planner's ``stream-coef`` path on that non-symmetric class at full
      size, as phase 9 (only ``stream_cg_coef`` may move, one launch per
      chunk of at most 8 RHS): N=1024 x 1000 at B=1 and 2, N=2048 x 500 at
      B=1, 2, 4 and 8, N=2049 x 500 and N=4096 x 1000 (B=1), with RHS the
      plane wave plane_wave_rhs(N, 8) times (1 + 0.1j r)
      (exp_batchfat.py:57-58); each prints us/it and us per RHS-iteration,
-     GFLOPS by Table II, the bytes floor (48 B a RHS and 8 B a coefficient
-     plane a node), the launches, the float64 relative residual and a
-     100-iteration gate of every RHS against the plain version; then the
+     GFLOPS by Table II, the kernel's own bytes (``coef_layout``) and the
+     bytes floor (48 B a RHS and 8 B a coefficient plane a node) with their
+     rates, the launches, the float64 relative residual and a 100-iteration
+     gate of every RHS against the plain version; row 8's cell (N=4096)
+     against the kernel's time before its redesign (PERF.md, row 8); then the
      general kernel called on the symmetric class at N=2048 x 500, where
      COCG converges, against the symmetric kernel (x within 2e-3 max|x|,
      both residuals printed);
@@ -1835,6 +1840,11 @@ def phase_route_tables(dev):
 
 # ---- phases 17-18: general variable coefficients (csrc/stream_cg_coef.cu) --
 
+# row 8 of PERF.md's kernel table: stream_cg_coef at the class below, N=4096
+# x 1000, B=1, before its redesign (TMA-fed phase A, padded pitch): 999.598
+# ms (NVIDIA H100 80GB HBM3, 700 W; PERF.md, row 8)
+ROW8_MS = 999.598
+
 # the general-coefficient benchmark configuration's omega and damping
 # (benchmarks/exp_batchfat.py:32-36)
 OMEGA_GEN = 8.0
@@ -1930,36 +1940,82 @@ def phase_coef_compare(dev):
                  f"NB={nb})")
         worst = max(worst, err)
 
-    # each RHS of an NB launch against its own NB = 1 launch: bit-equal
-    # where the partition of the float64 sums is the same (NB = 2 shares
-    # NB = 1's tile, and 300 x 700 has fewer tiles than the card holds
-    # blocks), else printed
-    for nv, nh, nb in ((300, 700, 2), (1024, 1024, 4), (1024, 1024, 8)):
+    # a stencil at the kernel's limits: pad 8 and 32 offsets, odd grid
+    nv, nh = 157, 203
+    rng = np.random.default_rng(3)
+    ring = [(dm, dj) for dm in range(-8, 9) for dj in range(-8, 9)
+            if (dm, dj) not in ((0, 0), (8, -8))]
+    offsets = ((0, 0), (8, -8)) + tuple(
+        ring[i] for i in rng.choice(len(ring), size=30, replace=False))
+    c = -0.1 * (1.0 + 0.3 * rng.random((32, nv, nh))) + 0.02j
+    c[0] = 4.0 + 0.5j + 0.1 * rng.random((nv, nh))
+    coefp = tgc.prepare_stream_coef(
+        Stencil2D(offsets, torch.from_numpy(c).to(dev), (nv, nh)))
+    for nb in (1, 8):
+        bp = planes(random_guess((nb, nv, nh), 50 + nb), dev)
+        x0p = planes(0.1 * random_guess((nb, nv, nh), 60 + nb), dev)
+        ok, err, lim, rel, same = coef_gate(tgc, offsets, coefp, bp, x0p, 20)
+        print(f"compare stream_cg_coef pad 8, 32 offsets {nv}x{nh} NB={nb} 20 "
+              f"it: max|x err| {err:.3e} (limit {lim:.3e}), hist max rel "
+              f"{rel:.3e}, bit-equal to plain {same}; layout "
+              f"{tgc.coef_layout(nv, nh, 8, nb, 32)}")
+        if not ok:
+            fail(f"stream_cg_coef disagrees with its plain version (pad 8, "
+                 f"NB={nb})")
+        worst = max(worst, err)
+
+    # each RHS of an NB launch against its own NB = 1 launch, bit for bit
+    # (the tile, the rings and the grid do not depend on NB), and against
+    # the plain version: odd widths whose rows the kernel pads (513 x 1027)
+    # and grids whose blocks take uneven numbers of tiles (700 x 901)
+    for nv, nh, nb in ((300, 700, 2), (1024, 1024, 4), (1024, 1024, 8),
+                       (513, 1027, 2), (513, 1027, 8), (700, 901, 2),
+                       (700, 901, 8)):
         A = coef_class(dev, nv, nh)
         coefp = tgc.prepare_stream_coef(A)
         bp = planes(coef_rhs(nv, nh, nb), dev)
-        x0p = torch.zeros_like(bp)
+        x0p = planes(0.1 * random_guess((nb, nv, nh), nv + nb), dev)
+        ok, err, lim, rel, _ = coef_gate(tgc, A.offsets, coefp, bp, x0p, 40)
         xb, hb = tgc.stream_cg_coef_planes_batched_fat(A.offsets, coefp, bp,
                                                        x0p, 40)
-        diffs, equal = [], True
+        equal = True
         for k in range(nb):
             x1, h1 = tgc.stream_cg_coef_planes(A.offsets, coefp, bp[:, k],
                                                x0p[:, k], 40)
-            diffs.append(float((xb[:, k] - x1).abs().max() / x1.abs().max()))
             equal = equal and torch.equal(xb[:, k], x1) and torch.equal(
                 hb[:, k], h1)
-        print(f"stream_cg_coef {nv}x{nh} NB={nb} vs NB=1 launches, 40 it: "
-              f"max|x diff| / max|x| by RHS "
-              f"{', '.join(f'{d:.2e}' for d in diffs)}; bit-equal {equal}")
-        if max(diffs) > 2e-3 or (nb == 2 and not equal):
-            fail(f"an NB={nb} launch parts from its NB=1 launches")
+        print(f"stream_cg_coef {nv}x{nh} NB={nb} 40 it: max|x err| {err:.3e} "
+              f"(limit {lim:.3e}), hist max rel {rel:.3e}; each RHS bit-equal "
+              f"to its NB=1 launch {equal}")
+        if not (ok and equal):
+            fail(f"an NB={nb} launch parts from its plain version or its NB=1 "
+                 f"launches ({nv}x{nh})")
+        worst = max(worst, err)
 
+    # the instances' registers and spills (none may spill), the layout and
     # the blocks an NB launch holds at N=2048, pad 1 (all co-resident)
+    from tpcg_torch.ops import _build
+    name = spill = ""
+    for line in _build.compiler_report().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and \
+                "stream_cg_coef_kernel" in name:
+            print(f"  ptxas {name}: {spill}; "
+                  f"{line.split(':', 1)[1].strip()}")
+            if "0 bytes spill stores" not in spill or \
+                    "0 bytes spill loads" not in spill:
+                fail(f"an instance of stream_cg_coef spills: {spill}")
+    for pad, noff in ((1, 7), (2, 13), (8, 32)):
+        print(f"stream_cg_coef layout at 2048 x 2048, pad {pad}, {noff} "
+              f"offsets, NB=1: {tgc.coef_layout(2048, 2048, pad, 1, noff)}")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print("stream_cg_coef blocks of 256 threads at 2048 x 2048, pad 1, by NB "
           "1..8 (per SM): " + ", ".join(
               f"{g} ({g / sms:g})" for g in (
-                  tgc.grid_blocks(nb, 2048, 2048, 1) for nb in range(1, 9))))
+                  tgc.grid_blocks(nb, 2048, 2048, 1, 7) for nb in range(1, 9))))
 
     # 2 I as full planes on the helm_fe offsets: frozen from iteration 1
     A = helm_fe(64, 5.0, eps=5.0, device=dev)
@@ -2055,7 +2111,8 @@ def phase_coef_main(dev, A, iters, nb, plain_full=False, converges=False):
     ops_ms = nb * iters * flop / F32_FLOP_PER_S * 1e3
     floor_b = 48 * nb + 8 * noff
     floor_ms = iters * floor_b * n / HBM_BYTES_PER_S * 1e3
-    own_b = 82 * nb + 8 * noff
+    lay = tgc.coef_layout(nv, nh, 1, nb, noff)
+    own_b = nb * (lay.bytes_a + lay.bytes_b)
     own = iters * own_b * n / (ms * 1e-3) / 1e12
     plain_ms = None
     if plain_full:
@@ -2068,9 +2125,12 @@ def phase_coef_main(dev, A, iters, nb, plain_full=False, converges=False):
     print(f"time {label} {iters} it: kernel {ms:.3f} ms "
           f"({ms * 1e3 / iters:.3f} us/it, {ms * 1e3 / (nb * iters):.3f} us "
           f"per RHS-iteration, {gflops:.2f} GFLOPS Table II, all RHS; own "
-          f"~{own_b} B a node at {own:.2f} TB/s); bound {bound_ms:.3f} ms "
-          f"({bound_by}; operations {ops_ms:.3f} ms); bytes floor "
-          f"({floor_b} B a node: 48 B a RHS + 8 B a coefficient plane) "
+          f"{own_b:.2f} B a node (coef_layout, {lay.tile_rows} x "
+          f"{lay.box_cols - 2 * lay.col_halo} tiles) at {own:.3f} TB/s, "
+          f"the floor's {floor_b} B at "
+          f"{iters * floor_b * n / (ms * 1e-3) / 1e12:.3f} TB/s); bound "
+          f"{bound_ms:.3f} ms ({bound_by}; operations {ops_ms:.3f} ms); bytes "
+          f"floor ({floor_b} B a node: 48 B a RHS + 8 B a coefficient plane) "
           f"{floor_ms:.3f} ms"
           + (f"; plain {plain_ms:.3f} ms (one run, {iters} it)"
              if plain_ms is not None else ""))
@@ -2436,6 +2496,9 @@ def main():
         del A
     coef_err = max([coef_err, phase_coef_sym_cross(dev, 2048, 500)]
                    + [r["err"] for r in coef])
+    print(f"row 8 (stream_cg_coef, N=4096 x 1000, B=1): {coef[-1]['ms']:.3f} "
+          f"ms (phase 18) against {ROW8_MS} ms of the kernel before its "
+          f"redesign: {100 * (coef[-1]['ms'] / ROW8_MS - 1):+.2f}%")
     batch_err = phase_stream_batched_compare(dev, stream[3]["ms"])
     sb = phase_stream_batch(dev)
     # launches of the one-RHS instance (one RHS, or the plan's sequential

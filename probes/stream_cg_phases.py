@@ -1,62 +1,74 @@
-"""Probe: phase A and phase B of ``csrc/stream_cg.cu`` timed apart, the
+"""Probe: phase A and phase B of a streaming CG kernel timed apart, the
 kernel's tile and ring swept, and two versions of the kernel timed in
 turns, on one card.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
-    python3 probes/stream_cg_phases.py split [--tree DIR]
-    python3 probes/stream_cg_phases.py sweep
-    python3 probes/stream_cg_phases.py compare --tree DIR
+    python3 probes/stream_cg_phases.py split [--kernel coef] [--tree DIR]
+    python3 probes/stream_cg_phases.py sweep [--kernel coef]
+    python3 probes/stream_cg_phases.py variants [--kernel coef]
+    python3 probes/stream_cg_phases.py compare [--kernel coef] --tree DIR
+
+``--kernel const`` (the default) probes ``csrc/stream_cg.cu`` on
+helm_fe(N, 12, eps=12) and its plane wave; ``--kernel coef`` probes
+``csrc/stream_cg_coef.cu`` on the general-coefficient class of the smoke's
+phase 18, helm_fe_var(N, 8, C, rho=0.5) with C = 1 + 0.5 U(0, 1) from seed
+0 and coefficient plane 1 times 1.5 (benchmarks/exp_batchfat.py:32-36), and
+its plane wave; RHS r of a batch is the plane wave times 1 + 0.1j r.
 
 ``--tree DIR`` names a directory that holds another ``tpcg_torch`` package
 (for example an earlier commit's, unpacked with ``git archive`` under
 ``probes/_variants/``, which git ignores); the default is this checkout's.
 
 Phase timing: the probe copies the package into
-``probes/_variants/<name>-stamped/`` and edits the copy's
-``csrc/stream_cg.cu`` so that thread 0 of block 0 reads ``%globaltimer``
-and ``clock64()`` after every ``grid.sync()`` of the kernel and adds the
-time since the previous stamp to a slot of that barrier (the last stamp
-is kept in shared memory, so the stamps cost the kernel no registers).  The last two
-barriers of the kernel's source close phase A (the direction and <d, q>)
-and phase B (the update and <r, r>) of an iteration: their slots, over an
+``probes/_variants/<name>-stamped/`` and edits the copy's kernel source so
+that thread 0 of block 0 reads ``%globaltimer`` and ``clock64()`` after
+every ``grid.sync()`` of the kernel and adds the time since the previous
+stamp to a slot of that barrier (the last stamp is kept in shared memory,
+so the stamps cost the kernel no registers).  The last two barriers of the
+kernel's source close phase A (the direction, q = A d' and <d', q>) and
+phase B (the update and <r, r>) of an iteration: their slots, over an
 n-iteration solve, are the two phases' times, each with its scalar step
 and its barrier wait.  The clock64 shares of the two phases, times the
 solve's CUDA-event time, give the split; the globaltimer sums are printed
 beside them.  Each phase's rate is its own bytes (the kernel's count a
-node and RHS, from ``stream_layout`` where the package has it, else the
-earlier kernel's 16 x 128 tiles with q stored) over its time.
+node and RHS, from the package's layout function where it has one, else
+the earlier kernel's tiles) over its time.
 
-``split``: helm_fe(N, 12, eps=12) and its plane wave (times 1 + 0.1j r for
-RHS r) at N = 1024 (1000 iterations), 2048 (500) and 4096 (300), one RHS
-and one launch of NB = 4.
+``split``: const: N = 1024 (1000 iterations), 2048 (500) and 4096 (300),
+one RHS and one launch of NB = 4.  coef: the same sizes at one RHS, and one
+launch of NB = 2 and of NB = 8 at 2048.
 
-``sweep``: this checkout's kernel at every tile height {8, 16, 32, 64} and
-ring depth {2, 3} that fits the shared memory, at every count of blocks an
-SM that it allows,
-first with the source's launch bounds (2 blocks of 256 threads an SM, at
-most 128 registers a thread), then built with bounds of 3 and 4 blocks an
-SM (at most 85 and 64 registers) for the configurations of that many
-blocks, and with 512 threads a block (at most 64 registers) for those of
-1 and 2 blocks:
-us per RHS-iteration and the split at N = 2048 (500 iterations) and 4096
-(300), then N = 1024 (1000) for the best few of each build, one RHS.
+``sweep``: this checkout's kernel at every layout of ``SWEEPS`` that fits
+the shared memory, at every count of blocks an SM that it allows, first
+with the source's launch bounds, then built with bounds of more blocks an
+SM (fewer registers a thread) for the layouts of that many blocks (const
+also with 512 threads a block): us per RHS-iteration and the split at
+N = 2048 (500 iterations) and 4096 (300), one RHS (coef also NB = 8 at
+2048), then N = 1024 (1000) for the best few of each build.  Each
+build prints its instances' registers and spills.
 
 ``variants``: this checkout's kernel at its default layout, built as it is
-and with one edit each (``EDITS``: the tensor maps' L2 promotion, the
-unrolling of the node loop, the shared-memory proxy fence left out, which
-the memory model needs: a measurement only), then as it is again, at
-N = 2048, 4096 and 1024, one RHS.
+and with one edit each (``EDITS``), then as it is again, at N = 2048, 4096
+and 1024, one RHS (coef also NB = 8 at 2048).  const: the tensor maps' L2
+promotion, the unrolling of the node loop, the shared-memory proxy fence
+left out (which the memory model needs: a measurement only).  coef:
+phase B's sweep in forward order (the kernel sweeps from the planes' ends
+back, so that the d' and q that phase A wrote last are read first, from
+the L2).
 
 ``compare``: DIR's package and this checkout's in turns (DIR, this, this,
 DIR), each in its own process with its own build, median of 3 CUDA-event
-timings at N = 1024 x 1000 (B = 1), 2048 x 500 (B = 1 and one launch of
-NB = 8) and 4096 x 1000 (B = 1): us per RHS-iteration and the rate of the
-kernel's own bytes.
+timings: const at N = 1024 x 1000 (B = 1), 2048 x 500 (B = 1 and one
+launch of NB = 8) and 4096 x 1000 (B = 1); coef at N = 4096 x 1000 (B =
+1), 2048 x 500 (B = 1, one launch of NB = 2 and one of NB = 8), 1024 x
+1000 (B = 1) and 2049 x 500 (B = 1); us per RHS-iteration and the rate of
+the kernel's own bytes.
 
 Every mode prints the card's name and power limit first.
 """
 import argparse
+import inspect
 import json
 import pathlib
 import re
@@ -92,24 +104,43 @@ extern "C" int tpcg_probe_read(unsigned long long* out) {
 }
 """
 GRID_DECL = "cg::grid_group grid = cg::this_grid();"
-BOUNDS = "__launch_bounds__(kThreads, 2)"
 THREADS = "constexpr int kThreads = 256;"
-# builds of the sweep: name, blocks an SM in the launch bounds, threads a
-# block (at most 65536 / (blocks x threads) registers a thread)
-BUILDS = (("b2", 2, 256), ("b3", 3, 256), ("b4", 4, 256), ("t512", 2, 512))
-# builds of ``variants``, each one edit of the source, run at the module's
-# default layout: name, (text, replacement)
-EDITS = (
-    ("base", None),
-    ("l2-none", ("CU_TENSOR_MAP_L2_PROMOTION_L2_256B",
-                 "CU_TENSOR_MAP_L2_PROMOTION_NONE")),
-    ("l2-128", ("CU_TENSOR_MAP_L2_PROMOTION_L2_256B",
-                "CU_TENSOR_MAP_L2_PROMOTION_L2_128B")),
-    ("unroll-2", ("#pragma unroll 1\n        for (int tm",
-                  "#pragma unroll 2\n        for (int tm")),
-    ("no-smem-fence", ("        fence_async_smem();  // the slot is refilled",
-                       "        // the slot is refilled")),
-)
+
+# per kernel: source, module, the kernel's name in the compiler report,
+# the launch-bounds text a build edits (with its blocks an SM), the builds
+# of the sweep (name, blocks an SM in the launch bounds, threads a block:
+# at most 65536 / (blocks x threads) registers a thread), and the edits of
+# ``variants`` (name, [(text, replacement), ...]), run at the module's
+# default layout
+KERNELS = {
+    "const": dict(
+        source="stream_cg.cu", module="stream_cg", entry="stream_cg_kernel",
+        bounds=("__launch_bounds__(kThreads, 2)",
+                "__launch_bounds__(kThreads, {})"), default_blocks=2,
+        builds=(("b2", 2, 256), ("b3", 3, 256), ("b4", 4, 256),
+                ("t512", 2, 512)),
+        edits=(
+            ("base", None),
+            ("l2-none", [("CU_TENSOR_MAP_L2_PROMOTION_L2_256B",
+                          "CU_TENSOR_MAP_L2_PROMOTION_NONE")]),
+            ("l2-128", [("CU_TENSOR_MAP_L2_PROMOTION_L2_256B",
+                         "CU_TENSOR_MAP_L2_PROMOTION_L2_128B")]),
+            ("unroll-2", [("#pragma unroll 1\n        for (int tm",
+                           "#pragma unroll 2\n        for (int tm")]),
+            ("no-smem-fence", [("        fence_async_smem();  // the slot is "
+                                "refilled",
+                                "        // the slot is refilled")]))),
+    "coef": dict(
+        source="stream_cg_coef.cu", module="stream_cg_coef",
+        entry="stream_cg_coef_kernel",
+        bounds=("constexpr int kMinBlocks = 2;",
+                "constexpr int kMinBlocks = {};"), default_blocks=2,
+        builds=(("b2", 2, 256), ("b1", 1, 256)),
+        edits=(
+            ("base", None),
+            ("forward-b", [("const size_t u = n4 - 1 - v;",
+                            "const size_t u = v;")]))),
+}
 
 
 def card_line():
@@ -118,18 +149,20 @@ def card_line():
                           text=True, check=True).stdout.strip()
 
 
-def stamped_copy(tree, name, min_blocks=None, threads=None, edit=None):
+def stamped_copy(tree, name, kernel, min_blocks=None, threads=None,
+                 edit=None):
     """Copy ``tree/tpcg_torch`` to ``probes/_variants/<name>-stamped`` with
-    the phase stamps in its stream_cg.cu (and, given ``min_blocks``, its
+    the phase stamps in the kernel's source (and, given ``min_blocks``, its
     launch bounds asking for that many blocks an SM, which caps the
     registers a thread; given ``threads``, that many threads a block; given
-    ``edit``, a (text, replacement) pair); returns (copy root, number of
-    barriers)."""
-    dst = VARIANTS / f"{name}-stamped"
+    ``edit``, a list of (text, replacement) pairs); returns (copy root,
+    number of barriers)."""
+    k = KERNELS[kernel]
+    dst = VARIANTS / f"{name}-{kernel}-stamped"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(tree / "tpcg_torch", dst / "tpcg_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    src = dst / "tpcg_torch" / "csrc" / "stream_cg.cu"
+    src = dst / "tpcg_torch" / "csrc" / k["source"]
     text = src.read_text()
     if GRID_DECL not in text:
         sys.exit(f"{GRID_DECL} not found in {src}")
@@ -146,19 +179,18 @@ def stamped_copy(tree, name, min_blocks=None, threads=None, edit=None):
     text = re.sub(r"grid\.sync\(\);", stamp, text)
     if count < 2 or count > 16:
         sys.exit(f"{src}: {count} grid barriers")
-    if edit is not None:
-        if edit[0] not in text:
-            sys.exit(f"{edit[0]!r} not found in {src}")
-        text = text.replace(edit[0], edit[1])
-    if threads is not None:
+    for old, new in edit or ():
+        if old not in text:
+            sys.exit(f"{old!r} not found in {src}")
+        text = text.replace(old, new)
+    if threads is not None and threads != 256:
         if THREADS not in text:
             sys.exit(f"{THREADS} not found in {src}")
         text = text.replace(THREADS, f"constexpr int kThreads = {threads};")
-    if min_blocks is not None:
-        if BOUNDS not in text:
-            sys.exit(f"{BOUNDS} not found in {src}")
-        text = text.replace(BOUNDS,
-                            f"__launch_bounds__(kThreads, {min_blocks})")
+    if min_blocks is not None and min_blocks != k["default_blocks"]:
+        if k["bounds"][0] not in text:
+            sys.exit(f"{k['bounds'][0]} not found in {src}")
+        text = text.replace(k["bounds"][0], k["bounds"][1].format(min_blocks))
     first = text.index("namespace {")
     text = text[:first] + STAMP_HEADER + text[first:]
     src.write_text(text)
@@ -167,30 +199,55 @@ def stamped_copy(tree, name, min_blocks=None, threads=None, edit=None):
 
 # ---- one tree in one process ----
 
-# tile rows, ring stages, blocks an SM
-SWEEP = [(r, s, m) for r in (8, 16, 32, 64) for s in (2, 3)
-         for m in (1, 2, 3, 4)]
+# const: tile rows, ring stages, blocks an SM
+SWEEP_CONST = [(r, s, m) for r in (8, 16, 32, 64) for s in (2, 3)
+               for m in (1, 2, 3, 4)]
+# coef: tile rows, state ring slots, coefficient slots, blocks an SM
+SWEEP_COEF = [(r, s, c, m) for r in (4, 8, 16) for s in (2, 3)
+              for c in (1, 2) for m in (1, 2)]
 SM_SHARED = 233472          # shared memory of one H100 SM, bytes
 BLOCK_SHARED = 232448       # the most one block may take
 BLOCK_RESERVED = 1024       # the runtime's own share of each block
+STATIC_SHARED = 2048        # the kernels' static shared memory, at most
 
 
-def fits(tsc, config):
+def fits(mod, kernel, config):
     """Whether a sweep configuration's ring fits m blocks on an SM."""
-    rows, stages, m = config
-    smem = tsc.stream_layout(2048, 2048, 1, rows, stages).smem_bytes
-    return smem <= BLOCK_SHARED and m * (smem + BLOCK_RESERVED) <= SM_SHARED
+    if kernel == "const":
+        rows, stages, m = config
+        smem = mod.stream_layout(2048, 2048, 1, rows, stages).smem_bytes
+    else:
+        rows, stages, cst, m = config
+        lay = mod.coef_layout(2048, 2048, 1, 1, 7, tile_rows=rows,
+                              stages=stages, coef_stages=cst)
+        if (lay.tile_rows, lay.coef_stages) != (rows, cst):
+            return False
+        smem = lay.smem_bytes
+    per = smem + BLOCK_RESERVED + STATIC_SHARED
+    return smem + STATIC_SHARED <= BLOCK_SHARED and m * per <= SM_SHARED
 
 
-def run_tree(tree, mode, nbar, min_blocks=2, threads=256):
+def coef_problem(N, dev):
+    """The smoke's phase-18 class at N x N, and its plane wave."""
+    import numpy as np
+    from tpcg_torch.problems import helm_fe_var, plane_wave_rhs
+    C = 1.0 + 0.5 * np.random.default_rng(0).random((N - 1, N - 1))
+    A = helm_fe_var(N, 8.0, C, rho=0.5, device=dev)
+    A.coef[1] *= 1.5
+    return A, plane_wave_rhs(N, 8.0)
+
+
+def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256):
     sys.path.insert(0, str(tree))
     import ctypes
     import hashlib
+    import importlib
     import numpy as np
     import torch
     from tpcg_torch.ops import _build
-    from tpcg_torch.ops import stream_cg as tsc
     from tpcg_torch.problems import helm_fe, plane_wave_rhs
+    kd = KERNELS[kernel]
+    mod = importlib.import_module(f"tpcg_torch.ops.{kd['module']}")
     lib = _build.load()
     lib.tpcg_probe_read.argtypes = [ctypes.c_void_p]
     lib.tpcg_probe_read.restype = ctypes.c_int
@@ -199,8 +256,7 @@ def run_tree(tree, mode, nbar, min_blocks=2, threads=256):
     for line in _build.compiler_report().splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-        elif "stream_cg_kernel" in name and ("Used" in line
-                                             or "spill" in line):
+        elif kd["entry"] in name and ("Used" in line or "spill" in line):
             print(f"{tree.name}: ptxas {name}: {line.strip()}")
 
     def read_slots():
@@ -208,69 +264,108 @@ def run_tree(tree, mode, nbar, min_blocks=2, threads=256):
         _build.check(lib.tpcg_probe_read(slots.ctypes.data), "probe read")
         return slots.copy()
 
-    def own_bytes(N, pad=1):
-        """(phase A, phase B) bytes a node and RHS of the tree's kernel."""
-        if hasattr(tsc, "stream_layout"):
-            lay = tsc.stream_layout(N, N, pad)
+    def own_bytes(N, nb, noff):
+        """(phase A, phase B) bytes a node and RHS of the tree's kernel
+        (the coefficients' share included, divided over the RHS)."""
+        if kernel == "const":
+            if hasattr(mod, "stream_layout"):
+                lay = mod.stream_layout(N, N, 1)
+                return lay.bytes_a, lay.bytes_b
+            h = (16 + 2) * (128 + 2) / (16 * 128)  # earlier: 16 x 128, q stored
+            return 16 * h + 16, 48.0
+        if hasattr(mod, "coef_layout"):
+            lay = mod.coef_layout(N, N, 1, nb, noff)
             return lay.bytes_a, lay.bytes_b
-        h = (16 + 2) * (128 + 2) / (16 * 128)     # PR 9: 16 x 128, q stored
-        return 16 * h + 16, 48.0
+        # the earlier kernel: 16, 8 or 4 rows by NB, a halo of one node
+        rows = 16 if nb <= 2 else (8 if nb <= 4 else 4)
+        h = (rows + 2) * (128 + 2) / (rows * 128)
+        return 16 * h + 16 + 8 * noff / nb, 48.0
+
+    def blocks_of(nb, N, noff):
+        if len(inspect.signature(mod.grid_blocks).parameters) == 4:
+            return mod.grid_blocks(nb, N, N, 1)
+        return mod.grid_blocks(nb, N, N, 1, noff)
 
     dev = torch.device("cuda:0")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if mode == "compare":
-        cells = [(1024, 1000, 1, None), (2048, 500, 1, None),
-                 (2048, 500, 8, None), (4096, 1000, 1, None)]
-    elif mode == "variants":
-        cells = [(N, it, 1, None) for N, it in ((2048, 500), (4096, 300),
-                                                (1024, 1000))]
-    elif mode == "split":
-        cells = [(N, it, nb, None) for N, it in ((1024, 1000), (2048, 500),
-                                                 (4096, 300))
-                 for nb in (1, 4)]
+    if kernel == "const":
+        compare = [(1024, 1000, 1), (2048, 500, 1), (2048, 500, 8),
+                   (4096, 1000, 1)]
+        split = [(N, it, nb) for N, it in ((1024, 1000), (2048, 500),
+                                           (4096, 300)) for nb in (1, 4)]
+        sweep_nb = [(2048, 500, 1), (4096, 300, 1)]
+        variants = [(2048, 500, 1), (4096, 300, 1), (1024, 1000, 1)]
+        sweep, knobs = SWEEP_CONST, ("TILE_ROWS", "STAGES", "BLOCKS_PER_SM")
     else:
-        # the source's own bounds (2 blocks an SM): every configuration that
-        # fits; a tighter register cap: the configurations it is for
-        configs = [c for c in SWEEP if fits(tsc, c) and (
-            (min_blocks, threads) == (2, 256)
-            or (c[2] == min_blocks if threads == 256
-                else c[2] <= min_blocks))]
-        cells = [(N, it, 1, c) for N, it in ((2048, 500), (4096, 300))
-                 for c in configs]
-    defaults = tuple(getattr(tsc, k, None) for k in
-                     ("TILE_ROWS", "STAGES", "BLOCKS_PER_SM"))
+        compare = [(1024, 1000, 1), (2048, 500, 1), (2048, 500, 2),
+                   (2048, 500, 8), (2049, 500, 1), (4096, 1000, 1)]
+        split = [(1024, 1000, 1), (2048, 500, 1), (2048, 500, 2),
+                 (2048, 500, 8), (4096, 300, 1)]
+        sweep_nb = [(2048, 500, 1), (2048, 500, 8), (4096, 300, 1)]
+        variants = [(2048, 500, 1), (2048, 500, 8), (4096, 300, 1),
+                    (1024, 1000, 1)]
+        sweep = SWEEP_COEF
+        knobs = ("TILE_ROWS", "STAGES", "COEF_STAGES", "BLOCKS_PER_SM")
+    if mode == "compare":
+        cells = [c + (None,) for c in compare]
+    elif mode == "variants":
+        cells = [c + (None,) for c in variants]
+    elif mode == "split":
+        cells = [c + (None,) for c in split]
+    else:
+        # the source's own bounds: every configuration that fits; a tighter
+        # or looser register cap: the configurations it is for
+        own = (min_blocks, threads) == (kd["default_blocks"], 256)
+        configs = [c for c in sweep if fits(mod, kernel, c) and (
+            own or (c[-1] == min_blocks if threads == 256
+                    else c[-1] <= min_blocks))]
+        cells = [(N, it, nb, c) for N, it, nb in sweep_nb for c in configs]
+    defaults = tuple(getattr(mod, k, None) for k in knobs)
     last_N = None
     out = []
 
     def cell(N, iters, nb, config):
-        nonlocal last_N, A, taps, strips, b
+        nonlocal last_N, A, prep, b
         if N != last_N:
-            A = helm_fe(N, 12.0, eps=12.0, device=dev)
-            taps, strips = tsc.prepare_stream(A)
-            b = plane_wave_rhs(N, 12.0)
+            A = prep = b = None
+            torch.cuda.empty_cache()
+            if kernel == "const":
+                A = helm_fe(N, 12.0, eps=12.0, device=dev)
+                prep = mod.prepare_stream(A)
+                b = plane_wave_rhs(N, 12.0)
+            else:
+                A, b = coef_problem(N, dev)
+                prep = mod.prepare_stream_coef(A)
             last_N = N
+        noff = len(A.offsets)
         if config is not None:
-            tsc.TILE_ROWS, tsc.STAGES, tsc.BLOCKS_PER_SM = config
-        tag = tree.name if config is None else \
-            "R{} S{} cap {}/SM".format(*config) + (
+            for k, v in zip(knobs, config):
+                setattr(mod, k, v)
+        tag = tree.name if config is None else " ".join(
+            f"{k[0]}{v}" for k, v in zip(knobs, config)) + (
                 f" ({threads} threads, launch bounds {min_blocks})"
-                if (min_blocks, threads) != (2, 256) else "")
+                if (min_blocks, threads) != (kd["default_blocks"], 256)
+                else "")
         B = np.stack([b * (1 + 0.1j * r) for r in range(nb)])
         bp = torch.from_numpy(np.stack([B.real, B.imag]).astype(
             np.float32)).to(dev)
         x0 = torch.zeros_like(bp)
 
         def solve():
-            return tsc.stream_cg_const_planes_batched(
-                A.offsets, A.grid, taps, strips, bp, x0, iters)
+            if kernel == "const":
+                taps, strips = prep
+                return mod.stream_cg_const_planes_batched(
+                    A.offsets, A.grid, taps, strips, bp, x0, iters)
+            return mod.stream_cg_coef_planes_batched_fat(
+                A.offsets, prep, bp, x0, iters)
         try:
             x, _ = solve()
-            blocks = tsc.grid_blocks(1, N, N, 1)
+            blocks = blocks_of(nb, N, noff)
         except (RuntimeError, ValueError) as e:
             print(f"{tag}: N={N} NB={nb}: refused ({e})", flush=True)
             return
         read_slots()
-        times, split = [], []
+        times, split_ = [], []
         for _ in range(3):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -284,18 +379,18 @@ def run_tree(tree, mode, nbar, min_blocks=2, threads=256):
             cy = [int(s[2 * k + 1]) for k in range(nbar)]
             share_a = cy[-2] / max(1, sum(cy))
             share_b = cy[-1] / max(1, sum(cy))
-            split.append((t_ms * share_a, t_ms * share_b, ns[-2] * 1e-6,
-                          ns[-1] * 1e-6))
+            split_.append((t_ms * share_a, t_ms * share_b, ns[-2] * 1e-6,
+                           ns[-1] * 1e-6))
         t = statistics.median(times)
-        ta, tb, na, nbns = split[times.index(t)]
-        ba, bb = own_bytes(N)
+        ta, tb, na, nbns = split_[times.index(t)]
+        ba, bb = own_bytes(N, nb, noff)
         n = N * N
         per = 1e3 / (iters * nb)
         digest = hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:12]
-        row = dict(tree=tree.name, config=config, bounds=min_blocks,
-                   threads=threads, N=N,
-                   nb=nb, iters=iters,
-                   ms=t, us_rhs_it=t * per, a_us=ta * per, b_us=tb * per,
+        row = dict(tree=tree.name, kernel=kernel, config=config,
+                   bounds=min_blocks, threads=threads, N=N, nb=nb,
+                   iters=iters, ms=t, us_rhs_it=t * per, a_us=ta * per,
+                   b_us=tb * per,
                    a_tbs=ba * n * nb * iters / (ta * 1e-3) / 1e12,
                    b_tbs=bb * n * nb * iters / (tb * 1e-3) / 1e12,
                    own_b=ba + bb, blocks=blocks,
@@ -311,15 +406,17 @@ def run_tree(tree, mode, nbar, min_blocks=2, threads=256):
               f"{row['b_tbs']:.3f} TB/s; globaltimer {nbns * per:.3f}); "
               f"x digest {digest}", flush=True)
 
-    A = taps = strips = b = None
+    A = prep = b = None
     for c in cells:
         cell(*c)
     if mode == "sweep":
-        # the three fastest at N = 2048 and 4096 together, at N = 1024 too
+        # the three fastest over the NB = 1 cells together, at N = 1024 too
         tot = {}
         for r in out:
-            tot.setdefault(tuple(r["config"]), []).append(r["us_rhs_it"])
-        best = sorted((c for c, v in tot.items() if len(v) == 2),
+            if r["nb"] == 1:
+                tot.setdefault(tuple(r["config"]), []).append(r["us_rhs_it"])
+        full = max((len(v) for v in tot.values()), default=0)
+        best = sorted((c for c, v in tot.items() if len(v) == full),
                       key=lambda c: sum(tot[c]))[:3]
         for c in best + ([defaults] if defaults[0] is not None
                          and defaults not in best else []):
@@ -327,10 +424,10 @@ def run_tree(tree, mode, nbar, min_blocks=2, threads=256):
     return out
 
 
-def sub(tree, mode, nbar, min_blocks=2, threads=256):
+def sub(tree, mode, nbar, kernel, min_blocks=2, threads=256):
     cmd = [sys.executable, __file__, "_run", "--tree", str(tree), "--mode",
-           mode, "--nbar", str(nbar), "--bounds", str(min_blocks),
-           "--threads", str(threads)]
+           mode, "--nbar", str(nbar), "--kernel", kernel, "--bounds",
+           str(min_blocks), "--threads", str(threads)]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=2400)
     sys.stdout.write(res.stdout)
     sys.stdout.flush()
@@ -343,6 +440,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("mode", choices=("split", "sweep", "variants", "compare",
                                      "_run"))
+    ap.add_argument("--kernel", choices=tuple(KERNELS), default="const")
     ap.add_argument("--tree", type=pathlib.Path, default=ROOT)
     ap.add_argument("--mode", dest="inner")
     ap.add_argument("--nbar", type=int)
@@ -350,33 +448,36 @@ def main():
     ap.add_argument("--threads", type=int, default=256)
     a = ap.parse_args()
     if a.mode == "_run":
-        rows = run_tree(a.tree.resolve(), a.inner, a.nbar, a.bounds,
-                        a.threads)
+        rows = run_tree(a.tree.resolve(), a.inner, a.nbar, a.kernel,
+                        a.bounds, a.threads)
         print("ROWS " + json.dumps(rows))
         return
     import torch
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     print(card_line(), flush=True)
+    kd = KERNELS[a.kernel]
     tree = a.tree.resolve()
     name = "this" if tree == ROOT else tree.name
     if a.mode == "split":
-        copy, nbar = stamped_copy(tree, name)
-        sub(copy, a.mode, nbar)
+        copy, nbar = stamped_copy(tree, name, a.kernel)
+        sub(copy, a.mode, nbar, a.kernel, kd["default_blocks"])
     elif a.mode == "variants":
-        for name_e, edit in EDITS + EDITS[:1]:
-            copy, nbar = stamped_copy(tree, f"{name}-{name_e}", edit=edit)
-            sub(copy, a.mode, nbar)
+        for name_e, edit in kd["edits"] + kd["edits"][:1]:
+            copy, nbar = stamped_copy(tree, f"{name}-{name_e}", a.kernel,
+                                      edit=edit)
+            sub(copy, a.mode, nbar, a.kernel, kd["default_blocks"])
     elif a.mode == "sweep":
-        for build, b, threads in BUILDS:
-            copy, nbar = stamped_copy(tree, f"{name}-{build}", b, threads)
-            sub(copy, a.mode, nbar, b, threads)
+        for build, b, threads in kd["builds"]:
+            copy, nbar = stamped_copy(tree, f"{name}-{build}", a.kernel, b,
+                                      threads)
+            sub(copy, a.mode, nbar, a.kernel, b, threads)
     else:
-        other, nbar_o = stamped_copy(tree, name)
-        this, nbar_t = stamped_copy(ROOT, "this")
+        other, nbar_o = stamped_copy(tree, name, a.kernel)
+        this, nbar_t = stamped_copy(ROOT, "this", a.kernel)
         for t, nb in ((other, nbar_o), (this, nbar_t), (this, nbar_t),
                       (other, nbar_o)):
-            sub(t, "compare", nb)
+            sub(t, "compare", nb, a.kernel, kd["default_blocks"])
     print(card_line(), flush=True)
 
 

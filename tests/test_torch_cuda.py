@@ -923,23 +923,101 @@ def test_coef_kernel_applies_the_operator(dev):
 
 def test_coef_nb_instance_against_single_rhs_launches(dev):
     """Each RHS of an NB launch against its own NB = 1 launch, 40
-    iterations: within the tolerances above, and bit-equal where the
-    partition of the float64 sums is the same (NB = 2 shares NB = 1's tile,
-    and on a grid of fewer tiles than the card holds blocks both launch one
-    block a tile)."""
+    iterations: bit-equal (the tile, the rings and the grid are the one-RHS
+    launch's whatever NB, so each RHS's float64 partial sums are cut the
+    same way)."""
     for nv, nh, nb in ((300, 700, 2), (300, 700, 8), (1024, 1024, 4)):
         S, coefp, bp, x0p = _coef_case(dev, nv, nh, nb, x0_seed=7)
         xb, hb = tgc.stream_cg_coef_planes_batched_fat(S.offsets, coefp, bp,
                                                        x0p, 40)
+        assert len({tgc.grid_blocks(k, nv, nh, 1, len(S.offsets))
+                    for k in range(1, 9)}) == 1
         for c in range(nb):
             x1, h1 = tgc.stream_cg_coef_planes(S.offsets, coefp, bp[:, c],
                                                x0p[:, c], 40)
-            _assert_dia_close(xb[:, c], hb[:, c], x1, h1)
-            diff = float((xb[:, c] - x1).abs().max() / x1.abs().max())
-            print(f"{nv}x{nh} NB={nb} rhs {c}: max|x diff| / max|x| "
-                  f"{diff:.3e}")
-            if nb == 2:
-                assert torch.equal(xb[:, c], x1) and torch.equal(hb[:, c], h1)
+            assert torch.equal(xb[:, c], x1) and torch.equal(hb[:, c], h1)
+
+
+@pytest.mark.parametrize("nb", [1, 2, 8])
+@pytest.mark.parametrize("nv,nh", [(513, 1027), (700, 901)])
+def test_coef_odd_width_uneven_tiles(dev, nv, nh, nb):
+    """At an odd width whose rows the kernel pads to a multiple of 32 floats,
+    on a grid whose blocks take uneven numbers of tiles (so the rings'
+    mbarrier parities run on unevenly across blocks): each RHS against the
+    plain version over 40 iterations, two launches bit-equal, and each RHS
+    of an NB launch bit-equal to its NB = 1 launch."""
+    S, coefp, bp, x0p = _coef_case(dev, nv, nh, nb, x0_seed=11)
+    noff = len(S.offsets)
+    lay = tgc.coef_layout(nv, nh, 1, nb, noff)
+    blocks = tgc.grid_blocks(nb, nv, nh, 1, noff)
+    assert nh % 4 and lay.pitch % 32 == 0
+    assert lay.tiles > blocks and lay.tiles % blocks
+    xk, hk = _run_twice(tgc.stream_cg_coef_planes_batched_fat, S.offsets,
+                        coefp, bp, x0p, 40)
+    xp, hp = tgc.stream_cg_coef_planes_batched_fat_plain(S.offsets, coefp, bp,
+                                                         x0p, 40)
+    for c in range(nb):
+        _assert_dia_close(xk[:, c], hk[:, c], xp[:, c], hp[:, c])
+        if nb > 1:
+            x1, h1 = tgc.stream_cg_coef_planes(S.offsets, coefp, bp[:, c],
+                                               x0p[:, c], 40)
+            assert torch.equal(xk[:, c], x1) and torch.equal(hk[:, c], h1)
+
+
+def _far_stencil(dev, nv, nh, pad, noff, seed):
+    """A non-symmetric stencil of noff distinct offsets within pad nodes,
+    (0, 0) first and (pad, -pad) among them, diagonally dominant (centre
+    4 + 0.5j + 0.1 U, the others -0.1 (1 + 0.3 U) + 0.02j)."""
+    from tpcg_torch.sparse import Stencil2D
+    rng = np.random.default_rng(seed)
+    ring = [(dm, dj) for dm in range(-pad, pad + 1)
+            for dj in range(-pad, pad + 1)
+            if (dm, dj) not in ((0, 0), (pad, -pad))]
+    pick = rng.choice(len(ring), size=noff - 2, replace=False)
+    offsets = ((0, 0), (pad, -pad)) + tuple(ring[i] for i in pick)
+    c = -0.1 * (1.0 + 0.3 * rng.random((len(offsets), nv, nh))) + 0.02j
+    c[0] = 4.0 + 0.5j + 0.1 * rng.random((nv, nh))
+    return Stencil2D(offsets, torch.from_numpy(c).to(dev), (nv, nh))
+
+
+@pytest.mark.parametrize("nb", [1, 3, 8])
+def test_coef_kernel_takes_pad8_with_32_offsets(dev, nb):
+    """The kernel's limits at once, pad 8 and 32 offsets, on an odd grid
+    with x0 != 0: the layout keeps 8 RHS a launch and fits a block; each
+    RHS against the plain version over 20 iterations, two launches
+    bit-equal."""
+    nv, nh = 157, 203
+    S = _far_stencil(dev, nv, nh, 8, 32, 3)
+    assert len(S.offsets) == 32
+    coefp = tgc.prepare_stream_coef(S)
+    lay = tgc.coef_layout(nv, nh, 8, nb, 32)
+    assert lay.rhs_per_launch == 8 and lay.blocks_per_sm >= 1
+    rng = np.random.default_rng(40 + nb)
+    bp = torch.from_numpy(
+        rng.standard_normal((2, nb, nv, nh)).astype(np.float32)).to(dev)
+    x0p = 0.1 * torch.flip(bp, dims=(3,))
+    xk, hk = _run_twice(tgc.stream_cg_coef_planes_batched_fat, S.offsets,
+                        coefp, bp, x0p, 20)
+    xp, hp = tgc.stream_cg_coef_planes_batched_fat_plain(S.offsets, coefp, bp,
+                                                         x0p, 20)
+    for c in range(nb):
+        _assert_dia_close(xk[:, c], hk[:, c], xp[:, c], hp[:, c])
+
+
+def test_coef_instances_do_not_spill(dev):
+    """Every NB instance of the kernel builds without spills (-Xptxas -v)."""
+    from tpcg_torch.ops import _build
+    _build.load()
+    name, seen = "", {}
+    for line in _build.compiler_report().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill" in line and "stream_cg_coef_kernel" in name:
+            seen[name] = line.strip()
+    assert len(seen) == 8
+    for name, line in seen.items():
+        assert "0 bytes spill stores" in line and \
+            "0 bytes spill loads" in line, (name, line)
 
 
 def test_coef_plan_launches_once_per_chunk(dev):

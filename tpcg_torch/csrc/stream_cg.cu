@@ -132,7 +132,10 @@
 #include <cstdint>
 #include <cstdlib>
 
+#include "tma.cuh"
+
 namespace cg = cooperative_groups;
+using namespace tpcg_tma;
 
 namespace {
 
@@ -214,66 +217,6 @@ __host__ __device__ inline size_t smem_bytes(int rows, int pad, int hc,
 __device__ __forceinline__ float fmul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float fsub(float a, float b) { return __fsub_rn(a, b); }
-
-// ---- TMA, mbarriers and proxy fences (PTX) ----
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// Wait for the phase of the given parity to complete; trap after ~20 s
-// (a copy that never lands is a fault, not a hang).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  if (mbar_try(a, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(a, parity))
-    if (clock64() - t0 > (1ll << 35)) __trap();
-}
-
-__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int col, int row,
-                                         int plane) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col),
-      "r"(row), "r"(plane)
-      : "memory");
-}
-
-// Order this thread's generic-proxy accesses before later async-proxy
-// (TMA) accesses, and the reverse.
-__device__ __forceinline__ void fence_async() {
-  asm volatile("fence.proxy.async;" ::: "memory");
-}
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
 
 // ---- reductions and scalars ----
 
@@ -734,55 +677,6 @@ cudaError_t allow_smem(size_t bytes) {
   return cudaSuccess;
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, through the runtime's entry-point query.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                         cudaEnableDefault,
-                                         &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return nullptr;
-#endif
-    fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
-// A map over `planes` float planes of (nv, nh) with row pitch `pitch` at
-// base, read in boxes of (cols, rows, 2); out-of-bounds elements read 0.
-bool encode(EncodeTiled fn, CUtensorMap* map, float* base, int nh, int nv,
-            int planes, int pitch, int cols, int rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(nh),
-                              static_cast<cuuint64_t>(nv),
-                              static_cast<cuuint64_t>(planes)};
-  const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(pitch) * sizeof(float),
-      static_cast<cuuint64_t>(pitch) * nv * sizeof(float)};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols),
-                             static_cast<cuuint32_t>(rows), 2};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box,
-            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace
 
 extern "C" {
@@ -898,11 +792,11 @@ int tpcg_stream_cg(const float* b, const float* x0, const float* strips,
   if (fn == nullptr) return cudaErrorNotSupported;
   Maps maps;
   const int br = rows + 2 * pad;
-  if (!encode(fn, &maps.r, r, nh, nv, 2 * nb, pitch, bc, br) ||
-      !encode(fn, &maps.d, d, nh, nv, 4 * nb, pitch, bc, br) ||
-      !encode(fn, &maps.x, xw, nh, nv, 2 * nb, pitch, bc, br) ||
-      !encode(fn, &maps.r_own, r, nh, nv, 2 * nb, pitch, kTileCols, rows) ||
-      !encode(fn, &maps.x_own, xw, nh, nv, 2 * nb, pitch, kTileCols, rows))
+  if (!encode(fn, &maps.r, r, nh, nv, 2 * nb, pitch, bc, br, 2) ||
+      !encode(fn, &maps.d, d, nh, nv, 4 * nb, pitch, bc, br, 2) ||
+      !encode(fn, &maps.x, xw, nh, nv, 2 * nb, pitch, bc, br, 2) ||
+      !encode(fn, &maps.r_own, r, nh, nv, 2 * nb, pitch, kTileCols, rows, 2) ||
+      !encode(fn, &maps.x_own, xw, nh, nv, 2 * nb, pitch, kTileCols, rows, 2))
     return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(rows, pad, hc, stages);
   cudaError_t err = allow_smem(smem);

@@ -5,8 +5,9 @@ sources at once in parallel processes, and links the objects into one
 shared library with a plain C interface, which ctypes loads; no PyTorch
 header is compiled.  The build happens at first use, into
 ``tpcg_torch/_build/`` (listed in ``.gitignore``), under file names that
-carry a hash of the sources and the flags, so a changed source is rebuilt
-and an unchanged one is loaded.  The compiler's report (registers, shared
+carry a hash of the sources, the shared headers (``csrc/*.cuh``) and the
+flags, so a changed source or header is rebuilt and an unchanged one is
+loaded.  The compiler's report (registers, shared
 memory, spills from ``-Xptxas -v``) is kept beside each object and the
 library in ``.log`` files.
 
@@ -46,8 +47,9 @@ _SIGNATURES = {
     "tpcg_stream_sym_grid": (_I, _I, _I, _IP),
     "tpcg_stream_sym": (_P,) * 9 + (_I,) * 3 + (_IP, _I, _I, _I, _P),
     "tpcg_stream_coef_limits": (_IP, _IP, _IP),
-    "tpcg_stream_coef_grid": (_I, _I, _I, _I, _IP),
-    "tpcg_stream_coef": (_P,) * 9 + (_I,) * 4 + (_IP, _I, _I, _I, _P),
+    "tpcg_stream_coef_grid": (_I,) * 11 + (_IP,),
+    "tpcg_stream_coef": (_P,) * 10 + (_I, _LL, _I, _I, _I, _I, _IP) +
+    (_I,) * 7 + (_P,),
     "tpcg_fused_cg_limits": (_IP, _IP),
     "tpcg_fused_cg_grid": (_I, _IP),
     "tpcg_fused_cg_stencil": (_P,) * 10 + (_I,) * 4 + (_IP, _I, _I, _I, _P),
@@ -78,10 +80,11 @@ def _nvcc() -> str:
 
 
 def _tag(sources) -> str:
+    """Hash of the flags, the given sources and every shared header."""
     h = hashlib.sha256()
     for flag in NVCC_FLAGS:
         h.update(flag.encode())
-    for src in sources:
+    for src in list(sources) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -16,12 +16,12 @@ right-hand sides with independent alpha and beta
 (``stream_cg_coef_planes_batched`` is the same function under the name of
 JAX's other batched entry point).  On CUDA tensors they launch the
 hand-written kernel ``tpcg_torch/csrc/stream_cg_coef.cu`` (one persistent
-cooperative launch per chunk of at most ``kernel_limits()[2]`` RHS, which
-share one read of the coefficient planes; see the note at the top of that
-file) and raise if it cannot run; ``stream_cg_coef_planes.launches`` counts
-the launches of all of them.  On CPU tensors they run their plain
-versions, the same functions in plain PyTorch, which are also what the
-kernel is compared with on the card.
+cooperative launch per chunk of at most 8 RHS, which share one read of the
+coefficient planes; :func:`coef_layout` gives its tiles and rings; see the
+note at the top of that file) and raise if it cannot run;
+``stream_cg_coef_planes.launches`` counts the launches of all of them.  On
+CPU tensors they run their plain versions, the same functions in plain
+PyTorch, which are also what the kernel is compared with on the card.
 
 One Hopper kernel takes the place of the JAX package's tiers for this
 function: v2 (``_build_k1_coef`` + ``_make_k2``), v3-coef (``_build_merged``),
@@ -39,7 +39,7 @@ blocks); every other step is float32, in JAX's order.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -150,52 +150,166 @@ def kernel_limits() -> Tuple[int, int, int]:
     return noff.value, pad.value, nb.value
 
 
-def grid_blocks(nb: int, nv: int, nh: int, pad: int) -> int:
+# The kernel's tile and rings (csrc/stream_cg_coef.cu), from the sweep of
+# probes/stream_cg_phases.py --kernel coef on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md, Findings): tile rows, state ring slots, coefficient ring
+# slots and the most blocks an SM.
+TILE_ROWS = 4
+STAGES = 2
+COEF_STAGES = 1
+BLOCKS_PER_SM = 2
+TILE_COLS = 128
+MAX_OFF = 32                # the kernel's kMaxOff
+MAX_RHS = 8                 # the kernel's kMaxRhs
+SM_SHARED = 233472          # shared memory of one H100 SM, bytes
+BLOCK_SHARED = 232448       # the most one block may take
+BLOCK_RESERVED = 1024       # the runtime's own share of each block
+STATIC_SHARED = 2048        # the kernel's static shared memory, at most
+
+
+class CoefLayout(NamedTuple):
+    """Where ``csrc/stream_cg_coef.cu`` keeps its state and how it tiles
+    it."""
+    pitch: int          # row pitch of r, d, q, the working x and the
+                        # coefficient copy (floats)
+    tile_rows: int      # a tile is tile_rows x TILE_COLS nodes
+    col_halo: int       # box columns each side of a tile: pad rounded up to 4
+    box_rows: int       # halo box: tile_rows + 2 pad rows ...
+    box_cols: int       # ... by TILE_COLS + 2 col_halo columns
+    stages: int         # state ring slots: one RHS's r and d_old boxes each
+    coef_stages: int    # coefficient ring slots: a tile's 2 noff planes each
+    blocks_per_sm: int
+    rhs_per_launch: int
+    tiles: int          # tiles of the grid
+    smem_bytes: int     # the rings' dynamic shared memory
+    bytes_a: float      # bytes a node and RHS: phase A (r, d_old halos; d',
+                        # q; the coefficients over the RHS of a launch)
+    bytes_b: float      # phase B (x, d', r, q read; x, r written)
+
+
+def _ring_bytes(rows, pad, hc, noff, stages, coef_stages):
+    """The kernel's ``smem_bytes``: coefficient slots of 2 noff tile
+    planes, state slots of two halo boxes (both planes, 32-float
+    multiples)."""
+    box = -(-(2 * (rows + 2 * pad) * (TILE_COLS + 2 * hc)) // 32) * 32
+    return 4 * (coef_stages * 2 * noff * rows * TILE_COLS + stages * 2 * box)
+
+
+def coef_layout(nv: int, nh: int, pad: int, nb: int, noff: int = None,
+                tile_rows: int = None, stages: int = None,
+                coef_stages: int = None) -> CoefLayout:
+    """The layout of a launch of ``csrc/stream_cg_coef.cu`` for nb RHS on an
+    (nv, nh) grid with a stencil of ``noff`` offsets (default: the most a
+    stencil of reach ``pad`` can have, at most ``MAX_OFF``) within ``pad``
+    nodes (defaults: the module's ``TILE_ROWS``, ``STAGES``,
+    ``COEF_STAGES``, ``BLOCKS_PER_SM``).
+
+    The state planes' row pitch is nh + pad rounded up to 32 floats
+    (128 B), so every row starts aligned and at least ``pad`` zero columns
+    follow nh; the coefficient planes are copied to the same pitch.  A
+    tile's halo box starts ``col_halo`` columns left of the tile, so that its
+    rows are 16-byte multiples (TMA's rule).  Where the rings would pass a
+    block's shared memory (large pads and offset counts), the layout drops
+    to one coefficient slot, then halves the tile, down to two rows.  The
+    tile, the rings and so the grid do not depend on nb: every RHS of a
+    launch gives the bits of its own one-RHS launch, and a launch takes
+    ``MAX_RHS`` RHS at every pad.  Bytes a node and RHS per iteration, with
+    h = box / tile - 1 the halo's share: phase A 16 (1 + h) + 16 +
+    8 noff / nb, phase B 48 (the pitch's zero columns not counted)."""
+    noff = min(MAX_OFF, (2 * pad + 1) ** 2) if noff is None else noff
+    rows = TILE_ROWS if tile_rows is None else tile_rows
+    stages = STAGES if stages is None else stages
+    cst = COEF_STAGES if coef_stages is None else coef_stages
+    pitch = -(-(nh + pad) // 32) * 32
+    hc = -(-pad // 4) * 4
+    while (STATIC_SHARED + _ring_bytes(rows, pad, hc, noff, stages, cst)
+           > BLOCK_SHARED):
+        if cst > 1:
+            cst -= 1
+        elif rows > 2:
+            rows //= 2
+        else:
+            raise ValueError(f"no ring of {stages} slots fits a block at pad "
+                             f"{pad} with {noff} offsets")
+    smem = _ring_bytes(rows, pad, hc, noff, stages, cst)
+    blocks = min(BLOCKS_PER_SM,
+                 SM_SHARED // (smem + BLOCK_RESERVED + STATIC_SHARED))
+    br, bc = rows + 2 * pad, TILE_COLS + 2 * hc
+    tiles = -(-nv // rows) * -(-nh // TILE_COLS)
+    share = br * bc / (rows * TILE_COLS)
+    return CoefLayout(pitch, rows, hc, br, bc, stages, cst, blocks, MAX_RHS,
+                      tiles, smem, 16 * share + 16 + 8 * noff / nb, 48.0)
+
+
+def pad_rows(t: torch.Tensor, pitch: int) -> torch.Tensor:
+    """A copy of t (..., Nh) with its rows padded to ``pitch`` floats, zero
+    past column Nh: the layout of the kernel's coefficient planes."""
+    return torch.nn.functional.pad(t, (0, pitch - t.shape[-1]))
+
+
+def grid_blocks(nb: int, nv: int, nh: int, pad: int, noff: int) -> int:
     """Blocks of one launch of the nb-RHS instance on an (nv, nh) grid on
-    the current CUDA device: one a tile, at most as many as the card holds
-    at once (the instance's occupancy sets that)."""
+    the current CUDA device, with :func:`coef_layout`'s tiles: the one-RHS
+    grid, whatever nb (one block a tile, at most as many as the card holds
+    at once)."""
+    lay = coef_layout(nv, nh, pad, nb, noff)
     blocks = ctypes.c_int()
-    _build.check(_build.load().tpcg_stream_coef_grid(nb, nv, nh, pad,
-                                                     ctypes.byref(blocks)),
-                 "tpcg_stream_coef_grid")
+    _build.check(_build.load().tpcg_stream_coef_grid(
+        nb, nv, nh, lay.pitch, pad, noff, lay.tile_rows, lay.col_halo,
+        lay.stages, lay.coef_stages, lay.blocks_per_sm,
+        ctypes.byref(blocks)), "tpcg_stream_coef_grid")
     return blocks.value
 
 
 def _launch(offsets, coefp, bp, x0p, n_iterations):
-    """One launch of the CUDA kernel for the (2, nb, Nv, Nh) planes bp, on
-    the current stream of bp's device; returns x (2, nb, Nv, Nh) and the
-    history (n_iterations + 1, nb)."""
+    """Launch the CUDA kernel on the current stream of bp's device for the
+    (2, B, Nv, Nh) planes bp, once per chunk of at most the layout's RHS a
+    launch, queued with no host sync; returns x (2, B, Nv, Nh) and the
+    history (n_iterations + 1, B)."""
     lib = _build.load()
     noff, nv, nh = coefp.shape[1:]
+    n = nv * nh
     nb = bp.shape[1]
     P = _pad_for(offsets)
-    max_off, max_pad, max_nb = kernel_limits()
-    if noff > max_off or P > max_pad or nb > max_nb:
+    max_off, max_pad, _ = kernel_limits()
+    if noff > max_off or P > max_pad:
         raise ValueError(f"kernel takes at most {max_off} offsets within "
-                         f"{max_pad} nodes and {max_nb} RHS a launch, got "
-                         f"{noff} offsets within {P} and {nb} RHS")
-    coefp, bp, x0p = coefp.contiguous(), bp.contiguous(), x0p.contiguous()
+                         f"{max_pad} nodes, got {noff} offsets within {P}")
+    bp, x0p = bp.contiguous(), x0p.contiguous()
     dev = bp.device
+    lay = coef_layout(nv, nh, P, nb, noff)
+    chunk = lay.rhs_per_launch
     with torch.cuda.device(dev):
-        blocks = grid_blocks(nb, nv, nh, P)
         f32 = dict(dtype=torch.float32, device=dev)
+        # the coefficient planes at the kernel's pitch, once a solve
+        cpad = pad_rows(coefp, lay.pitch).contiguous()
         x = torch.empty_like(bp)
-        hist = torch.empty((n_iterations + 1, nb), **f32)
-        r = torch.empty_like(bp)
-        q = torch.empty_like(bp)
-        d = torch.empty((2,) + tuple(bp.shape), **f32)
-        part = torch.empty((2, blocks, nb, 2), dtype=torch.float64,
-                           device=dev)
         offs = (ctypes.c_int * (2 * noff))(
             *[int(v) for o in offsets for v in o])
-        err = lib.tpcg_stream_coef(
-            bp.data_ptr(), x0p.data_ptr(), coefp.data_ptr(), x.data_ptr(),
-            hist.data_ptr(), r.data_ptr(), q.data_ptr(), d.data_ptr(),
-            part.data_ptr(), nb, nv, nh, noff, offs, P, n_iterations, blocks,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "tpcg_stream_coef")
-    stream_cg_coef_planes.launches += 1
-    return x, hist
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        hists = []
+        for lo in range(0, nb, chunk):
+            k = min(chunk, nb - lo)
+            blocks = grid_blocks(k, nv, nh, P, noff)
+            # state in the kernel's padded rows, zero past column nh
+            r = torch.zeros((k, 2, nv, lay.pitch), **f32)
+            q = torch.zeros_like(r)
+            xw = torch.zeros_like(r)
+            d = torch.zeros((2, k, 2, nv, lay.pitch), **f32)
+            hist = torch.empty((n_iterations + 1, k), **f32)
+            part = torch.empty((2, blocks, k, 2), dtype=torch.float64,
+                               device=dev)
+            err = lib.tpcg_stream_coef(
+                bp[:, lo].data_ptr(), x0p[:, lo].data_ptr(), cpad.data_ptr(),
+                x[:, lo].data_ptr(), hist.data_ptr(), r.data_ptr(),
+                q.data_ptr(), d.data_ptr(), xw.data_ptr(), part.data_ptr(),
+                k, nb * n, nv, nh, lay.pitch, noff, offs, P, lay.tile_rows,
+                lay.col_halo, lay.stages, lay.coef_stages, n_iterations,
+                blocks, stream)
+            _build.check(err, "tpcg_stream_coef")
+            stream_cg_coef_planes.launches += 1
+            hists.append(hist)
+    return x, hists[0] if len(hists) == 1 else torch.cat(hists, dim=1)
 
 
 def stream_cg_coef_planes(offsets: Sequence[Offset], coefp: torch.Tensor,
@@ -239,12 +353,13 @@ def stream_cg_coef_planes_batched_fat(offsets: Sequence[Offset],
     Returns (x (2, B, Nv, Nh), residual_history (n_iterations+1, B)).
 
     CUDA tensors launch the kernel once per chunk of at most
-    ``kernel_limits()[2]`` RHS (counted in
-    ``stream_cg_coef_planes.launches``), queued on the current stream; CPU
-    tensors run :func:`stream_cg_coef_planes_batched_fat_plain`.  Each RHS
-    of a launch follows its plain version; its bits may differ from a
-    single-RHS launch's, as the float64 partial sums are cut by the grid's
-    tiles and block count, which depend on the RHS count.
+    ``coef_layout(...).rhs_per_launch`` RHS (8; counted in
+    ``stream_cg_coef_planes.launches``), queued on the current stream with
+    no host sync; CPU tensors run
+    :func:`stream_cg_coef_planes_batched_fat_plain`.  Each RHS of a launch
+    follows its plain version and gives the bits of its own single-RHS
+    launch (the tile, the rings and the grid do not depend on the RHS
+    count), so the chunking changes no result.
     """
     _check_args(offsets, coefp, bp, x0p, n_iterations, batched=True)
     if bp.device.type == "cpu":
@@ -253,14 +368,7 @@ def stream_cg_coef_planes_batched_fat(offsets: Sequence[Offset],
     if bp.device.type != "cuda":
         raise ValueError(f"no stream_cg_coef_planes_batched_fat for device "
                          f"{bp.device}")
-    cap = kernel_limits()[2]
-    runs = [_launch(offsets, coefp, bp[:, lo:lo + cap], x0p[:, lo:lo + cap],
-                    n_iterations)
-            for lo in range(0, bp.shape[1], cap)]
-    if len(runs) == 1:
-        return runs[0]
-    return (torch.cat([x for x, _ in runs], dim=1),
-            torch.cat([h for _, h in runs], dim=1))
+    return _launch(offsets, coefp, bp, x0p, n_iterations)
 
 
 def stream_cg_coef_planes_batched(offsets: Sequence[Offset],
