@@ -75,17 +75,25 @@ Phases, in order; the first failure exits non-zero:
      final x (finite; printed, not gated), the median of 5 CUDA-event
      timings of the device-resident solve, GFLOPS by report Table II, the
      plain version's time over the gate, and the kernel's bound;
- 10. the streaming symmetric-coefficient kernel (``stream_cg_sym_planes``)
-     against its plain version on the card, as phase 8: helm_fe_var(N, 40,
-     C, rho=0.1) cut to 256 x 256, 300 x 700, 1031 x 1024 and 600 x 1000
-     (C = 1 + 0.5 U(0, 1) from seed 0), 40 iterations, seeded x0; a 2-RHS
-     ``stream-coef`` plan; 2 I over 400 iterations;
+ 10. the streaming symmetric-coefficient kernel (``stream_cg_sym_planes``,
+     ``csrc/stream_cg_sym.cu``) against its plain version on the card, as
+     phase 8: helm_fe_var(N, 40, C, rho=0.1) cut to 256 x 256, 300 x 700,
+     1031 x 1024, 600 x 1000, the odd width 513 x 1027 and the uneven tiles
+     of 700 x 901 (C = 1 + 0.5 U(0, 1) from seed 0), 40 iterations, seeded
+     x0; a symmetric 31-offset pad-8 stencil (16 half planes, the kernel's
+     limits), 16 iterations; a 2-RHS ``stream-coef`` plan (one copy of the
+     half planes at the kernel's pitch, each column bit-equal to its own
+     launch); 2 I over 400 iterations; the kernel's registers (it may not
+     spill) and ``sym_layout`` at pads 1, 2 and 8;
  11. the planner's ``stream-coef`` path at full size, as phase 9: the
      variable-coefficient benchmark configuration helm_fe_var(N, 40, C,
      rho=0.1) and plane_wave_rhs(N, 40) (benchmarks/exp_stream4sym.py:28-38,
      exp_stream5sym.py:45-54) at N=1024 (with the complex128 spread line),
      2048, 2049 (a height JAX row-pads), 2896 and 4096 x 1000 iterations,
-     and N=1024 with B=2; only ``stream_cg_sym`` may move;
+     and N=1024 with B=2; only ``stream_cg_sym`` may move; each also prints
+     the rates of the kernel's own bytes (``sym_layout``) and of the 80 B
+     floor; row 18's cell (N=4096) against the kernel's time before its
+     redesign (PERF.md, row 18);
  12. the streaming real kernel (``stream_cg_real_planes``, const and coef
      mode) against its plain version on the card, as phase 8: Poisson and
      the 7-point FE stencil (const mode) and Poisson with a variable
@@ -162,7 +170,7 @@ Phases, in order; the first failure exits non-zero:
      against the kernel's time before its redesign (PERF.md, row 8); then the
      general kernel called on the symmetric class at N=2048 x 500, where
      COCG converges, against the symmetric kernel (x within 2e-3 max|x|,
-     both residuals printed);
+     both residuals printed, both kernels timed and the ratio printed);
  19. the constant-tap kernel with several RHS a launch
      (``stream_cg_const_planes_batched``, the NB = 1..8 instances of
      ``csrc/stream_cg.cu``) against its plain version on the card: phase
@@ -979,8 +987,10 @@ def phase_sym_compare(dev):
     from tpcg_torch.problems import helm_fe
     from tpcg_torch.sparse import Stencil2D
     worst = 0.0
+    # odd heights and widths (513 x 1027: rows padded to 1056 floats) and
+    # grids whose blocks take uneven numbers of tiles (700 x 901)
     for nv, nh, seed in ((256, 256, 1), (300, 700, 2), (1031, 1024, 3),
-                         (600, 1000, 4)):
+                         (600, 1000, 4), (513, 1027, 5), (700, 901, 6)):
         S, half, cplanes, bp, x0p = sym_case(dev, nv, nh, seed)
         args = (half, cplanes, bp, x0p, 40)
         xk, hk = tss.stream_cg_sym_planes(*args)
@@ -998,19 +1008,47 @@ def phase_sym_compare(dev):
                  f"({nv}x{nh})")
         worst = max(worst, err)
 
-    # a 2-RHS plan: two launches, each column its single-RHS launch's bits
+    # the kernel's limits: pad 8 and 16 half planes, odd grid
+    nv, nh = 157, 203
+    S = sym_limit_stencil(dev, nv, nh, 3)
+    half, cplanes = tss.prepare_stream_sym(S)
+    bp = planes(random_guess((1, nv, nh), 41), dev)[:, 0]
+    x0p = 0.1 * torch.flip(bp, dims=(2,))
+    args = (half, cplanes, bp, x0p, 16)
+    xk, hk = tss.stream_cg_sym_planes(*args)
+    xk2, hk2 = tss.stream_cg_sym_planes(*args)
+    xp, hp = tss.stream_cg_sym_planes_plain(*args)
+    torch.cuda.synchronize()
+    ok, err, lim, rel = dia_close(xk, hk, xp, hp)
+    same = torch.equal(xk, xk2) and torch.equal(hk, hk2)
+    print(f"compare stream_cg_sym pad 8, {len(half)} half planes ("
+          f"{len(S.offsets)} offsets) {nv}x{nh} 16 it: max|x err| {err:.3e} "
+          f"(limit {lim:.3e}), hist max rel {rel:.3e}, repeat bit-equal "
+          f"{same}, bit-equal to plain "
+          f"{torch.equal(xk, xp) and torch.equal(hk, hp)}; layout "
+          f"{tss.sym_layout(nv, nh, 8, len(half))}")
+    if not (ok and same and len(half) == 16):
+        fail("stream_cg_sym disagrees with its plain version (pad 8, 16 half "
+             "planes)")
+    worst = max(worst, err)
+
+    # a 2-RHS plan: one copy of the half planes at the kernel's pitch, two
+    # launches, each column its single-RHS launch's bits
     S, half, cplanes, b1, x1 = sym_case(dev, 520, 520, 5)
     _, _, _, b2, x2 = sym_case(dev, 520, 520, 6, direction=(0.6, 0.8))
+    copies = tss.pad_sym_planes.copies
     plan = tpcg_torch.plan_stencil_cg(S, 40, nb=2)
     xb, hb = plan.solve_planes(torch.stack([b1, b2], dim=1),
                                torch.stack([x1, x2], dim=1))
-    same = plan.path == "stream-coef"
+    copies = tss.pad_sym_planes.copies - copies
+    same = plan.path == "stream-coef" and copies == 1
     for c, (b, x0) in enumerate(((b1, x1), (b2, x2))):
         xs, hs = tss.stream_cg_sym_planes(half, cplanes, b, x0, 40)
         same = same and torch.equal(xb[:, c], xs) and torch.equal(hb[:, c],
                                                                   hs)
-    print(f"stream-coef plan 520x520 B=2 40 it: path {plan.path}, each "
-          f"column bit-equal to its single-RHS launch {same}")
+    print(f"stream-coef plan 520x520 B=2 40 it: path {plan.path}, half "
+          f"planes copied to the pitch {copies} time(s), each column "
+          f"bit-equal to its single-RHS launch {same}")
     if not same:
         fail("a 2-RHS stream-coef plan differs from its single-RHS launches")
 
@@ -1024,7 +1062,51 @@ def phase_sym_compare(dev):
     args = (half, cplanes, b, torch.zeros_like(b), 400)
     freeze_check("stream_cg_sym 2 I 64x64", *tss.stream_cg_sym_planes(*args),
                  *tss.stream_cg_sym_planes_plain(*args))
+
+    # the kernel's registers (no spill) and its layout
+    from tpcg_torch.ops import _build
+    name = spill = ""
+    for line in _build.compiler_report().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and \
+                "stream_cg_sym_kernel" in name:
+            print(f"  ptxas {name}: {spill}; "
+                  f"{line.split(':', 1)[1].strip()}")
+            if "0 bytes spill stores" not in spill or \
+                    "0 bytes spill loads" not in spill:
+                fail(f"stream_cg_sym spills: {spill}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for pad, nh1 in ((1, 4), (2, 7), (8, 16)):
+        blocks = tss.grid_blocks(2048, 2048, pad, nh1)
+        print(f"stream_cg_sym layout at 2048 x 2048, pad {pad}, {nh1} half "
+              f"planes: {tss.sym_layout(2048, 2048, pad, nh1)}; {blocks} "
+              f"blocks of 256 threads ({blocks / sms:g} an SM)")
     return worst
+
+
+def sym_limit_stencil(dev, nv, nh, seed):
+    """A symmetric stencil at csrc/stream_cg_sym.cu's limits: 31 offsets
+    within 8 nodes, (8, -8) among them, so 16 half planes; diagonally
+    dominant (centre 4 + 0.5j + 0.1 U, the half planes -0.1 (1 + 0.3 U) +
+    0.02j), each mirrored plane plane_{-s}(n) = plane_s(n - s)."""
+    from tpcg_torch.ops import stream_cg_sym as tss
+    from tpcg_torch.sparse import Stencil2D
+    rng = np.random.default_rng(seed)
+    pos = [(dm, dj) for dm in range(0, 9) for dj in range(-8, 9)
+           if (dm, dj) > (0, 0) and (dm, dj) != (8, -8)]
+    pick = rng.choice(len(pos), size=14, replace=False)
+    half = [(0, 0), (8, -8)] + [pos[i] for i in pick]
+    c = -0.1 * (1.0 + 0.3 * rng.random((16, nv, nh))) + 0.02j
+    c[0] = 4.0 + 0.5j + 0.1 * rng.random((nv, nh))
+    c = torch.from_numpy(c)
+    mirrors = [tss._shift(c[t], dm, dj) for t, (dm, dj) in
+               enumerate(half) if t > 0]
+    offsets = tuple(half) + tuple((-dm, -dj) for dm, dj in half[1:])
+    return Stencil2D(offsets, torch.cat([c, torch.stack(mirrors)]).to(dev),
+                     (nv, nh))
 
 
 def stream_spec(sym):
@@ -1185,15 +1267,35 @@ def phase_stream_main(dev, N, iters, nb=1, plain_full=False, spread=False,
         print(f"spread {label} N={N} {iters} it: rel residual (f64) of the "
               f"plain version (f32) {rel_residual(torch.complex(*xs)):.3e}, "
               f"of complex128 block_cg {rel_residual(x128):.3e}")
+    rates = ""
+    if sym:
+        # the kernel's own bytes (sym_layout) and the floor's, over its time
+        lay = tss_layout(N, prep)
+        own_b = lay.bytes_a + lay.bytes_b
+        rates = (f"; own {own_b:.2f} B a node ({lay.tile_rows} x "
+                 f"{lay.tile_cols} tiles) at "
+                 f"{nb * iters * own_b * n / (ms * 1e-3) / 1e12:.3f} TB/s, the "
+                 f"floor's {spec['floor_bytes']} B at "
+                 f"{nb * iters * spec['floor_bytes'] * n / (ms * 1e-3) / 1e12:.3f}"
+                 " TB/s")
     print(f"time {label} N={N} B={nb} {iters} it: kernel {ms:.3f} ms "
           f"({ms * 1e3 / (nb * iters):.3f} us/it per RHS, {gflops:.2f} GFLOPS "
-          f"Table II, all RHS); bound {bound_ms:.3f} ms ({bound_by}; "
+          f"Table II, all RHS{rates}); bound {bound_ms:.3f} ms ({bound_by}; "
           f"operations {ops_ms:.3f} ms); state streaming floor "
           f"({spec['floor_bytes']} B a node) {floor_ms:.3f} ms"
           + (f"; plain {plain_ms:.3f} ms (one run, {iters} it)"
              if plain_ms is not None else ""))
     return dict(ms=ms, plain_ms=plain_ms, launches=launches, err=err,
                 bound_ms=bound_ms, bound_by=bound_by, nb=nb)
+
+
+def tss_layout(N, prep):
+    """csrc/stream_cg_sym.cu's layout at N x N for prepare_stream_sym's
+    (half_offsets, cplanes)."""
+    from tpcg_torch.ops import stream_cg_sym as tss
+    from tpcg_torch.ops.fused_cg import _pad_for
+    half = prep[0]
+    return tss.sym_layout(N, N, _pad_for(half), len(half))
 
 
 REAL_OWN_BYTES = 41     # csrc/stream_cg_real.cu's bytes a node and iteration
@@ -1838,6 +1940,13 @@ def phase_route_tables(dev):
     return counts["route_spmv"]
 
 
+# row 18 of PERF.md's kernel table: stream_cg_sym at helm_fe_var(4096, 40,
+# C, rho=0.1) x 1000, before its redesign (TMA-fed phase A with haloed
+# half-plane boxes, padded pitch): 803.145 ms (NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md, row 18)
+ROW18_MS = 803.145
+
+
 # ---- phases 17-18: general variable coefficients (csrc/stream_cg_coef.cu) --
 
 # row 8 of PERF.md's kernel table: stream_cg_coef at the class below, N=4096
@@ -2147,11 +2256,21 @@ def phase_coef_sym_cross(dev, N, iters):
     A = coef_class(dev, N, N, sym=True)
     bp = planes(coef_rhs(N, N, 1), dev)[:, 0]
     x0p = torch.zeros_like(bp)
-    xg, hg = tgc.stream_cg_coef_planes(A.offsets, tgc.prepare_stream_coef(A),
-                                       bp, x0p, iters)
+    coefp = tgc.prepare_stream_coef(A)
     half, cplanes = tss.prepare_stream_sym(A)
-    xs, hs = tss.stream_cg_sym_planes(half, cplanes, bp, x0p, iters)
+    cpad = tss.pad_sym_planes(half, cplanes)
+    # both kernels on their own operands, timed in turns (median of 5 each)
+    ms_g, (xg, hg) = median_ms(lambda: tgc.stream_cg_coef_planes(
+        A.offsets, coefp, bp, x0p, iters), reps=5)
+    ms_s, (xs, hs) = median_ms(lambda: tss.stream_cg_sym_planes(
+        half, cplanes, bp, x0p, iters, cpad=cpad), reps=5)
+    ms_g2, _ = median_ms(lambda: tgc.stream_cg_coef_planes(
+        A.offsets, coefp, bp, x0p, iters), reps=5)
     torch.cuda.synchronize()
+    print(f"time on the symmetric class N={N} x {iters} it: general kernel "
+          f"{ms_g:.3f} / {ms_g2:.3f} ms ({ms_g * 1e3 / iters:.3f} us/it), "
+          f"symmetric kernel {ms_s:.3f} ms ({ms_s * 1e3 / iters:.3f} us/it): "
+          f"symmetric / general {ms_s / statistics.median([ms_g, ms_g2]):.3f}")
     bt = torch.complex(bp[0], bp[1]).to(torch.complex128)
 
     def rel_res(xp):
@@ -2455,6 +2574,9 @@ def main():
            phase_stream_main(dev, 2896, 1000, sym=True),
            phase_stream_main(dev, 4096, 1000, plain_full=True, sym=True),
            phase_stream_main(dev, 1024, 1000, nb=2, sym=True)]
+    print(f"row 18 (stream_cg_sym, N=4096 x 1000): {sym[4]['ms']:.3f} ms "
+          f"(phase 11) against {ROW18_MS} ms of the kernel before its "
+          f"redesign: {100 * (sym[4]['ms'] / ROW18_MS - 1):+.2f}%")
     real_err = phase_real_compare(dev)
     real = [phase_real_main(dev, "poisson", 1024, 5000, gate_residual=True),
             phase_real_main(dev, "poisson", 2048, 1000, also_coef=True),
@@ -2555,7 +2677,8 @@ def main():
     kernels.append({
         "name": "stream_cg_sym", "route": "cuda",
         "source": "tpcg_torch/csrc/stream_cg_sym.cu",
-        "replaces": "tpcg/ops/stream_cg.py:461; tpcg/ops/stream_cg_v3.py:56; "
+        "replaces": "tpcg/ops/stream_cg.py:387; tpcg/ops/stream_cg.py:461; "
+                    "tpcg/ops/stream_cg_v3.py:56; "
                     "tpcg/ops/stream_cg_v4_sym.py:104; "
                     "tpcg/ops/stream_cg_v5_sym.py:67",
         "launches": sum(r["launches"] for r in sym),

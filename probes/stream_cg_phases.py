@@ -4,10 +4,10 @@ turns, on one card.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
-    python3 probes/stream_cg_phases.py split [--kernel coef] [--tree DIR]
-    python3 probes/stream_cg_phases.py sweep [--kernel coef]
-    python3 probes/stream_cg_phases.py variants [--kernel coef]
-    python3 probes/stream_cg_phases.py compare [--kernel coef] --tree DIR
+    python3 probes/stream_cg_phases.py split [--kernel coef|sym] [--tree DIR]
+    python3 probes/stream_cg_phases.py sweep [--kernel coef|sym]
+    python3 probes/stream_cg_phases.py variants [--kernel coef|sym]
+    python3 probes/stream_cg_phases.py compare [--kernel coef|sym] --tree DIR
 
 ``--kernel const`` (the default) probes ``csrc/stream_cg.cu`` on
 helm_fe(N, 12, eps=12) and its plane wave; ``--kernel coef`` probes
@@ -15,6 +15,10 @@ helm_fe(N, 12, eps=12) and its plane wave; ``--kernel coef`` probes
 phase 18, helm_fe_var(N, 8, C, rho=0.5) with C = 1 + 0.5 U(0, 1) from seed
 0 and coefficient plane 1 times 1.5 (benchmarks/exp_batchfat.py:32-36), and
 its plane wave; RHS r of a batch is the plane wave times 1 + 0.1j r.
+``--kernel sym`` probes ``csrc/stream_cg_sym.cu`` (one RHS a launch) on the
+symmetric class of the smoke's phase 11, helm_fe_var(N, 40, C, rho=0.1)
+with C = 1 + 0.5 U(0, 1) from seed 0 (benchmarks/exp_stream4sym.py:28-38),
+and plane_wave_rhs(N, 40).
 
 ``--tree DIR`` names a directory that holds another ``tpcg_torch`` package
 (for example an earlier commit's, unpacked with ``git archive`` under
@@ -37,16 +41,20 @@ the earlier kernel's tiles) over its time.
 
 ``split``: const: N = 1024 (1000 iterations), 2048 (500) and 4096 (300),
 one RHS and one launch of NB = 4.  coef: the same sizes at one RHS, and one
-launch of NB = 2 and of NB = 8 at 2048.
+launch of NB = 2 and of NB = 8 at 2048.  sym: the same sizes and 2049
+(500).
 
-``sweep``: this checkout's kernel at every layout of ``SWEEPS`` that fits
+``sweep``: this checkout's kernel at every layout of ``SWEEP_*`` that fits
 the shared memory, at every count of blocks an SM that it allows, first
 with the source's launch bounds, then built with bounds of more blocks an
 SM (fewer registers a thread) for the layouts of that many blocks (const
 also with 512 threads a block): us per RHS-iteration and the split at
 N = 2048 (500 iterations) and 4096 (300), one RHS (coef also NB = 8 at
-2048), then N = 1024 (1000) for the best few of each build.  Each
-build prints its instances' registers and spills.
+2048; sym also 2049 x 500), then N = 1024 (1000) for the best few of each
+build.  Each build prints its instances' registers and spills.
+``--configs "R,S,C,m;..."`` sweeps those layouts alone (coef, sym), each
+also at N = 1024, in the source's own build; ``--edit NAME`` builds every
+copy with that edit of ``variants``.
 
 ``variants``: this checkout's kernel at its default layout, built as it is
 and with one edit each (``EDITS``), then as it is again, at N = 2048, 4096
@@ -55,15 +63,17 @@ promotion, the unrolling of the node loop, the shared-memory proxy fence
 left out (which the memory model needs: a measurement only).  coef:
 phase B's sweep in forward order (the kernel sweeps from the planes' ends
 back, so that the d' and q that phase A wrote last are read first, from
-the L2).
+the L2).  sym: phase B's sweep in forward order.  An earlier design is
+timed against this one with ``compare --tree`` on its commit's archive.
 
 ``compare``: DIR's package and this checkout's in turns (DIR, this, this,
 DIR), each in its own process with its own build, median of 3 CUDA-event
 timings: const at N = 1024 x 1000 (B = 1), 2048 x 500 (B = 1 and one
 launch of NB = 8) and 4096 x 1000 (B = 1); coef at N = 4096 x 1000 (B =
 1), 2048 x 500 (B = 1, one launch of NB = 2 and one of NB = 8), 1024 x
-1000 (B = 1) and 2049 x 500 (B = 1); us per RHS-iteration and the rate of
-the kernel's own bytes.
+1000 (B = 1) and 2049 x 500 (B = 1); sym at N = 4096 x 1000, 2048 x 500,
+1024 x 1000 and 2049 x 500; us per RHS-iteration and the rate of the
+kernel's own bytes.
 
 Every mode prints the card's name and power limit first.
 """
@@ -140,6 +150,16 @@ KERNELS = {
             ("base", None),
             ("forward-b", [("const size_t u = n4 - 1 - v;",
                             "const size_t u = v;")]))),
+    "sym": dict(
+        source="stream_cg_sym.cu", module="stream_cg_sym",
+        entry="stream_cg_sym_kernel",
+        bounds=("constexpr int kMinBlocks = 2;",
+                "constexpr int kMinBlocks = {};"), default_blocks=2,
+        builds=(("b2", 2, 256), ("b1", 1, 256), ("b3", 3, 256)),
+        edits=(
+            ("base", None),
+            ("forward-b", [("const size_t u = n4 - 1 - v;",
+                            "const size_t u = v;")]))),
 }
 
 
@@ -205,17 +225,26 @@ SWEEP_CONST = [(r, s, m) for r in (8, 16, 32, 64) for s in (2, 3)
 # coef: tile rows, state ring slots, coefficient slots, blocks an SM
 SWEEP_COEF = [(r, s, c, m) for r in (4, 8, 16) for s in (2, 3)
               for c in (1, 2) for m in (1, 2)]
-SM_SHARED = 233472          # shared memory of one H100 SM, bytes
-BLOCK_SHARED = 232448       # the most one block may take
-BLOCK_RESERVED = 1024       # the runtime's own share of each block
-STATIC_SHARED = 2048        # the kernels' static shared memory, at most
+# sym: tile rows, state ring slots, coefficient slots, blocks an SM
+SWEEP_SYM = [(r, s, c, m) for r in (2, 4, 8, 16) for s in (2, 3)
+             for c in (1, 2) for m in (1, 2, 3)]
 
 
 def fits(mod, kernel, config):
-    """Whether a sweep configuration's ring fits m blocks on an SM."""
+    """Whether a sweep configuration's ring fits m blocks on an SM (the
+    card's shared memory from the package of ``mod``)."""
+    from tpcg_torch.ops._device_limits import (BLOCK_RESERVED, BLOCK_SHARED,
+                                               SM_SHARED, STATIC_SHARED)
     if kernel == "const":
         rows, stages, m = config
         smem = mod.stream_layout(2048, 2048, 1, rows, stages).smem_bytes
+    elif kernel == "sym":
+        rows, stages, cst, m = config
+        lay = mod.sym_layout(2048, 2048, 1, 4, tile_rows=rows, stages=stages,
+                             coef_stages=cst)
+        if (lay.tile_rows, lay.coef_stages) != (rows, cst):
+            return False
+        smem = lay.smem_bytes
     else:
         rows, stages, cst, m = config
         lay = mod.coef_layout(2048, 2048, 1, 1, 7, tile_rows=rows,
@@ -237,7 +266,17 @@ def coef_problem(N, dev):
     return A, plane_wave_rhs(N, 8.0)
 
 
-def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256):
+def sym_problem(N, dev):
+    """The smoke's phase-11 class at N x N, and its plane wave."""
+    import numpy as np
+    from tpcg_torch.problems import helm_fe_var, plane_wave_rhs
+    C = 1.0 + 0.5 * np.random.default_rng(0).random((N - 1, N - 1))
+    return (helm_fe_var(N, 40.0, C, rho=0.1, device=dev),
+            plane_wave_rhs(N, 40.0))
+
+
+def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
+             configs=None):
     sys.path.insert(0, str(tree))
     import ctypes
     import hashlib
@@ -273,6 +312,14 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256):
                 return lay.bytes_a, lay.bytes_b
             h = (16 + 2) * (128 + 2) / (16 * 128)  # earlier: 16 x 128, q stored
             return 16 * h + 16, 48.0
+        if kernel == "sym":
+            if hasattr(mod, "sym_layout"):
+                lay = mod.sym_layout(N, N, 1, noff)
+                return lay.bytes_a, lay.bytes_b
+            # the earlier kernel: 16 x 128 tiles, a halo of one node, the half
+            # planes read once
+            h = (16 + 2) * (128 + 2) / (16 * 128)
+            return 16 * h + 16 + 8 * noff, 48.0
         if hasattr(mod, "coef_layout"):
             lay = mod.coef_layout(N, N, 1, nb, noff)
             return lay.bytes_a, lay.bytes_b
@@ -282,6 +329,13 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256):
         return 16 * h + 16 + 8 * noff / nb, 48.0
 
     def blocks_of(nb, N, noff):
+        if kernel == "sym":
+            if hasattr(mod, "grid_blocks"):
+                return mod.grid_blocks(N, N, 1, noff)
+            g = ctypes.c_int()
+            _build.check(lib.tpcg_stream_sym_grid(N, N, 1, ctypes.byref(g)),
+                         "tpcg_stream_sym_grid")
+            return g.value
         if len(inspect.signature(mod.grid_blocks).parameters) == 4:
             return mod.grid_blocks(nb, N, N, 1)
         return mod.grid_blocks(nb, N, N, 1, noff)
@@ -296,6 +350,15 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256):
         sweep_nb = [(2048, 500, 1), (4096, 300, 1)]
         variants = [(2048, 500, 1), (4096, 300, 1), (1024, 1000, 1)]
         sweep, knobs = SWEEP_CONST, ("TILE_ROWS", "STAGES", "BLOCKS_PER_SM")
+    elif kernel == "sym":
+        compare = [(4096, 1000, 1), (2048, 500, 1), (1024, 1000, 1),
+                   (2049, 500, 1)]
+        split = [(1024, 1000, 1), (2048, 500, 1), (2049, 500, 1),
+                 (4096, 300, 1)]
+        sweep_nb = [(2048, 500, 1), (2049, 500, 1), (4096, 300, 1)]
+        variants = [(2048, 500, 1), (4096, 300, 1), (1024, 1000, 1)]
+        sweep = SWEEP_SYM
+        knobs = ("TILE_ROWS", "STAGES", "COEF_STAGES", "BLOCKS_PER_SM")
     else:
         compare = [(1024, 1000, 1), (2048, 500, 1), (2048, 500, 2),
                    (2048, 500, 8), (2049, 500, 1), (4096, 1000, 1)]
@@ -312,6 +375,11 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256):
         cells = [c + (None,) for c in variants]
     elif mode == "split":
         cells = [c + (None,) for c in split]
+    elif configs:
+        # the given layouts, at N = 1024 too
+        configs = [c for c in configs if fits(mod, kernel, c)]
+        cells = [(N, it, nb, c) for N, it, nb in sweep_nb + [(1024, 1000, 1)]
+                 for c in configs]
     else:
         # the source's own bounds: every configuration that fits; a tighter
         # or looser register cap: the configurations it is for
@@ -333,11 +401,19 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256):
                 A = helm_fe(N, 12.0, eps=12.0, device=dev)
                 prep = mod.prepare_stream(A)
                 b = plane_wave_rhs(N, 12.0)
+            elif kernel == "sym":
+                A, b = sym_problem(N, dev)
+                half, cplanes = mod.prepare_stream_sym(A)
+                # the half planes at the kernel's pitch, once (as a plan
+                # holds them), where the tree's wrapper takes such a copy
+                prep = (half, cplanes) + ((mod.pad_sym_planes(half, cplanes),)
+                                          if hasattr(mod, "pad_sym_planes")
+                                          else ())
             else:
                 A, b = coef_problem(N, dev)
                 prep = mod.prepare_stream_coef(A)
             last_N = N
-        noff = len(A.offsets)
+        noff = len(prep[0]) if kernel == "sym" else len(A.offsets)
         if config is not None:
             for k, v in zip(knobs, config):
                 setattr(mod, k, v)
@@ -356,6 +432,10 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256):
                 taps, strips = prep
                 return mod.stream_cg_const_planes_batched(
                     A.offsets, A.grid, taps, strips, bp, x0, iters)
+            if kernel == "sym":
+                kw = {"cpad": prep[2]} if len(prep) > 2 else {}
+                return mod.stream_cg_sym_planes(prep[0], prep[1], bp[:, 0],
+                                                x0[:, 0], iters, **kw)
             return mod.stream_cg_coef_planes_batched_fat(
                 A.offsets, prep, bp, x0, iters)
         try:
@@ -409,7 +489,7 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256):
     A = prep = b = None
     for c in cells:
         cell(*c)
-    if mode == "sweep":
+    if mode == "sweep" and not configs:
         # the three fastest over the NB = 1 cells together, at N = 1024 too
         tot = {}
         for r in out:
@@ -424,10 +504,11 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256):
     return out
 
 
-def sub(tree, mode, nbar, kernel, min_blocks=2, threads=256):
+def sub(tree, mode, nbar, kernel, min_blocks=2, threads=256, configs=None):
     cmd = [sys.executable, __file__, "_run", "--tree", str(tree), "--mode",
            mode, "--nbar", str(nbar), "--kernel", kernel, "--bounds",
-           str(min_blocks), "--threads", str(threads)]
+           str(min_blocks), "--threads", str(threads)] + (
+               ["--configs", configs] if configs else [])
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=2400)
     sys.stdout.write(res.stdout)
     sys.stdout.flush()
@@ -446,10 +527,14 @@ def main():
     ap.add_argument("--nbar", type=int)
     ap.add_argument("--bounds", type=int, default=2)
     ap.add_argument("--threads", type=int, default=256)
+    ap.add_argument("--configs")
+    ap.add_argument("--edit")
     a = ap.parse_args()
+    configs = [tuple(int(v) for v in c.split(","))
+               for c in a.configs.split(";")] if a.configs else None
     if a.mode == "_run":
         rows = run_tree(a.tree.resolve(), a.inner, a.nbar, a.kernel,
-                        a.bounds, a.threads)
+                        a.bounds, a.threads, configs)
         print("ROWS " + json.dumps(rows))
         return
     import torch
@@ -468,10 +553,13 @@ def main():
                                       edit=edit)
             sub(copy, a.mode, nbar, a.kernel, kd["default_blocks"])
     elif a.mode == "sweep":
-        for build, b, threads in kd["builds"]:
-            copy, nbar = stamped_copy(tree, f"{name}-{build}", a.kernel, b,
-                                      threads)
-            sub(copy, a.mode, nbar, a.kernel, b, threads)
+        edit = dict(kd["edits"])[a.edit] if a.edit else None
+        builds = kd["builds"][:1] if configs else kd["builds"]
+        for build, b, threads in builds:
+            copy, nbar = stamped_copy(
+                tree, f"{name}-{build}" + (f"-{a.edit}" if a.edit else ""),
+                a.kernel, b, threads, edit)
+            sub(copy, a.mode, nbar, a.kernel, b, threads, a.configs)
     else:
         other, nbar_o = stamped_copy(tree, name, a.kernel)
         this, nbar_t = stamped_copy(ROOT, "this", a.kernel)

@@ -824,6 +824,106 @@ def test_planner_on_card_takes_the_sym_path(dev):
         sym0 + 1, gen0 + 1)
 
 
+# odd widths whose rows the kernel pads (513 x 1027: pitch 1056) and grids
+# whose blocks take uneven numbers of tiles (700 x 901; 513 x 1027 too)
+@pytest.mark.parametrize("nv,nh,seed", [(513, 1027, 7), (700, 901, 8)])
+def test_sym_kernel_odd_width_and_uneven_tiles(dev, nv, nh, seed):
+    S, half, cplanes, bp, x0p = _sym_case(dev, nv, nh, seed)
+    xk, hk = _run_twice(tss.stream_cg_sym_planes, half, cplanes, bp, x0p, 40)
+    xp, hp = tss.stream_cg_sym_planes_plain(half, cplanes, bp, x0p, 40)
+    _assert_dia_close(xk, hk, xp, hp)
+
+
+def _sym_limit_stencil(dev, nv, nh, seed):
+    """A symmetric stencil at the kernel's limits: 31 offsets within 8
+    nodes, (8, -8) among them, so 16 half planes; diagonally dominant
+    (centre 4 + 0.5j + 0.1 U, the half planes -0.1 (1 + 0.3 U) + 0.02j),
+    each mirrored plane plane_{-s}(n) = plane_s(n - s)."""
+    from tpcg_torch.sparse import Stencil2D
+    rng = np.random.default_rng(seed)
+    pos = [(dm, dj) for dm in range(0, 9) for dj in range(-8, 9)
+           if (dm, dj) > (0, 0) and (dm, dj) != (8, -8)]
+    pick = rng.choice(len(pos), size=14, replace=False)
+    half = [(0, 0), (8, -8)] + [pos[i] for i in pick]
+    c = -0.1 * (1.0 + 0.3 * rng.random((16, nv, nh))) + 0.02j
+    c[0] = 4.0 + 0.5j + 0.1 * rng.random((nv, nh))
+    c = torch.from_numpy(c)
+    mirrors = [tss._shift(c[t], dm, dj) for t, (dm, dj) in
+               enumerate(half) if t > 0]
+    offsets = tuple(half) + tuple((-dm, -dj) for dm, dj in half[1:])
+    return Stencil2D(offsets, torch.cat([c, torch.stack(mirrors)]).to(dev),
+                     (nv, nh))
+
+
+def test_sym_kernel_takes_pad8_with_16_half_planes(dev):
+    """The kernel's limits at once, pad 8 and 16 half planes (31 offsets),
+    on an odd grid with x0 != 0: the layout narrows its tile to fit a block,
+    the kernel follows the plain version over 16 iterations (the history
+    falls by 1e5 by then) and two launches agree bit for bit."""
+    nv, nh = 157, 203
+    S = _sym_limit_stencil(dev, nv, nh, 3)
+    half, cplanes = tss.prepare_stream_sym(S)
+    assert len(S.offsets) == 31 and len(half) == 16
+    lay = tss.sym_layout(nv, nh, 8, 16)
+    assert lay.blocks_per_sm >= 1 and lay.tile_cols in (64, 128)
+    rng = np.random.default_rng(41)
+    bp = torch.from_numpy(
+        rng.standard_normal((2, nv, nh)).astype(np.float32)).to(dev)
+    x0p = 0.1 * torch.flip(bp, dims=(2,))
+    xk, hk = _run_twice(tss.stream_cg_sym_planes, half, cplanes, bp, x0p, 16)
+    xp, hp = tss.stream_cg_sym_planes_plain(half, cplanes, bp, x0p, 16)
+    _assert_dia_close(xk, hk, xp, hp)
+
+
+def test_sym_kernel_does_not_spill(dev):
+    """The kernel builds without spills (-Xptxas -v)."""
+    from tpcg_torch.ops import _build
+    _build.load()
+    name, seen = "", []
+    for line in _build.compiler_report().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill" in line and "stream_cg_sym_kernel" in name:
+            seen.append(line.strip())
+    assert len(seen) == 1
+    assert "0 bytes spill stores" in seen[0] and \
+        "0 bytes spill loads" in seen[0], seen[0]
+
+
+def test_sym_plan_copies_half_planes_once(dev):
+    """A B=3 stream-coef plan copies the half planes to the kernel's pitch
+    once, when it is made, keeps that copy alone on the card, and solves
+    with three launches that read it; each column is bit-equal to its own
+    launch."""
+    S, half, cplanes, bp, _ = _sym_case(dev, 513, 1027)
+    rng = np.random.default_rng(9)
+    cols = [bp] + [bp + 0.1 * torch.from_numpy(
+        rng.standard_normal(bp.shape).astype(np.float32)).to(dev)
+        for _ in range(2)]
+    copies = tss.pad_sym_planes.copies
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    plan = tpcg_torch.plan_stencil_cg(S, 30, nb=3)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev) - held
+    assert plan.path == "stream-coef"
+    assert tss.pad_sym_planes.copies == copies + 1
+    # the padded copy, and not also the unpadded half planes
+    pitch = tss.sym_layout(513, 1027, 1, len(half)).pitch
+    assert 4 * cplanes.numel() * pitch // 1027 <= held \
+        < 4 * cplanes.numel() * (1 + pitch / 1027)
+    before = tss.stream_cg_sym_planes.launches
+    xb, hb = plan.solve_planes(torch.stack(cols, dim=1))
+    assert tss.stream_cg_sym_planes.launches == before + 3
+    assert tss.pad_sym_planes.copies == copies + 1
+    plan.solve_planes(torch.stack(cols, dim=1))
+    assert tss.pad_sym_planes.copies == copies + 1
+    for c in range(3):
+        x1, h1 = tss.stream_cg_sym_planes(half, cplanes, cols[c],
+                                          torch.zeros_like(bp), 30)
+        assert torch.equal(xb[:, c], x1) and torch.equal(hb[:, c], h1)
+
+
 # ---- streaming general-coefficient kernel (csrc/stream_cg_coef.cu), 1..8 RHS
 # The tolerances of the streaming kernels' checks above: the kernel applies
 # the operator bit for bit as the plain version does and, as the sym kernel,

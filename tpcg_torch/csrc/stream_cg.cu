@@ -147,7 +147,6 @@ constexpr int kMaxBox = 256;        // TMA's largest box extent
 constexpr int kMaxTaps = 16;
 constexpr int kMaxPad = 8;
 constexpr int kMaxRhs = 8;  // one warp a RHS for the scalar steps
-constexpr size_t kMaxSmem = 232448;  // the most dynamic shared memory a block may take
 static_assert(kMaxRhs <= kWarps, "one warp a RHS");
 static_assert(kThreads % kTileCols == 0, "whole tile rows a sweep");
 
@@ -661,12 +660,13 @@ bool geometry_ok(int nv, int nh, int pitch, int pad, int rows, int hc,
   return nv >= 1 && nh >= 1 && pad >= 0 && pad <= kMaxPad && rows >= 1 &&
          rows + 2 * pad <= kMaxBox && hc >= pad && hc % 4 == 0 &&
          kTileCols + 2 * hc <= kMaxBox && pitch % 32 == 0 &&
-         pitch >= nh + pad && stages >= 2 && stages <= kMaxStages &&
-         smem_bytes(rows, pad, hc, stages) <= kMaxSmem;
+         pitch >= nh + pad && stages >= 2 && stages <= kMaxStages;
 }
 
 // Every instance may take the ring's dynamic shared memory (past 48 KB a
-// kernel must opt in, before the occupancy query and the launch).
+// kernel must opt in, before the occupancy query and the launch).  The
+// runtime refuses more than the card gives a block beside the kernel's
+// static shared memory, so no copy of the card's limit is kept here.
 cudaError_t allow_smem(size_t bytes) {
   for (int nb = 1; nb <= kMaxRhs; ++nb) {
     const cudaError_t err = cudaFuncSetAttribute(

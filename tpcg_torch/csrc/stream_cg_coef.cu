@@ -149,9 +149,6 @@ constexpr int kMaxBox = 256;        // TMA's largest box extent
 // Launch bounds: blocks an SM that every instance must reach (the grid is
 // the one-RHS instance's whatever NB), which caps the registers a thread.
 constexpr int kMinBlocks = 2;
-// The most dynamic shared memory a block may take, less the static shared
-// memory of the largest instance.
-constexpr size_t kMaxSmem = 232448 - 2048;
 static_assert(kMaxRhs <= kWarps, "one warp per RHS derives its scalars");
 static_assert(kThreads % kTileCols == 0, "whole tile rows a sweep");
 
@@ -696,12 +693,13 @@ bool geometry_ok(int nv, int nh, int pitch, int pad, int noff, int rows,
          hc >= pad && hc % 4 == 0 && kTileCols + 2 * hc <= kMaxBox &&
          pitch % 32 == 0 && pitch >= nh + pad && stages >= 2 &&
          stages <= kMaxStages && coef_stages >= 1 &&
-         coef_stages <= kMaxCoefStages &&
-         smem_bytes(rows, pad, hc, noff, stages, coef_stages) <= kMaxSmem;
+         coef_stages <= kMaxCoefStages;
 }
 
 // Every instance may take the rings' dynamic shared memory (past 48 KB a
-// kernel must opt in, before the occupancy query and the launch).
+// kernel must opt in, before the occupancy query and the launch).  The
+// runtime refuses more than the card gives a block beside an instance's
+// static shared memory, so no copy of the card's limit is kept here.
 cudaError_t allow_smem(size_t bytes) {
   for (int nb = 1; nb <= kMaxRhs; ++nb) {
     const cudaError_t err = cudaFuncSetAttribute(

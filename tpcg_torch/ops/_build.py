@@ -44,8 +44,8 @@ _SIGNATURES = {
     "tpcg_stream_cg": (_P,) * 9 + (_I, _LL, _I, _I, _I, _I, _IP, _FP) +
     (_I,) * 6 + (_P,),
     "tpcg_stream_sym_limits": (_IP, _IP),
-    "tpcg_stream_sym_grid": (_I, _I, _I, _IP),
-    "tpcg_stream_sym": (_P,) * 9 + (_I,) * 3 + (_IP, _I, _I, _I, _P),
+    "tpcg_stream_sym_grid": (_I,) * 11 + (_IP,),
+    "tpcg_stream_sym": (_P,) * 10 + (_I,) * 4 + (_IP,) + (_I,) * 8 + (_P,),
     "tpcg_stream_coef_limits": (_IP, _IP, _IP),
     "tpcg_stream_coef_grid": (_I,) * 11 + (_IP,),
     "tpcg_stream_coef": (_P,) * 10 + (_I, _LL, _I, _I, _I, _I, _IP) +

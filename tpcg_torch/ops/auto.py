@@ -88,7 +88,8 @@ from .stream_cg import prepare_stream, stream_cg_const_planes_batched
 from .stream_cg_coef import (prepare_stream_coef,
                              stream_cg_coef_planes_batched_fat)
 from .stream_cg_real import prepare_real, solve_real_planes
-from .stream_cg_sym import prepare_stream_sym, stream_cg_sym_planes
+from .stream_cg_sym import (pad_sym_planes, prepare_stream_sym,
+                            stream_cg_sym_planes)
 
 # JAX's _VMEM_NODES: complex grids up to here take the whole-solve kernel
 _L2_NODES = 512 * 512
@@ -341,10 +342,17 @@ def _build_solver(stencil, n_iterations, path, prepared=None):
                 n_iterations, chunk=chunk)
     elif path == "stream-coef":
         half_offsets, cplanes = prepared
+        cpad = None
+        if cplanes.device.type == "cuda":
+            # the half planes at the kernel's pitch, once a plan: every
+            # launch (one a RHS) reads this copy, and the plan keeps no
+            # other (cplanes becomes a view of it)
+            cpad = pad_sym_planes(half_offsets, cplanes)
+            cplanes = cpad[..., :nh]
 
         def solve_one(b, x0):
             return stream_cg_sym_planes(half_offsets, cplanes, b, x0,
-                                        n_iterations)
+                                        n_iterations, cpad=cpad)
 
         def solve_planes(bp, x0p):
             # one launch per RHS, queued back to back on the current

@@ -45,6 +45,8 @@ import numpy as np
 import torch
 
 from . import _build
+from ._device_limits import (BLOCK_RESERVED, BLOCK_SHARED, SM_SHARED,
+                             STATIC_SHARED)
 from .fused_cg import _pad_for
 from .stream_cg import cocg_planes_plain
 
@@ -161,10 +163,6 @@ BLOCKS_PER_SM = 2
 TILE_COLS = 128
 MAX_OFF = 32                # the kernel's kMaxOff
 MAX_RHS = 8                 # the kernel's kMaxRhs
-SM_SHARED = 233472          # shared memory of one H100 SM, bytes
-BLOCK_SHARED = 232448       # the most one block may take
-BLOCK_RESERVED = 1024       # the runtime's own share of each block
-STATIC_SHARED = 2048        # the kernel's static shared memory, at most
 
 
 class CoefLayout(NamedTuple):

@@ -14,10 +14,11 @@ a coefficient or a neighbour outside the grid reading 0.
 with this operator, the CG state (x, r, the direction d and q = A d) in
 device memory.  On a CUDA tensor it launches the hand-written kernel
 ``tpcg_torch/csrc/stream_cg_sym.cu`` (one persistent cooperative launch per
-solve; see the note at the top of that file) and raises if the kernel cannot
-run.  On a CPU tensor it runs :func:`stream_cg_sym_planes_plain`, the same
-function in plain PyTorch, which is also what the kernel is compared with on
-the card.
+solve; :func:`sym_layout` gives its tiles and rings, and it reads the half
+planes copied to its padded row pitch, :func:`pad_sym_planes`; see the note
+at the top of that file) and raises if the kernel cannot run.  On a CPU
+tensor it runs :func:`stream_cg_sym_planes_plain`, the same function in
+plain PyTorch, which is also what the kernel is compared with on the card.
 
 One Hopper kernel takes the place of the JAX package's tiers for this
 function: v4-sym (``_build_resident_sym``), v5-sym (``_build_v5_sym``) and,
@@ -49,14 +50,17 @@ Two deliberate differences from JAX:
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
+from ._device_limits import (BLOCK_RESERVED, BLOCK_SHARED, SM_SHARED,
+                             STATIC_SHARED)
 from .fused_cg import _pad_for
 from .stream_cg import cocg_planes_plain
+from .stream_cg_coef import pad_rows
 
 Offset = Tuple[int, int]
 
@@ -197,8 +201,133 @@ def kernel_limits() -> Tuple[int, int]:
     return nh1.value, pad.value
 
 
-def _launch(half_offsets, cplanes, bp, x0p, n_iterations):
-    """Launch the CUDA kernel on the current stream of bp's device."""
+# The kernel's tile and rings (csrc/stream_cg_sym.cu), from the sweep of
+# probes/stream_cg_phases.py --kernel sym on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md, Findings): tile rows, state ring slots, coefficient ring
+# slots and the most blocks an SM.
+TILE_ROWS = 8
+STAGES = 2
+COEF_STAGES = 1
+BLOCKS_PER_SM = 2
+TILE_COLS = 128             # 64 where a 128-column tile's rings do not fit
+
+
+class SymLayout(NamedTuple):
+    """Where ``csrc/stream_cg_sym.cu`` keeps its state and how it tiles
+    it."""
+    pitch: int          # row pitch of r, d, q, the working x and the half
+                        # planes' copy (floats)
+    tile_rows: int      # a tile is tile_rows x tile_cols nodes
+    tile_cols: int
+    col_halo: int       # box columns each side of a tile: pad rounded up to 4
+    box_rows: int       # state box: tile_rows + 2 pad rows ...
+    box_cols: int       # ... by tile_cols + 2 col_halo columns
+    coef_rows: int      # coefficient box: tile_rows + pad rows by box_cols
+    stages: int         # state ring slots: r and d_old boxes each
+    coef_stages: int    # coefficient ring slots: a tile's 2 nh1 planes each
+    blocks_per_sm: int
+    tiles: int          # tiles of the grid
+    smem_bytes: int     # the rings' dynamic shared memory
+    bytes_a: float      # bytes a node: phase A (r, d_old halos; d', q; x
+                        # read and written; the half planes with their halo)
+    bytes_b: float      # phase B (r, q read; r written)
+
+
+def _ring_bytes(rows, cols, pad, hc, nh1, stages, coef_stages):
+    """The kernel's ``smem_bytes``: coefficient slots of tile_rows + pad
+    box rows of 2 nh1 planes, state slots of two halo boxes (both planes);
+    each box rounded up to 32 floats."""
+    bc = cols + 2 * hc
+    box = -(-(2 * (rows + 2 * pad) * bc) // 32) * 32
+    cbox = -(-((rows + pad) * 2 * nh1 * bc) // 32) * 32
+    return 4 * (coef_stages * cbox + stages * 2 * box)
+
+
+def sym_layout(nv: int, nh: int, pad: int, nh1: int, tile_rows: int = None,
+               stages: int = None, coef_stages: int = None) -> SymLayout:
+    """The layout of a launch of ``csrc/stream_cg_sym.cu`` on an (nv, nh)
+    grid with ``nh1`` half planes within ``pad`` nodes (defaults: the
+    module's ``TILE_ROWS``, ``STAGES``, ``COEF_STAGES``,
+    ``BLOCKS_PER_SM``).
+
+    The state planes' row pitch is nh + pad rounded up to 32 floats
+    (128 B), so every row starts aligned and at least ``pad`` zero columns
+    follow nh; the half planes are copied to the same pitch
+    (:func:`pad_sym_planes`).  A box starts ``col_halo`` columns left of
+    its tile, so that its rows are 16-byte multiples (TMA's rule); the
+    coefficient box also starts ``pad`` rows above the tile, for the
+    mirrored terms c_s(n - s).  Where the rings would pass a block's shared
+    memory (large pads and half-plane counts), the layout drops to one
+    coefficient slot, halves the tile down to two rows, narrows it to 64
+    columns, then to one row: every pad and half-plane count the kernel
+    takes (:func:`kernel_limits`: 8 and 16) runs.  Bytes a node per iteration, with h_s and h_c the
+    halo's shares of a state and a coefficient box (box / tile - 1):
+    phase A 16 (1 + h_s) + 32 + 8 nh1 (1 + h_c), phase B 24 (the kernel
+    defers x += alpha d' into the next phase A; the pitch's zero columns
+    not counted)."""
+    rows = TILE_ROWS if tile_rows is None else tile_rows
+    stages = STAGES if stages is None else stages
+    cst = COEF_STAGES if coef_stages is None else coef_stages
+    cols = TILE_COLS
+    pitch = -(-(nh + pad) // 32) * 32
+    hc = -(-pad // 4) * 4
+    while (STATIC_SHARED + _ring_bytes(rows, cols, pad, hc, nh1, stages, cst)
+           > BLOCK_SHARED):
+        if cst > 1:
+            cst -= 1
+        elif rows > 2:
+            rows //= 2
+        elif cols > 64:
+            cols = 64
+        elif rows > 1:
+            rows = 1
+        else:
+            raise ValueError(f"no ring of {stages} slots fits a block at pad "
+                             f"{pad} with {nh1} half planes")
+    smem = _ring_bytes(rows, cols, pad, hc, nh1, stages, cst)
+    blocks = min(BLOCKS_PER_SM,
+                 SM_SHARED // (smem + BLOCK_RESERVED + STATIC_SHARED))
+    br, bc = rows + 2 * pad, cols + 2 * hc
+    tiles = -(-nv // rows) * -(-nh // cols)
+    share_s = br * bc / (rows * cols)
+    share_c = (rows + pad) * bc / (rows * cols)
+    return SymLayout(pitch, rows, cols, hc, br, bc, rows + pad, stages, cst,
+                     blocks, tiles, smem,
+                     16 * share_s + 32 + 8 * nh1 * share_c, 24.0)
+
+
+def pad_sym_planes(half_offsets: Sequence[Offset],
+                   cplanes: torch.Tensor) -> torch.Tensor:
+    """The half planes (2, nH1, Nv, Nh) copied to the kernel's pitch
+    (:func:`sym_layout`), zero past column Nh: the operand every launch on
+    the grid reads.  A plan makes it once (``auto``'s ``stream-coef``
+    branch); ``pad_sym_planes.copies`` counts the copies."""
+    _, nh1, nv, nh = cplanes.shape
+    pitch = sym_layout(nv, nh, _pad_for(half_offsets), nh1).pitch
+    pad_sym_planes.copies += 1
+    return pad_rows(cplanes, pitch).contiguous()
+
+
+pad_sym_planes.copies = 0
+
+
+def grid_blocks(nv: int, nh: int, pad: int, nh1: int) -> int:
+    """Blocks of one launch on an (nv, nh) grid on the current CUDA device,
+    with :func:`sym_layout`'s tiles (one block a tile, at most as many as the
+    card holds at once)."""
+    lay = sym_layout(nv, nh, pad, nh1)
+    blocks = ctypes.c_int()
+    _build.check(_build.load().tpcg_stream_sym_grid(
+        nv, nh, lay.pitch, pad, nh1, lay.tile_rows, lay.tile_cols,
+        lay.col_halo, lay.stages, lay.coef_stages, lay.blocks_per_sm,
+        ctypes.byref(blocks)), "tpcg_stream_sym_grid")
+    return blocks.value
+
+
+def _launch(half_offsets, cplanes, bp, x0p, n_iterations, cpad):
+    """Launch the CUDA kernel on the current stream of bp's device; cpad:
+    the half planes at the kernel's pitch (:func:`pad_sym_planes`), or None
+    to copy them for this launch (a full copy of the half planes)."""
     lib = _build.load()
     _, nh1, nv, nh = cplanes.shape
     P = _pad_for(half_offsets)
@@ -206,26 +335,36 @@ def _launch(half_offsets, cplanes, bp, x0p, n_iterations):
     if nh1 > max_half or P > max_pad:
         raise ValueError(f"kernel takes at most {max_half} half offsets "
                          f"within {max_pad} nodes, got {nh1} within {P}")
-    cplanes, bp, x0p = cplanes.contiguous(), bp.contiguous(), x0p.contiguous()
+    bp, x0p = bp.contiguous(), x0p.contiguous()
     dev = bp.device
+    lay = sym_layout(nv, nh, P, nh1)
+    if cpad is None:
+        cpad = pad_sym_planes(half_offsets, cplanes)
+    if (tuple(cpad.shape) != (2, nh1, nv, lay.pitch)
+            or cpad.dtype != torch.float32 or cpad.device != dev
+            or not cpad.is_contiguous()):
+        raise ValueError(f"cpad must be contiguous float32 (2, {nh1}, {nv}, "
+                         f"{lay.pitch}) on {dev}, got {tuple(cpad.shape)} "
+                         f"{cpad.dtype} on {cpad.device}")
     with torch.cuda.device(dev):
-        blocks = ctypes.c_int()
-        _build.check(lib.tpcg_stream_sym_grid(nv, nh, P, ctypes.byref(blocks)),
-                     "tpcg_stream_sym_grid")
+        blocks = grid_blocks(nv, nh, P, nh1)
         f32 = dict(dtype=torch.float32, device=dev)
         x = torch.empty_like(bp)
         hist = torch.empty((n_iterations + 1,), **f32)
-        r = torch.empty_like(bp)
-        q = torch.empty_like(bp)
-        d = torch.empty((2, 2, nv, nh), **f32)
-        part = torch.empty((2, blocks.value, 2), dtype=torch.float64,
-                            device=dev)
+        # state in the kernel's padded rows, zero past column nh
+        r = torch.zeros((2, nv, lay.pitch), **f32)
+        q = torch.zeros_like(r)
+        xw = torch.zeros_like(r)
+        d = torch.zeros((2, 2, nv, lay.pitch), **f32)
+        part = torch.empty((2, blocks, 2), dtype=torch.float64, device=dev)
         offs = (ctypes.c_int * (2 * nh1))(
             *[int(v) for o in half_offsets for v in o])
         err = lib.tpcg_stream_sym(
-            bp.data_ptr(), x0p.data_ptr(), cplanes.data_ptr(), x.data_ptr(),
+            bp.data_ptr(), x0p.data_ptr(), cpad.data_ptr(), x.data_ptr(),
             hist.data_ptr(), r.data_ptr(), q.data_ptr(), d.data_ptr(),
-            part.data_ptr(), nv, nh, nh1, offs, P, n_iterations, blocks.value,
+            xw.data_ptr(), part.data_ptr(), nv, nh, lay.pitch, nh1, offs, P,
+            lay.tile_rows, lay.tile_cols, lay.col_halo, lay.stages,
+            lay.coef_stages, n_iterations, blocks,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "tpcg_stream_sym")
     stream_cg_sym_planes.launches += 1
@@ -234,11 +373,17 @@ def _launch(half_offsets, cplanes, bp, x0p, n_iterations):
 
 def stream_cg_sym_planes(half_offsets: Sequence[Offset],
                          cplanes: torch.Tensor, bp: torch.Tensor,
-                         x0p: torch.Tensor, n_iterations: int):
+                         x0p: torch.Tensor, n_iterations: int,
+                         cpad: torch.Tensor = None):
     """Fixed-iteration single-RHS complex COCG on a symmetric stencil.
 
     half_offsets, cplanes : from :func:`prepare_stream_sym`.
     bp, x0p : (2, Nv, Nh) float32 RHS / initial-guess planes.
+    cpad : the half planes at the kernel's pitch (:func:`pad_sym_planes`),
+           made once for many launches on one grid.  None costs each launch
+           a full copy of the half planes (0.54 GB at N = 4096 with 4 of
+           them).  cplanes may be the view ``cpad[..., :Nh]``, so that only
+           the copy is kept.  Read on a card only.
     Returns (x_planes (2, Nv, Nh), residual_history (n_iterations+1,)).
 
     CUDA tensors launch the kernel (``stream_cg_sym_planes.launches``
@@ -247,7 +392,7 @@ def stream_cg_sym_planes(half_offsets: Sequence[Offset],
     """
     _check_args(half_offsets, cplanes, bp, x0p, n_iterations)
     if bp.device.type == "cuda":
-        return _launch(half_offsets, cplanes, bp, x0p, n_iterations)
+        return _launch(half_offsets, cplanes, bp, x0p, n_iterations, cpad)
     if bp.device.type == "cpu":
         return stream_cg_sym_planes_plain(half_offsets, cplanes, bp, x0p,
                                           n_iterations)
