@@ -95,11 +95,15 @@ Phases, in order; the first failure exits non-zero:
      floor; row 18's cell (N=4096) against the kernel's time before its
      redesign (PERF.md, row 18);
  12. the streaming real kernel (``stream_cg_real_planes``, const and coef
-     mode) against its plain version on the card, as phase 8: Poisson and
-     the 7-point FE stencil (const mode) and Poisson with a variable
-     diagonal (coef mode) cut to 256 x 256, 300 x 700, 1031 x 1024 and
-     600 x 1000, 40 iterations from a seeded x0 and RHS; a 2-RHS
-     ``stream-real`` plan; 2 I over 400 iterations in both modes;
+     mode, ``csrc/stream_cg_real.cu``) against its plain version on the
+     card, as phase 8: Poisson and the 7-point FE stencil (const mode) and
+     Poisson with a variable diagonal (coef mode) cut to 256 x 256,
+     300 x 700, 1031 x 1024, 600 x 1000, the odd width 513 x 1027 and the
+     uneven tiles of 700 x 901, 40 iterations from a seeded x0 and RHS; a
+     16-tap pad-8 stencil (the kernel's limits) in both modes, 16
+     iterations; a 2-RHS ``stream-real`` plan; 2 I over 400 iterations in
+     both modes; the kernel's registers (neither instance may spill) and
+     ``real_layout`` at pads 1, 2 and 8;
  13. the planner's ``stream-real`` path at full size, as phase 9: Poisson
      (``problems.poisson``) and a seeded normal RHS at N=1024 x 5000 (it
      converges: the float64 relative residual is gated at 1e-3), 2048, 2049
@@ -109,8 +113,10 @@ Phases, in order; the first failure exits non-zero:
      mode) at N=1024 x 5000 (gated as Poisson) and 4096 x 1000; beside
      N=2048 the coef kernel on Poisson's own planes, off the main path
      (JAX's benchmarks/exp_realstream.py:34-74 configuration).  Only
-     ``stream_cg_real`` may move; the bytes rate is the kernel's own ~41 B a
-     node and iteration (plus 4 B a tap in coef mode) over its time;
+     ``stream_cg_real`` may move; each prints the rates of the kernel's own
+     bytes (``real_layout``) and of the 24 B floor (plus 4 B a tap in coef
+     mode); row 14's cell (N=4096) against the kernel's time before its
+     redesign (PERF.md, row 14);
  14. the ``l2-const`` path (forced, as in JAX): helm_fe(N, 12, eps=12) at
      N=128 x 5000 and N=512 x 1000, B=1 and B=2 (plane waves), with phase
      4's gates against the plain version (the residual gated at N=128, B=1)
@@ -1298,7 +1304,19 @@ def tss_layout(N, prep):
     return tss.sym_layout(N, N, _pad_for(half), len(half))
 
 
-REAL_OWN_BYTES = 41     # csrc/stream_cg_real.cu's bytes a node and iteration
+# row 14 of PERF.md's kernel table: stream_cg_real at Poisson N=4096 x 1000,
+# before its redesign (TMA-fed phase A, padded pitch): 348.203 ms (NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md, row 14)
+ROW14_MS = 348.203
+
+
+def real_layout_of(S, prepared):
+    """csrc/stream_cg_real.cu's layout for the stencil S in the mode
+    ``prepared`` names."""
+    from tpcg_torch.ops import stream_cg_real as tsr
+    from tpcg_torch.ops.fused_cg import _pad_for
+    return tsr.real_layout(*S.grid, _pad_for(S.offsets), len(S.offsets),
+                           prepared[0] == "coef")
 
 
 def real_stencil(dev, kind, nv, nh):
@@ -1360,7 +1378,7 @@ def phase_real_compare(dev):
     from tpcg_torch.sparse import Stencil2D
     worst = 0.0
     for nv, nh, seed in ((256, 256, 1), (300, 700, 2), (1031, 1024, 3),
-                         (600, 1000, 4)):
+                         (600, 1000, 4), (513, 1027, 7), (700, 901, 8)):
         for kind in ("poisson", "fe", "vardiag"):
             S = real_stencil(dev, kind, nv, nh)
             prepared = tsr.prepare_real(S)
@@ -1380,6 +1398,27 @@ def phase_real_compare(dev):
                 fail(f"stream_cg_real disagrees with its plain version "
                      f"({kind} {nv}x{nh})")
             worst = max(worst, err)
+
+    # the kernel's limits, pad 8 and 16 taps, in both modes
+    for mode in ("const", "coef"):
+        S = real_limit_stencil(dev, 157, 203, 3, mode == "coef")
+        prepared = tsr.prepare_real(S)
+        b, _ = real_rhs(dev, 157, 203, 41)
+        x0 = 0.1 * torch.flip(b, dims=(1,))
+        xk, hk = real_run(S, prepared, b, x0, 16)
+        xk2, hk2 = real_run(S, prepared, b, x0, 16)
+        xp, hp = real_run(S, prepared, b, x0, 16, plain=True)
+        torch.cuda.synchronize()
+        ok, err, lim, rel = dia_close(xk, hk, xp, hp)
+        same = torch.equal(xk, xk2) and torch.equal(hk, hk2)
+        print(f"compare stream_cg_real 16 taps within pad 8 ({prepared[0]}) "
+              f"157x203 16 it: {real_layout_of(S, prepared)}; max|x err| "
+              f"{err:.3e} (limit {lim:.3e}), hist max rel {rel:.3e} (limit "
+              f"1e-2), repeat bit-equal {same}")
+        if not (ok and same and prepared[0] == mode):
+            fail(f"stream_cg_real disagrees with its plain version at its "
+                 f"limits ({mode} mode)")
+        worst = max(worst, err)
 
     # a 2-RHS plan: two launches, each column its single-RHS launch's bits
     S = real_stencil(dev, "poisson", 1024, 1024)
@@ -1409,7 +1448,52 @@ def phase_real_compare(dev):
                           plain=True)
         freeze_check(f"stream_cg_real ({prepared[0]}) 2 I 64x64", xk, hk, xp,
                      hp)
+
+    # the kernel's registers (no spill in either instance) and its layout
+    from tpcg_torch.ops import _build
+    name = spill = ""
+    for line in _build.compiler_report().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and \
+                "stream_cg_real_kernel" in name:
+            print(f"  ptxas {name}: {spill}; "
+                  f"{line.split(':', 1)[1].strip()}")
+            if "0 bytes spill stores" not in spill or \
+                    "0 bytes spill loads" not in spill:
+                fail(f"stream_cg_real spills: {spill}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for coef in (False, True):
+        for pad, noff in ((1, 5), (2, 9), (8, 16)):
+            blocks = tsr.grid_blocks(2048, 2048, pad, noff, coef)
+            print(f"stream_cg_real layout at 2048 x 2048, "
+                  f"{'coef' if coef else 'const'} mode, pad {pad}, {noff} "
+                  f"taps: {tsr.real_layout(2048, 2048, pad, noff, coef)}; "
+                  f"{blocks} blocks of 256 threads ({blocks / sms:g} an SM)")
     return worst
+
+
+def real_limit_stencil(dev, nv, nh, seed, coef):
+    """A real stencil at the kernel's limits: 16 taps within 8 nodes,
+    (8, -8) among them; centre 4, the others from -0.2, -0.15, -0.1 (equal
+    taps form groups in const mode).  Const mode: constant planes (a tap
+    that leaves the grid reads 0 there); coef mode: each plane times
+    1 + 0.3 U(0, 1).  As tests/test_torch_cuda.py's."""
+    from tpcg_torch.sparse import Stencil2D
+    rng = np.random.default_rng(seed)
+    pos = [(dm, dj) for dm in range(-8, 9) for dj in range(-8, 9)
+           if (dm, dj) not in ((0, 0), (8, -8))]
+    pick = rng.choice(len(pos), size=14, replace=False)
+    offsets = ((0, 0), (8, -8)) + tuple(pos[i] for i in pick)
+    c = np.empty((16, nv, nh))
+    c[0] = 4.0
+    for s in range(1, 16):
+        c[s] = (-0.2, -0.15, -0.1)[s % 3]
+    if coef:
+        c *= 1.0 + 0.3 * rng.random(c.shape)
+    return Stencil2D(offsets, torch.from_numpy(c).to(dev), (nv, nh))
 
 
 def phase_real_main(dev, kind, N, iters, nb=1, gate_residual=False,
@@ -1497,7 +1581,10 @@ def phase_real_main(dev, kind, N, iters, nb=1, gate_residual=False,
         4 * (operand.numel() + nb * (3 * n + iters + 1)), nb * iters * flop)
     tap_bytes = 0 if prep[0] == "const" else 4 * len(A.offsets)
     floor_ms = nb * iters * (24 + tap_bytes) * n / HBM_BYTES_PER_S * 1e3
-    own = nb * iters * (REAL_OWN_BYTES + tap_bytes) * n / (ms * 1e-3) / 1e12
+    lay = real_layout_of(A, prep)
+    own_b = lay.bytes_a + lay.bytes_b
+    own = nb * iters * own_b * n / (ms * 1e-3) / 1e12
+    floor_rate = nb * iters * (24 + tap_bytes) * n / (ms * 1e-3) / 1e12
     plain_ms = None
     if plain_full:
         start.record()
@@ -1512,22 +1599,26 @@ def phase_real_main(dev, kind, N, iters, nb=1, gate_residual=False,
               f"bit-equal to the kernel's {torch.equal(xs, xk_full)}")
     print(f"time {label} {iters} it: kernel {ms:.3f} ms "
           f"({ms * 1e3 / (nb * iters):.3f} us/it per RHS, {gflops:.2f} GFLOPS "
-          f"Table II, all RHS; own ~{REAL_OWN_BYTES + tap_bytes} B a node at "
-          f"{own:.2f} TB/s); bound {bound_ms:.3f} ms ({bound_by}); state "
-          f"streaming floor ({24 + tap_bytes} B a node) {floor_ms:.3f} ms"
+          f"Table II, all RHS; own {own_b:.2f} B a node "
+          f"(real_layout) at {own:.3f} TB/s, the {24 + tap_bytes} B floor at "
+          f"{floor_rate:.3f} TB/s); bound {bound_ms:.3f} ms ({bound_by}); "
+          f"state streaming floor ({24 + tap_bytes} B a node) "
+          f"{floor_ms:.3f} ms"
           + (f"; plain {plain_ms:.3f} ms (one run, {iters} it)"
              if plain_ms is not None else ""))
     if also_coef:
         coefp = tsr.prepare_stream_coef_real(A)
+        cpad = tsr.pad_real_planes(A.offsets, coefp)
         ms2, _ = median_ms(lambda: tsr.stream_cg_real_coef_planes(
-            A.offsets, coefp, b0, x0, iters), reps=5)
-        own2 = iters * (REAL_OWN_BYTES + 4 * len(A.offsets)) * n / (
-            ms2 * 1e-3) / 1e12
+            A.offsets, coefp, b0, x0, iters, cpad=cpad), reps=5)
+        lay2 = real_layout_of(A, ("coef", coefp))
+        own2_b = lay2.bytes_a + lay2.bytes_b
+        own2 = iters * own2_b * n / (ms2 * 1e-3) / 1e12
         print(f"time {label} {iters} it: coef mode on the same planes (off "
               f"the main path) {ms2:.3f} ms ({ms2 * 1e3 / iters:.3f} us/it, "
               f"{iters * flop / (ms2 * 1e-3) / 1e9:.2f} GFLOPS Table II; own "
-              f"~{REAL_OWN_BYTES + 4 * len(A.offsets)} B a node at "
-              f"{own2:.2f} TB/s)")
+              f"{own2_b:.2f} B a node at {own2:.3f} TB/s)")
+        del cpad, coefp
     return dict(ms=ms, plain_ms=plain_ms, launches=launches, err=err,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -2587,6 +2678,10 @@ def main():
             phase_real_main(dev, "fe", 2048, 1000),
             phase_real_main(dev, "vardiag", 1024, 5000, gate_residual=True),
             phase_real_main(dev, "vardiag", 4096, 1000, plain_full=True)]
+    print(f"row 14 (stream_cg_real, Poisson N=4096 x 1000): "
+          f"{real[4]['ms']:.3f} ms (phase 13) against {ROW14_MS} ms of the "
+          f"kernel before its redesign: "
+          f"{100 * (real[4]['ms'] / ROW14_MS - 1):+.2f}%")
     l2c = [phase_l2_const(dev, 128, 5000, 1, True, plain_full=True),
            phase_l2_const(dev, 128, 5000, 2, True),
            phase_l2_const(dev, 512, 1000, 1, False),

@@ -4,10 +4,12 @@ turns, on one card.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
-    python3 probes/stream_cg_phases.py split [--kernel coef|sym] [--tree DIR]
-    python3 probes/stream_cg_phases.py sweep [--kernel coef|sym]
-    python3 probes/stream_cg_phases.py variants [--kernel coef|sym]
-    python3 probes/stream_cg_phases.py compare [--kernel coef|sym] --tree DIR
+    python3 probes/stream_cg_phases.py split [--kernel K] [--tree DIR]
+    python3 probes/stream_cg_phases.py sweep [--kernel K]
+    python3 probes/stream_cg_phases.py variants [--kernel K]
+    python3 probes/stream_cg_phases.py compare [--kernel K] --tree DIR
+
+with K one of const, coef, sym, real, real-coef.
 
 ``--kernel const`` (the default) probes ``csrc/stream_cg.cu`` on
 helm_fe(N, 12, eps=12) and its plane wave; ``--kernel coef`` probes
@@ -18,7 +20,11 @@ its plane wave; RHS r of a batch is the plane wave times 1 + 0.1j r.
 ``--kernel sym`` probes ``csrc/stream_cg_sym.cu`` (one RHS a launch) on the
 symmetric class of the smoke's phase 11, helm_fe_var(N, 40, C, rho=0.1)
 with C = 1 + 0.5 U(0, 1) from seed 0 (benchmarks/exp_stream4sym.py:28-38),
-and plane_wave_rhs(N, 40).
+and plane_wave_rhs(N, 40).  ``--kernel real`` probes ``csrc/stream_cg_real.cu``
+in const mode on Poisson (``problems.poisson(N)``), ``--kernel real-coef``
+the same kernel in coef mode on Poisson with c[0] += 0.3 U(0, 1) from seed
+2 (the classes of the smoke's phase 13), each with a standard normal RHS
+from seed 11, one RHS a launch.
 
 ``--tree DIR`` names a directory that holds another ``tpcg_torch`` package
 (for example an earlier commit's, unpacked with ``git archive`` under
@@ -41,8 +47,8 @@ the earlier kernel's tiles) over its time.
 
 ``split``: const: N = 1024 (1000 iterations), 2048 (500) and 4096 (300),
 one RHS and one launch of NB = 4.  coef: the same sizes at one RHS, and one
-launch of NB = 2 and of NB = 8 at 2048.  sym: the same sizes and 2049
-(500).
+launch of NB = 2 and of NB = 8 at 2048.  sym and real: the same sizes and
+2049 (500).  real-coef: N = 1024 (1000) and 4096 (300).
 
 ``sweep``: this checkout's kernel at every layout of ``SWEEP_*`` that fits
 the shared memory, at every count of blocks an SM that it allows, first
@@ -50,11 +56,11 @@ with the source's launch bounds, then built with bounds of more blocks an
 SM (fewer registers a thread) for the layouts of that many blocks (const
 also with 512 threads a block): us per RHS-iteration and the split at
 N = 2048 (500 iterations) and 4096 (300), one RHS (coef also NB = 8 at
-2048; sym also 2049 x 500), then N = 1024 (1000) for the best few of each
-build.  Each build prints its instances' registers and spills.
-``--configs "R,S,C,m;..."`` sweeps those layouts alone (coef, sym), each
-also at N = 1024, in the source's own build; ``--edit NAME`` builds every
-copy with that edit of ``variants``.
+2048; sym and real also 2049 x 500), then N = 1024 (1000) for the best few
+of each build.  Each build prints its instances' registers and spills.
+``--configs "R,S,C,m;..."`` (const, real: "R,S,m;...") sweeps those layouts
+alone, each also at N = 1024, in the source's own build; ``--edit NAME``
+builds every copy with that edit of ``variants``.
 
 ``variants``: this checkout's kernel at its default layout, built as it is
 and with one edit each (``EDITS``), then as it is again, at N = 2048, 4096
@@ -63,8 +69,9 @@ promotion, the unrolling of the node loop, the shared-memory proxy fence
 left out (which the memory model needs: a measurement only).  coef:
 phase B's sweep in forward order (the kernel sweeps from the planes' ends
 back, so that the d' and q that phase A wrote last are read first, from
-the L2).  sym: phase B's sweep in forward order.  An earlier design is
-timed against this one with ``compare --tree`` on its commit's archive.
+the L2).  sym: phase B's sweep in forward order.  real, real-coef: the
+edits of ``KERNELS``.  An earlier design is timed against this one with
+``compare --tree`` on its commit's archive.
 
 ``compare``: DIR's package and this checkout's in turns (DIR, this, this,
 DIR), each in its own process with its own build, median of 3 CUDA-event
@@ -72,8 +79,9 @@ timings: const at N = 1024 x 1000 (B = 1), 2048 x 500 (B = 1 and one
 launch of NB = 8) and 4096 x 1000 (B = 1); coef at N = 4096 x 1000 (B =
 1), 2048 x 500 (B = 1, one launch of NB = 2 and one of NB = 8), 1024 x
 1000 (B = 1) and 2049 x 500 (B = 1); sym at N = 4096 x 1000, 2048 x 500,
-1024 x 1000 and 2049 x 500; us per RHS-iteration and the rate of the
-kernel's own bytes.
+1024 x 1000 and 2049 x 500; real at those and 2896 x 500; real-coef at N =
+4096 x 1000, 2048 x 500 and 1024 x 1000; us per RHS-iteration and the rate
+of the kernel's own bytes.
 
 Every mode prints the card's name and power limit first.
 """
@@ -160,6 +168,26 @@ KERNELS = {
             ("base", None),
             ("forward-b", [("const size_t u = n4 - 1 - v;",
                             "const size_t u = v;")]))),
+    "real": dict(
+        source="stream_cg_real.cu", module="stream_cg_real",
+        entry="stream_cg_real_kernel",
+        bounds=("constexpr int kMinBlocks = 4;",
+                "constexpr int kMinBlocks = {};"), default_blocks=4,
+        builds=(("b4", 4, 256), ("b2", 2, 256)),
+        edits=(
+            ("base", None),
+            ("forward-b", [("const size_t u = n4 - 1 - v;",
+                            "const size_t u = v;")]))),
+    "real-coef": dict(
+        source="stream_cg_real.cu", module="stream_cg_real",
+        entry="stream_cg_real_kernel",
+        bounds=("constexpr int kMinBlocks = 4;",
+                "constexpr int kMinBlocks = {};"), default_blocks=4,
+        builds=(("b4", 4, 256), ("b2", 2, 256)),
+        edits=(
+            ("base", None),
+            ("forward-b", [("const size_t u = n4 - 1 - v;",
+                            "const size_t u = v;")]))),
 }
 
 
@@ -228,6 +256,12 @@ SWEEP_COEF = [(r, s, c, m) for r in (4, 8, 16) for s in (2, 3)
 # sym: tile rows, state ring slots, coefficient slots, blocks an SM
 SWEEP_SYM = [(r, s, c, m) for r in (2, 4, 8, 16) for s in (2, 3)
              for c in (1, 2) for m in (1, 2, 3)]
+# real (const mode): tile rows, state ring slots, blocks an SM
+SWEEP_REAL = [(r, s, m) for r in (8, 16, 32, 64) for s in (2, 3)
+              for m in (1, 2, 3, 4)]
+# real-coef: tile rows, state ring slots, coefficient slots, blocks an SM
+SWEEP_REAL_COEF = [(r, s, c, m) for r in (4, 8, 16, 32) for s in (2, 3)
+                   for c in (1, 2) for m in (1, 2, 3)]
 
 
 def fits(mod, kernel, config):
@@ -238,6 +272,20 @@ def fits(mod, kernel, config):
     if kernel == "const":
         rows, stages, m = config
         smem = mod.stream_layout(2048, 2048, 1, rows, stages).smem_bytes
+    elif kernel == "real":
+        rows, stages, m = config
+        lay = mod.real_layout(2048, 2048, 1, 5, False, tile_rows=rows,
+                              stages=stages)
+        if lay.tile_rows != rows:
+            return False
+        smem = lay.smem_bytes
+    elif kernel == "real-coef":
+        rows, stages, cst, m = config
+        lay = mod.real_layout(2048, 2048, 1, 5, True, tile_rows=rows,
+                              stages=stages, coef_stages=cst)
+        if (lay.tile_rows, lay.coef_stages) != (rows, cst):
+            return False
+        smem = lay.smem_bytes
     elif kernel == "sym":
         rows, stages, cst, m = config
         lay = mod.sym_layout(2048, 2048, 1, 4, tile_rows=rows, stages=stages,
@@ -275,6 +323,20 @@ def sym_problem(N, dev):
             plane_wave_rhs(N, 40.0))
 
 
+def real_problem(N, dev, coef):
+    """The smoke's phase-13 classes at N x N: Poisson (const mode) or
+    Poisson with c[0] += 0.3 U(0, 1) from seed 2 (coef mode), and a seeded
+    standard normal RHS."""
+    import numpy as np
+    import torch
+    from tpcg_torch.problems import poisson
+    A = poisson(N, device=dev)
+    if coef:
+        A.coef[0] += torch.from_numpy(
+            0.3 * np.random.default_rng(2).random((N, N))).to(dev)
+    return A, np.random.default_rng(11).standard_normal((N, N))
+
+
 def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
              configs=None):
     sys.path.insert(0, str(tree))
@@ -303,9 +365,20 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
         _build.check(lib.tpcg_probe_read(slots.ctypes.data), "probe read")
         return slots.copy()
 
+    real = kernel in ("real", "real-coef")
+
     def own_bytes(N, nb, noff):
         """(phase A, phase B) bytes a node and RHS of the tree's kernel
         (the coefficients' share included, divided over the RHS)."""
+        if real:
+            if hasattr(mod, "real_layout"):
+                lay = mod.real_layout(N, N, 1, noff, kernel == "real-coef")
+                return lay.bytes_a, lay.bytes_b
+            # the earlier kernel: 16 x 128 tiles, a halo of one node, q
+            # stored, the coefficient planes read once
+            h = (16 + 2) * (128 + 2) / (16 * 128) - 1
+            return 8 * (1 + h) + 8 + (4 * noff if kernel == "real-coef"
+                                      else 0), 24.0
         if kernel == "const":
             if hasattr(mod, "stream_layout"):
                 lay = mod.stream_layout(N, N, 1)
@@ -329,6 +402,14 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
         return 16 * h + 16 + 8 * noff / nb, 48.0
 
     def blocks_of(nb, N, noff):
+        if real:
+            if hasattr(mod, "grid_blocks"):
+                return mod.grid_blocks(N, N, 1, noff, kernel == "real-coef")
+            g = ctypes.c_int()
+            _build.check(lib.tpcg_stream_real_grid(
+                N, N, 1, int(kernel == "real-coef"), ctypes.byref(g)),
+                "tpcg_stream_real_grid")
+            return g.value
         if kernel == "sym":
             if hasattr(mod, "grid_blocks"):
                 return mod.grid_blocks(N, N, 1, noff)
@@ -350,6 +431,22 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
         sweep_nb = [(2048, 500, 1), (4096, 300, 1)]
         variants = [(2048, 500, 1), (4096, 300, 1), (1024, 1000, 1)]
         sweep, knobs = SWEEP_CONST, ("TILE_ROWS", "STAGES", "BLOCKS_PER_SM")
+    elif kernel == "real":
+        compare = [(4096, 1000, 1), (2048, 500, 1), (1024, 1000, 1),
+                   (2049, 500, 1), (2896, 500, 1)]
+        split = [(1024, 1000, 1), (2048, 500, 1), (2049, 500, 1),
+                 (4096, 300, 1)]
+        sweep_nb = [(2048, 500, 1), (2049, 500, 1), (4096, 300, 1)]
+        variants = [(2048, 500, 1), (4096, 300, 1), (1024, 1000, 1)]
+        sweep, knobs = SWEEP_REAL, ("TILE_ROWS", "STAGES", "BLOCKS_PER_SM")
+    elif kernel == "real-coef":
+        compare = [(4096, 1000, 1), (2048, 500, 1), (1024, 1000, 1)]
+        split = [(1024, 1000, 1), (4096, 300, 1)]
+        sweep_nb = [(2048, 500, 1), (4096, 300, 1)]
+        variants = [(2048, 500, 1), (4096, 300, 1), (1024, 1000, 1)]
+        sweep = SWEEP_REAL_COEF
+        knobs = ("COEF_TILE_ROWS", "STAGES", "COEF_STAGES",
+                 "COEF_BLOCKS_PER_SM")
     elif kernel == "sym":
         compare = [(4096, 1000, 1), (2048, 500, 1), (1024, 1000, 1),
                    (2049, 500, 1)]
@@ -369,6 +466,7 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
                     (1024, 1000, 1)]
         sweep = SWEEP_COEF
         knobs = ("TILE_ROWS", "STAGES", "COEF_STAGES", "BLOCKS_PER_SM")
+    given = configs is not None
     if mode == "compare":
         cells = [c + (None,) for c in compare]
     elif mode == "variants":
@@ -401,6 +499,17 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
                 A = helm_fe(N, 12.0, eps=12.0, device=dev)
                 prep = mod.prepare_stream(A)
                 b = plane_wave_rhs(N, 12.0)
+            elif kernel == "real":
+                A, b = real_problem(N, dev, False)
+                prep = mod.prepare_stream_real(A)
+            elif kernel == "real-coef":
+                A, b = real_problem(N, dev, True)
+                coefp = mod.prepare_stream_coef_real(A)
+                # the planes at the kernel's pitch, once (as a plan holds
+                # them), where the tree's wrapper takes such a copy
+                prep = (coefp,) + ((mod.pad_real_planes(A.offsets, coefp),)
+                                   if hasattr(mod, "pad_real_planes")
+                                   else ())
             elif kernel == "sym":
                 A, b = sym_problem(N, dev)
                 half, cplanes = mod.prepare_stream_sym(A)
@@ -417,17 +526,30 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
         if config is not None:
             for k, v in zip(knobs, config):
                 setattr(mod, k, v)
+            if kernel == "real" and hasattr(mod, "SMALL_GRID_NODES"):
+                mod.SMALL_GRID_NODES = 0  # the configuration at every size
         tag = tree.name if config is None else " ".join(
             f"{k[0]}{v}" for k, v in zip(knobs, config)) + (
                 f" ({threads} threads, launch bounds {min_blocks})"
                 if (min_blocks, threads) != (kd["default_blocks"], 256)
                 else "")
-        B = np.stack([b * (1 + 0.1j * r) for r in range(nb)])
-        bp = torch.from_numpy(np.stack([B.real, B.imag]).astype(
-            np.float32)).to(dev)
+        if real:
+            bp = torch.from_numpy(b.astype(np.float32)).to(dev)
+        else:
+            B = np.stack([b * (1 + 0.1j * r) for r in range(nb)])
+            bp = torch.from_numpy(np.stack([B.real, B.imag]).astype(
+                np.float32)).to(dev)
         x0 = torch.zeros_like(bp)
 
         def solve():
+            if kernel == "real":
+                taps, strips = prep
+                return mod.stream_cg_real_planes(A.offsets, A.grid, taps,
+                                                 strips, bp, x0, iters)
+            if kernel == "real-coef":
+                kw = {"cpad": prep[1]} if len(prep) > 1 else {}
+                return mod.stream_cg_real_coef_planes(A.offsets, prep[0], bp,
+                                                      x0, iters, **kw)
             if kernel == "const":
                 taps, strips = prep
                 return mod.stream_cg_const_planes_batched(
@@ -489,7 +611,7 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
     A = prep = b = None
     for c in cells:
         cell(*c)
-    if mode == "sweep" and not configs:
+    if mode == "sweep" and not given:
         # the three fastest over the NB = 1 cells together, at N = 1024 too
         tot = {}
         for r in out:

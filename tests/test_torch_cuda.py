@@ -1314,6 +1314,114 @@ def test_planner_on_card_takes_the_real_path(dev):
     assert np.linalg.norm(r) <= 1e-2 * np.linalg.norm(b)
 
 
+# odd widths whose rows the kernel pads (513 x 1027: pitch 1056) and grids
+# whose blocks take uneven numbers of tiles (700 x 901; 513 x 1027 too), in
+# both modes
+@pytest.mark.parametrize("nv,nh,seed", [(513, 1027, 7), (700, 901, 8)])
+@pytest.mark.parametrize("kind,mode", [("poisson", "const"),
+                                       ("vardiag", "coef")])
+def test_real_kernel_odd_width_and_uneven_tiles(dev, nv, nh, seed, kind,
+                                                mode):
+    S = _real_stencil(dev, kind, nv, nh)
+    prepared = tsr.prepare_real(S)
+    assert prepared[0] == mode
+    b, x0 = _real_rhs(dev, nv, nh, seed)
+    xk, hk = _run_twice(_real_run, S, prepared, b, x0, 40)
+    xp, hp = _real_run(S, prepared, b, x0, 40, plain=True)
+    _assert_dia_close(xk, hk, xp, hp)
+
+
+def _real_limit_stencil(dev, nv, nh, seed, coef):
+    """A real stencil at the kernel's limits: 16 taps within 8 nodes,
+    (8, -8) among them; centre 4, the others from -0.2, -0.15, -0.1 (equal
+    taps form groups in const mode).  Const mode: constant planes (a tap
+    that leaves the grid reads 0 there); coef mode: each plane times
+    1 + 0.3 U(0, 1)."""
+    from tpcg_torch.sparse import Stencil2D
+    rng = np.random.default_rng(seed)
+    pos = [(dm, dj) for dm in range(-8, 9) for dj in range(-8, 9)
+           if (dm, dj) not in ((0, 0), (8, -8))]
+    pick = rng.choice(len(pos), size=14, replace=False)
+    offsets = ((0, 0), (8, -8)) + tuple(pos[i] for i in pick)
+    c = np.empty((16, nv, nh))
+    c[0] = 4.0
+    for s in range(1, 16):
+        c[s] = (-0.2, -0.15, -0.1)[s % 3]
+    if coef:
+        c *= 1.0 + 0.3 * rng.random(c.shape)
+    return Stencil2D(offsets, torch.from_numpy(c).to(dev), (nv, nh))
+
+
+@pytest.mark.parametrize("mode", ["const", "coef"])
+def test_real_kernel_takes_pad8_with_16_taps(dev, mode):
+    """The kernel's limits at once, pad 8 and 16 taps, in both modes, on an
+    odd grid with x0 != 0: the layout fits a block, the kernel follows the
+    plain version over 16 iterations and two launches agree bit for bit."""
+    nv, nh = 157, 203
+    S = _real_limit_stencil(dev, nv, nh, 3, mode == "coef")
+    prepared = tsr.prepare_real(S)
+    assert prepared[0] == mode
+    assert tsr.kernel_limits() == (16, 8)
+    lay = tsr.real_layout(nv, nh, 8, 16, mode == "coef")
+    assert lay.blocks_per_sm >= 1 and lay.col_halo == 8
+    b = torch.from_numpy(np.random.default_rng(41).standard_normal(
+        (nv, nh)).astype(np.float32)).to(dev)
+    x0 = 0.1 * torch.flip(b, dims=(1,))
+    xk, hk = _run_twice(_real_run, S, prepared, b, x0, 16)
+    xp, hp = _real_run(S, prepared, b, x0, 16, plain=True)
+    _assert_dia_close(xk, hk, xp, hp)
+
+
+def test_real_kernel_does_not_spill(dev):
+    """Both instances of the kernel (const and coef mode) build without
+    spills (-Xptxas -v)."""
+    from tpcg_torch.ops import _build
+    _build.load()
+    name, seen = "", []
+    for line in _build.compiler_report().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill" in line and "stream_cg_real_kernel" in name:
+            seen.append(line.strip())
+    assert len(seen) == 2
+    for line in seen:
+        assert "0 bytes spill stores" in line and \
+            "0 bytes spill loads" in line, line
+
+
+def test_real_plan_copies_coef_planes_once(dev):
+    """A B=3 coef-mode stream-real plan copies the coefficient planes to the
+    kernel's pitch once, when it is made, keeps that copy alone on the card,
+    and solves with three launches that read it; each column is bit-equal
+    to its own launch."""
+    nv, nh = 1031, 1100
+    S = _real_stencil(dev, "vardiag", nv, nh)
+    cols = [_real_rhs(dev, nv, nh, s)[0] for s in range(3)]
+    copies = tsr.pad_real_planes.copies
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    plan = tpcg_torch.plan_stencil_cg(S, 30, nb=3)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev) - held
+    assert plan.path == "stream-real"
+    assert tsr.pad_real_planes.copies == copies + 1
+    # the padded copy, and not also the unpadded planes
+    noff = len(S.offsets)
+    pitch = tsr.real_layout(nv, nh, 1, noff, True).pitch
+    assert 4 * noff * nv * pitch <= held < 4 * noff * nv * (nh + pitch)
+    before = tsr.stream_cg_real_planes.launches
+    xb, hb = plan.solve_planes(torch.stack(cols))
+    assert tsr.stream_cg_real_planes.launches == before + 3
+    assert tsr.pad_real_planes.copies == copies + 1
+    plan.solve_planes(torch.stack(cols))
+    assert tsr.pad_real_planes.copies == copies + 1
+    coefp = tsr.prepare_stream_coef_real(S)
+    for c in range(3):
+        x1, h1 = tsr.stream_cg_real_coef_planes(S.offsets, coefp, cols[c],
+                                                torch.zeros_like(cols[c]), 30)
+        assert torch.equal(xb[c], x1) and torch.equal(hb[:, c], h1)
+
+
 # ---- the whole-solve kernel's const instance (csrc/fused_cg.cu, l2-const)
 # The tolerances of the coefficient instance's checks (tests/test_fused_cg.py).
 

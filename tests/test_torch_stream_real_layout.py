@@ -1,0 +1,209 @@
+"""The padded layout of ``csrc/stream_cg_real.cu`` (``real_layout``), on the
+CPU.
+
+The kernel keeps r, both d buffers, a working copy of x (and q in coef
+mode), and in coef mode a copy of the coefficient planes, in planes whose
+row pitch is nh + pad rounded up to 32 floats, zero past column nh; it
+applies the stencil to halo boxes that start ``col_halo`` columns left of a
+tile and ``pad`` rows above it, and reads a coef tile's planes from boxes of
+the tile alone.  These tests hold the geometry to that rule at widths that
+are and are not multiples of 4, 32 and 128, hold the rings to an H100's
+shared memory at every pad and tap count the kernel takes, in both modes,
+hold the byte counts to the kernel's note, and hold the premise the kernel
+rests on: the operator applied to planes zero-padded to the pitch, then
+cropped, is the operator applied to the unpadded planes, bit for bit (a
+neighbour or a coefficient past column nh - 1 reads the zero columns, as it
+reads 0 outside the grid).
+"""
+import numpy as np
+import pytest
+import torch
+
+from tpcg_torch.ops import stream_cg_real as tsr
+from tpcg_torch.sparse import Stencil2D
+
+WIDTHS = (1, 7, 127, 128, 129, 1000, 2049)
+
+STENCILS = {
+    # Poisson's 5-point stencil
+    "5-point": ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0)),
+    # the parabolic_fem-class 7-point FE stencil
+    "7-point": ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0), (1, 1),
+                (-1, -1)),
+    # a 9-tap stencil two nodes out, with far diagonals
+    "9-point": ((0, 0), (0, 2), (0, -1), (2, 0), (-1, 0), (2, -2), (-2, 1),
+                (1, 2), (-2, -2)),
+}
+
+
+def _pad_of(offsets):
+    return max(max(abs(dm), abs(dj)) for dm, dj in offsets)
+
+
+@pytest.mark.parametrize("coef", [False, True])
+@pytest.mark.parametrize("pad", [1, 2])
+@pytest.mark.parametrize("nh", WIDTHS)
+def test_pitch_is_aligned_and_copy_leaves_zero_columns(nh, pad, coef):
+    """The pitch is a multiple of 32 floats (128 B) and at least nh + pad;
+    a box's rows are 16-byte multiples and reach pad columns past the tile
+    on each side and pad rows above and below it; the coefficient planes'
+    copy at the pitch holds the planes and zeros past column nh."""
+    offsets = STENCILS["5-point" if pad == 1 else "9-point"]
+    lay = tsr.real_layout(37, nh, pad, len(offsets), coef)
+    assert lay.pitch % 32 == 0 and lay.pitch >= nh + pad
+    assert lay.pitch < nh + pad + 32
+    assert lay.col_halo % 4 == 0 and lay.col_halo >= pad
+    assert (lay.box_cols * 4) % 16 == 0
+    assert lay.box_cols == lay.tile_cols + 2 * lay.col_halo
+    assert lay.box_rows == lay.tile_rows + 2 * pad
+    assert lay.tiles == -(-37 // lay.tile_rows) * -(-nh // lay.tile_cols)
+    assert (lay.coef_stages >= 1) == coef
+    c = torch.from_numpy(np.random.default_rng(nh).standard_normal(
+        (len(offsets), 37, nh)).astype(np.float32)) + 1.0
+    copies = tsr.pad_real_planes.copies
+    cp = tsr.pad_real_planes(offsets, c)
+    assert tsr.pad_real_planes.copies == copies + 1
+    assert cp.shape == (len(offsets), 37, lay.pitch) and cp.is_contiguous()
+    assert torch.equal(cp[..., :nh], c)
+    assert torch.count_nonzero(cp[..., nh:]) == 0
+
+
+@pytest.mark.parametrize("coef", [False, True])
+@pytest.mark.parametrize("rows,pad,noff,want", [
+    (16, 1, 5, 41.5625), (32, 1, 5, 41.03125), (8, 1, 5, 42.625),
+    (4, 1, 5, 44.75), (16, 2, 9, 42.625), (16, 0, 1, 40.0)])
+def test_bytes_a_node(rows, pad, noff, want, coef):
+    """40 + 8 h bytes a node, h the halo's share of a box (the kernel's
+    note: 41.6 B at R = 16, pad 1, h = 0.195), plus 4 B a tap in coef mode:
+    phase A reads r and d_old with their halo and writes d' and q, 16 + 8 h
+    (and reads the tile's noff planes, 4 noff); phase B reads x, d', r and q
+    and writes x and r, 24."""
+    lay = tsr.real_layout(4096, 4096, pad, noff, coef, tile_rows=rows,
+                          stages=2, coef_stages=1)
+    assert lay.tile_rows == rows and lay.tile_cols == 128
+    h = lay.box_rows * lay.box_cols / (rows * lay.tile_cols) - 1
+    taps = 4 * noff if coef else 0
+    assert lay.bytes_a == pytest.approx(16 + 8 * h + taps)
+    assert lay.bytes_b == pytest.approx(24.0)
+    assert lay.bytes_a + lay.bytes_b == pytest.approx(want + taps)
+    if (rows, pad) == (16, 1):
+        assert h == pytest.approx(0.1953125)
+
+
+@pytest.mark.parametrize("n", [1024, 2047, 2048, 2049, 4096])
+def test_const_tiles_by_grid_size(n):
+    """Const mode takes the smaller tiles and more blocks an SM below
+    SMALL_GRID_NODES nodes (at N = 1024 a 16-row tile leaves the blocks
+    uneven shares), the larger tiles from there; coef mode one tile at every
+    size."""
+    small = n * n < tsr.SMALL_GRID_NODES
+    lay = tsr.real_layout(n, n, 1, 5, False)
+    assert lay.tile_rows == (tsr.SMALL_TILE_ROWS if small else tsr.TILE_ROWS)
+    assert lay.blocks_per_sm == (tsr.SMALL_BLOCKS_PER_SM if small
+                                 else tsr.BLOCKS_PER_SM)
+    assert tsr.real_layout(n, n, 1, 5, True).tile_rows == tsr.COEF_TILE_ROWS
+    assert small == (n < 2048)
+
+
+@pytest.mark.parametrize("coef", [False, True])
+@pytest.mark.parametrize("noff", [1, 5, 7, 16])
+@pytest.mark.parametrize("pad", range(9))
+def test_rings_fit_their_blocks_at_every_pad(pad, noff, coef):
+    """At every pad 0..8 and tap count up to 16, in both modes, the rings
+    fit a block (227 KB with the static shared memory) and blocks_per_sm
+    blocks fit one H100 SM's 228 KB (1 KB of it reserved a block): the
+    layout drops a coefficient slot, then halves its tile's rows, rather
+    than refuse a stencil the kernel takes; its boxes stay within TMA's 256
+    a side."""
+    lay = tsr.real_layout(4096, 4096, pad, noff, coef)
+    assert lay.tile_rows >= 1 and lay.stages >= 2
+    assert lay.coef_stages >= 1 if coef else lay.coef_stages == 0
+    per = lay.smem_bytes + tsr.STATIC_SHARED
+    assert per <= tsr.BLOCK_SHARED
+    assert lay.blocks_per_sm >= 1
+    assert lay.blocks_per_sm * (per + tsr.BLOCK_RESERVED) <= tsr.SM_SHARED
+    assert max(lay.box_rows, lay.box_cols, noff) <= 256
+    default = tsr.COEF_TILE_ROWS if coef else tsr.TILE_ROWS
+    if lay.tile_rows < default:
+        # narrowed only because the default tile does not fit
+        assert (tsr.STATIC_SHARED + tsr._ring_bytes(
+            default, pad, lay.col_halo, noff, coef, lay.stages, 1)
+            > tsr.BLOCK_SHARED)
+
+
+@pytest.mark.parametrize("rows,pad,noff,coef,want", [
+    (16, 1, 5, False, 39424), (8, 1, 5, False, 22016),
+    (4, 1, 5, True, 23552), (16, 8, 16, True, 204800),
+    (16, 8, 16, False, 73728)])
+def test_layout_matches_the_kernels_smem_formula(rows, pad, noff, coef, want):
+    """smem_bytes is the kernel's formula: stages state slots of two halo
+    boxes (phase A's r and d_old), and in coef mode coef_stages slots of the
+    tile's noff planes; each box rounded up to 32 floats (128 B, TMA's
+    alignment)."""
+    hc = -(-pad // 4) * 4
+    bc = 128 + 2 * hc
+    box = -(-((rows + 2 * pad) * bc) // 32) * 32
+    cbox = noff * rows * 128 if coef else 0
+    assert tsr._ring_bytes(rows, pad, hc, noff, coef, 2, 1) \
+        == 4 * (cbox + 2 * 2 * box) == want
+    lay = tsr.real_layout(4096, 4096, pad, noff, coef, tile_rows=rows,
+                          stages=2, coef_stages=1)
+    if lay.tile_rows == rows:
+        assert lay.smem_bytes == want
+
+
+def _stencil(offsets, nv, nh, seed, coef):
+    """A real stencil on the offsets: const taps (4 at the centre, the rest
+    from -0.2, -0.15, -0.1, so that equal taps form groups), or in coef
+    mode those times 1 + 0.3 U(0, 1).  Taps that leave the grid are zero
+    where the stencil reaches one node (const mode's strips and edge taps
+    then undo the interior taps there) or in coef mode; a wider const
+    stencil keeps them (const mode allows one ring of deviation only)."""
+    rng = np.random.default_rng(seed)
+    vals = [4.0] + [(-0.2, -0.15, -0.1)[k % 3] for k in range(len(offsets) - 1)]
+    cut = coef or _pad_of(offsets) == 1
+    c = np.zeros((len(offsets), nv, nh))
+    for s, (dm, dj) in enumerate(offsets):
+        if cut:
+            c[s, max(0, -dm):nv - max(0, dm),
+              max(0, -dj):nh - max(0, dj)] = vals[s]
+        else:
+            c[s] = vals[s]
+    if coef:
+        c *= 1.0 + 0.3 * rng.random(c.shape)
+    return Stencil2D(offsets, torch.from_numpy(c), (nv, nh))
+
+
+@pytest.mark.parametrize("nv,nh", [(37, 45), (33, 129)])
+@pytest.mark.parametrize("name", sorted(STENCILS))
+@pytest.mark.parametrize("coef", [False, True])
+def test_apply_on_padded_rows_equals_unpadded(coef, name, nv, nh):
+    """apply_const_real and apply_coef_real on x (and coef mode's planes)
+    zero-padded to the pitch, cropped to nh, equal them on the unpadded
+    planes bit for bit, at odd heights and widths, for the 5-, 7- and 9-tap
+    stencils; the padded columns of q stay zero.  Rows 0 and nv - 1 and
+    columns 0 and nh - 1 are checked on their own: there the taps reach the
+    zero border (and in const mode the strips and edge taps apply)."""
+    offsets = STENCILS[name]
+    S = _stencil(offsets, nv, nh, nv * nh + len(offsets), coef)
+    mode, operand = tsr.prepare_real(S)
+    assert mode == ("coef" if coef else "const")
+    lay = tsr.real_layout(nv, nh, _pad_of(offsets), len(offsets), coef)
+    rng = np.random.default_rng(nv + nh)
+    xp = torch.from_numpy(rng.standard_normal((nv, nh)).astype(np.float32))
+    xpad = tsr.pad_rows(xp, lay.pitch)
+    if coef:
+        q_pad = tsr.apply_coef_real(offsets, tsr.pad_real_planes(
+            offsets, operand), xpad)
+        q = tsr.apply_coef_real(offsets, operand, xp)
+    else:
+        taps, strips = operand
+        q_pad = tsr.apply_const_real(offsets, taps, strips, xpad)
+        q = tsr.apply_const_real(offsets, taps, strips, xp)
+    assert q_pad.shape == (nv, lay.pitch)
+    assert torch.count_nonzero(q_pad[:, nh:]) == 0
+    assert torch.equal(q_pad[:, :nh], q)
+    assert torch.equal(q_pad[0, :nh], q[0])
+    assert torch.equal(q_pad[nv - 1, :nh], q[nv - 1])
+    assert torch.equal(q_pad[:, 0], q[:, 0])
+    assert torch.equal(q_pad[:, nh - 1], q[:, nh - 1])

@@ -1,7 +1,7 @@
 // TMA tile copies, mbarriers and proxy fences (PTX for sm_90a), and the
 // host's tensor-map encoder, for the streaming kernels that feed their tiles
 // by the Tensor Memory Accelerator (csrc/stream_cg.cu, csrc/stream_cg_coef.cu,
-// csrc/stream_cg_sym.cu).
+// csrc/stream_cg_sym.cu, csrc/stream_cg_real.cu).
 // The encoder is cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint so that the library need not link libcuda.
 

@@ -56,9 +56,9 @@ _SIGNATURES = {
     "tpcg_fused_cg_const": (_P,) * 13 + (_I,) * 4 + (_IP, _FP, _IP, _I, _I,
                                                    _I, _P),
     "tpcg_stream_real_limits": (_IP, _IP),
-    "tpcg_stream_real_grid": (_I, _I, _I, _I, _IP),
-    "tpcg_stream_real": (_P,) * 9 + (_I,) * 3 + (_IP, _FP, _IP, _I, _I, _I,
-                                                 _I, _P),
+    "tpcg_stream_real_grid": (_I,) * 11 + (_IP,),
+    "tpcg_stream_real": (_P,) * 10 + (_I,) * 4 + (_IP, _FP, _IP) +
+    (_I,) * 8 + (_P,),
     "tpcg_stream_dia_limits": (_IP, _IP),
     "tpcg_stream_dia_grid": (_I, _I, _I, _I, _IP),
     "tpcg_stream_dia": (_I,) + (_P,) * 11 + (_I,) * 6 + (_P,),

@@ -1,6 +1,7 @@
 """Shared memory of an NVIDIA H100 (sm_90), which the layouts of the
 TMA-fed streaming kernels (``stream_cg_coef.coef_layout``,
-``stream_cg_sym.sym_layout``) fit their rings into.
+``stream_cg_sym.sym_layout``, ``stream_cg_real.real_layout``) fit their
+rings into.
 
 The kernels keep no copy of these numbers: a launch that asks for more than
 the card gives a block is refused by the CUDA runtime, and the wrapper

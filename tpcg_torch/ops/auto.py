@@ -37,7 +37,9 @@ Six paths are ported; each maps to a planner path of the JAX package:
                 CUDA device: one launch of the hand-written CUDA kernel
                 ``tpcg_torch/csrc/stream_cg_real.cu`` per RHS, in const mode
                 where ``prepare_stream_real`` accepts the stencil, else in
-                coef mode (``tpcg_torch.ops.stream_cg_real``).  ``solve``
+                coef mode (``tpcg_torch.ops.stream_cg_real``; the plan
+                copies the coefficient planes to the kernel's row pitch
+                once, and every launch reads that copy).  ``solve``
                 returns real float32 x, and ``solve_planes`` takes and returns
                 single (Nv, Nh) or (B, Nv, Nh) float32 planes.
   eager       : JAX's ``xla``.  Plain PyTorch: ``block_cg_planes_chunked``
@@ -87,7 +89,8 @@ from .fused_cg_const import fused_cg_const_chunked, prepare_const
 from .stream_cg import prepare_stream, stream_cg_const_planes_batched
 from .stream_cg_coef import (prepare_stream_coef,
                              stream_cg_coef_planes_batched_fat)
-from .stream_cg_real import prepare_real, solve_real_planes
+from .stream_cg_real import (pad_real_planes, prepare_real,
+                             solve_real_planes)
 from .stream_cg_sym import (pad_sym_planes, prepare_stream_sym,
                             stream_cg_sym_planes)
 
@@ -302,10 +305,18 @@ def _build_solver(stencil, n_iterations, path, prepared=None):
             return fused_cg_const_chunked(stencil.offsets, stencil.grid, cr,
                                           ci, strips, bp, x0p, n_iterations)
     elif path == "stream-real":
+        cpad = None
+        if prepared[0] == "coef" and prepared[1].device.type == "cuda":
+            # coef mode's planes at the kernel's pitch, once a plan: every
+            # launch (one a RHS) reads this copy, and the plan keeps no
+            # other (the planes become a view of it)
+            cpad = pad_real_planes(stencil.offsets, prepared[1])
+            prepared = ("coef", cpad[..., :nh])
+
         def solve_planes(bp, x0p):
             # one launch per RHS, queued back to back on the current stream
             runs = [solve_real_planes(stencil.offsets, prepared, bp[c],
-                                      x0p[c], n_iterations)
+                                      x0p[c], n_iterations, cpad=cpad)
                     for c in range(bp.shape[0])]
             return (torch.stack([x for x, _ in runs]),
                     torch.stack([h for _, h in runs], dim=1))

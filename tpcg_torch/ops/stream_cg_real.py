@@ -17,9 +17,14 @@ device memory, with two operators:
 ``n_iterations`` of CG with these operators.  On a CUDA tensor they launch
 the hand-written kernel ``tpcg_torch/csrc/stream_cg_real.cu`` (one
 persistent cooperative launch per solve, both modes; see the note at the top
-of that file) and raise if it cannot run.  On a CPU tensor they run the
-``_plain`` versions, the same functions in plain PyTorch, which are also
-what the kernel is compared with on the card.
+of that file) and raise if it cannot run.  :func:`real_layout` gives its
+tiles, rings and byte counts: TMA-fed halo boxes, the state (q included)
+in rows padded to 32 floats, 40 + 8 h B a node and iteration, plus 4 B a
+tap in coef mode, where the kernel reads the coefficient planes copied to
+its pitch (:func:`pad_real_planes`; the planner makes the copy once a
+plan).  On a CPU tensor they run the ``_plain`` versions, the same
+functions in plain PyTorch, which are also what the kernel is compared
+with on the card.
 
 One Hopper kernel takes the place of the JAX package's tiers for these
 functions: v2 (``_build_k1_real_const``, ``_build_k1_real_coef``,
@@ -39,14 +44,17 @@ to the same alpha and beta at full size (``stream_cg_sym``'s finding).
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
+from ._device_limits import (BLOCK_RESERVED, BLOCK_SHARED, SM_SHARED,
+                             STATIC_SHARED)
 from .fused_cg import _pad_for
 from .fused_cg_const import group_of, tap_groups
+from .stream_cg_coef import pad_rows
 
 Offset = Tuple[int, int]
 
@@ -153,9 +161,11 @@ def apply_const_real(offsets: Sequence[Offset], taps, strips: torch.Tensor,
     in tap order and added, likewise the right edge taps on column Nh-1;
     then on row 0 the bottom strip's terms over all taps, summed from 0 and
     added, and the top strip's on row Nv-1.  A neighbour off the grid reads
-    0."""
+    0.  The grid's width is the strips': xp may carry zero columns past it
+    (the kernel's padded rows, :func:`real_layout`), which read as the
+    zeros off the grid and stay zero in q."""
     c, lc, rc = taps
-    nv, nh = xp.shape
+    nv, nh = xp.shape[0], strips.shape[-1]
     xs = _shifted(xp, offsets, _pad_for(offsets))
     q = torch.zeros_like(xp)
     for g, members in tap_groups(c):
@@ -170,10 +180,11 @@ def apply_const_real(offsets: Sequence[Offset], taps, strips: torch.Tensor,
                 a = a + _f32(v) * xs[s][:, col]
         q[:, col] = q[:, col] + a
     for row, k in ((0, 0), (nv - 1, 1)):
-        a = torch.zeros_like(xp[row])
+        a = torch.zeros_like(xp[row, :nh])
         for s in range(len(offsets)):
-            a = a + strips[k, s] * xs[s][row]
-        q[row] = q[row] + a
+            a = a + strips[k, s] * xs[s][row, :nh]
+        q[row, :nh] = q[row, :nh] + a
+    q[:, nh:] = 0.0
     return q
 
 
@@ -289,10 +300,143 @@ def kernel_limits() -> Tuple[int, int]:
     return taps.value, pad.value
 
 
-def _launch(offsets, operand, taps, bp, x0p, n_iterations):
+# The kernel's tiles and rings (csrc/stream_cg_real.cu), from the sweeps of
+# probes/stream_cg_phases.py --kernel real and --kernel real-coef on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md, Findings): const mode's tile
+# rows and blocks an SM, and below SMALL_GRID_NODES nodes its smaller tiles
+# (a grid there has too few tiles to share evenly among the blocks); coef
+# mode's tile rows, coefficient ring slots and blocks an SM; the state ring
+# slots of both.
+TILE_ROWS = 16
+BLOCKS_PER_SM = 3
+SMALL_GRID_NODES = 2048 * 2048
+SMALL_TILE_ROWS = 8
+SMALL_BLOCKS_PER_SM = 4
+COEF_TILE_ROWS = 4
+COEF_STAGES = 2
+COEF_BLOCKS_PER_SM = 2
+STAGES = 2
+TILE_COLS = 128
+
+
+class RealLayout(NamedTuple):
+    """Where ``csrc/stream_cg_real.cu`` keeps its state and how it tiles
+    it."""
+    pitch: int          # row pitch of r, d, q, the working x and the
+                        # coefficient planes' copy (floats)
+    tile_rows: int      # a tile is tile_rows x tile_cols nodes
+    tile_cols: int
+    col_halo: int       # box columns each side of a tile: pad rounded up to 4
+    box_rows: int       # halo box: tile_rows + 2 pad rows ...
+    box_cols: int       # ... by tile_cols + 2 col_halo columns
+    stages: int         # state ring slots
+    coef_stages: int    # coefficient ring slots (coef mode; 0 in const)
+    blocks_per_sm: int
+    tiles: int          # tiles of the grid
+    smem_bytes: int     # the rings' dynamic shared memory
+    bytes_a: float      # bytes a node: phase A
+    bytes_b: float      # phase B
+
+
+def _ring_bytes(rows, pad, hc, noff, coef, stages, coef_stages):
+    """The kernel's ``smem_bytes``: state slots of two halo boxes (phase A:
+    r and d_old), and in coef mode coefficient slots of the tile's noff
+    planes; each box rounded up to 32 floats."""
+    box = -(-((rows + 2 * pad) * (TILE_COLS + 2 * hc)) // 32) * 32
+    cbox = -(-(noff * rows * TILE_COLS) // 32) * 32 if coef else 0
+    return 4 * ((coef_stages if coef else 0) * cbox + stages * 2 * box)
+
+
+def real_layout(nv: int, nh: int, pad: int, noff: int, coef: bool,
+                tile_rows: int = None, stages: int = None,
+                coef_stages: int = None) -> RealLayout:
+    """The layout of a launch of ``csrc/stream_cg_real.cu`` on an (nv, nh)
+    grid with ``noff`` taps within ``pad`` nodes, in coef mode or const mode
+    (defaults: the module's ``TILE_ROWS`` and ``BLOCKS_PER_SM`` in const
+    mode, ``SMALL_TILE_ROWS`` and ``SMALL_BLOCKS_PER_SM`` there below
+    ``SMALL_GRID_NODES`` nodes, ``COEF_TILE_ROWS``, ``COEF_STAGES`` and
+    ``COEF_BLOCKS_PER_SM`` in coef mode, ``STAGES`` in both).
+
+    The state planes' row pitch is nh + pad rounded up to 32 floats
+    (128 B), so every row starts aligned and at least ``pad`` zero columns
+    follow nh; coef mode's planes are copied to the same pitch
+    (:func:`pad_real_planes`).  A halo box starts ``col_halo`` columns left
+    of its tile and ``pad`` rows above it, so that its rows are 16-byte
+    multiples (TMA's rule).  Where the rings would pass a block's shared
+    memory (large pads and tap counts), the layout drops to one coefficient
+    slot, then halves the tile's rows: every pad and tap count the kernel
+    takes (:func:`kernel_limits`: 8 and 16) runs.  Bytes a node per
+    iteration, with h the halo's share of a box (box / tile - 1; the
+    pitch's zero columns not counted): phase A 8 (1 + h) + 8, plus 4 noff
+    in coef mode (r and d_old with their halo, d' and q, the tile's
+    planes); phase B 24 (x, d', r and q read, x and r written)."""
+    if coef:
+        rows = COEF_TILE_ROWS if tile_rows is None else tile_rows
+        cst = COEF_STAGES if coef_stages is None else coef_stages
+        cap = COEF_BLOCKS_PER_SM
+    else:
+        small = nv * nh < SMALL_GRID_NODES
+        rows = tile_rows if tile_rows is not None else (
+            SMALL_TILE_ROWS if small else TILE_ROWS)
+        cst = 0
+        cap = SMALL_BLOCKS_PER_SM if small else BLOCKS_PER_SM
+    stages = STAGES if stages is None else stages
+    pitch = -(-(nh + pad) // 32) * 32
+    hc = -(-pad // 4) * 4
+    while (STATIC_SHARED + _ring_bytes(rows, pad, hc, noff, coef, stages, cst)
+           > BLOCK_SHARED):
+        if cst > 1:
+            cst -= 1
+        elif rows > 1:
+            rows //= 2
+        else:
+            raise ValueError(f"no ring of {stages} slots fits a block at pad "
+                             f"{pad} with {noff} taps")
+    smem = _ring_bytes(rows, pad, hc, noff, coef, stages, cst)
+    blocks = min(cap, SM_SHARED // (smem + BLOCK_RESERVED + STATIC_SHARED))
+    br, bc = rows + 2 * pad, TILE_COLS + 2 * hc
+    tiles = -(-nv // rows) * -(-nh // TILE_COLS)
+    share = br * bc / (rows * TILE_COLS)
+    return RealLayout(pitch, rows, TILE_COLS, hc, br, bc, stages, cst,
+                      blocks, tiles, smem,
+                      8 * share + 8 + (4 * noff if coef else 0), 24.0)
+
+
+def pad_real_planes(offsets: Sequence[Offset],
+                    coefp: torch.Tensor) -> torch.Tensor:
+    """The coefficient planes (noff, Nv, Nh) copied to the kernel's pitch
+    (:func:`real_layout`), zero past column Nh: the operand every coef-mode
+    launch on the grid reads.  A plan makes it once (``auto``'s
+    ``stream-real`` branch); ``pad_real_planes.copies`` counts the
+    copies."""
+    noff, nv, nh = coefp.shape
+    pitch = real_layout(nv, nh, _pad_for(offsets), noff, True).pitch
+    pad_real_planes.copies += 1
+    return pad_rows(coefp, pitch).contiguous()
+
+
+pad_real_planes.copies = 0
+
+
+def grid_blocks(nv: int, nh: int, pad: int, noff: int, coef: bool) -> int:
+    """Blocks of one launch on an (nv, nh) grid on the current CUDA device,
+    with :func:`real_layout`'s tiles (one block a tile, at most as many as
+    the card holds at once)."""
+    lay = real_layout(nv, nh, pad, noff, coef)
+    blocks = ctypes.c_int()
+    _build.check(_build.load().tpcg_stream_real_grid(
+        nv, nh, lay.pitch, pad, noff, int(coef), lay.tile_rows,
+        lay.col_halo, lay.stages, lay.coef_stages, lay.blocks_per_sm,
+        ctypes.byref(blocks)), "tpcg_stream_real_grid")
+    return blocks.value
+
+
+def _launch(offsets, operand, taps, bp, x0p, n_iterations, cpad=None):
     """Launch the CUDA kernel on the current stream of bp's device; const
     mode when ``taps`` is given (``operand`` the strips), else coef mode
-    (``operand`` the coefficient planes)."""
+    (``operand`` the coefficient planes; ``cpad`` the planes at the
+    kernel's pitch, :func:`pad_real_planes`, or None to copy them for this
+    launch)."""
     lib = _build.load()
     nv, nh = bp.shape
     noff = len(offsets)
@@ -302,22 +446,35 @@ def _launch(offsets, operand, taps, bp, x0p, n_iterations):
         raise ValueError(f"kernel takes at most {max_taps} taps within "
                          f"{max_pad} nodes, got {noff} taps within {P}")
     coef = taps is None
-    if coef:      # the taps and groups are read in const mode only
-        taps = ((0.0,) * noff,) * 3
-    operand, bp, x0p = operand.contiguous(), bp.contiguous(), x0p.contiguous()
+    bp, x0p = bp.contiguous(), x0p.contiguous()
     dev = bp.device
+    lay = real_layout(nv, nh, P, noff, coef)
+    if coef:
+        # the taps and groups are read in const mode only
+        taps = ((0.0,) * noff,) * 3
+        if cpad is None:
+            cpad = pad_real_planes(offsets, operand)
+        if (tuple(cpad.shape) != (noff, nv, lay.pitch)
+                or cpad.dtype != torch.float32 or cpad.device != dev
+                or not cpad.is_contiguous()):
+            raise ValueError(f"cpad must be contiguous float32 ({noff}, {nv}, "
+                             f"{lay.pitch}) on {dev}, got "
+                             f"{tuple(cpad.shape)} {cpad.dtype} on "
+                             f"{cpad.device}")
+        operand = cpad
+    else:
+        operand = operand.contiguous()
     with torch.cuda.device(dev):
-        blocks = ctypes.c_int()
-        _build.check(lib.tpcg_stream_real_grid(nv, nh, P, int(coef),
-                                               ctypes.byref(blocks)),
-                     "tpcg_stream_real_grid")
+        blocks = grid_blocks(nv, nh, P, noff, coef)
+        f32 = dict(dtype=torch.float32, device=dev)
         x = torch.empty_like(bp)
-        hist = torch.empty((n_iterations + 1,), dtype=torch.float32,
-                           device=dev)
-        r = torch.empty_like(bp)
-        q = torch.empty_like(bp)
-        d = torch.empty((2, nv, nh), dtype=torch.float32, device=dev)
-        part = torch.empty((2, blocks.value), dtype=torch.float64, device=dev)
+        hist = torch.empty((n_iterations + 1,), **f32)
+        # state in the kernel's padded rows, zero past column nh
+        r = torch.zeros((nv, lay.pitch), **f32)
+        q = torch.zeros_like(r)
+        xw = torch.zeros_like(r)
+        d = torch.zeros((2, nv, lay.pitch), **f32)
+        part = torch.empty((2, blocks), dtype=torch.float64, device=dev)
         offs = (ctypes.c_int * (2 * noff))(
             *[int(v) for tap in offsets for v in tap])
         tap_vals = (ctypes.c_float * (3 * noff))(*[v for t in taps for v in t])
@@ -325,8 +482,9 @@ def _launch(offsets, operand, taps, bp, x0p, n_iterations):
         err = lib.tpcg_stream_real(
             bp.data_ptr(), x0p.data_ptr(), operand.data_ptr(), x.data_ptr(),
             hist.data_ptr(), r.data_ptr(), q.data_ptr(), d.data_ptr(),
-            part.data_ptr(), nv, nh, noff, offs, tap_vals, groups, int(coef),
-            P, n_iterations, blocks.value,
+            xw.data_ptr(), part.data_ptr(), nv, nh, lay.pitch, noff, offs,
+            tap_vals, groups, int(coef), P, lay.tile_rows, lay.col_halo,
+            lay.stages, lay.coef_stages, n_iterations, blocks,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "tpcg_stream_real")
     stream_cg_real_planes.launches += 1
@@ -362,14 +520,22 @@ stream_cg_real_planes.launches = 0
 
 def stream_cg_real_coef_planes(offsets: Sequence[Offset],
                                coefp: torch.Tensor, bp: torch.Tensor,
-                               x0p: torch.Tensor, n_iterations: int):
+                               x0p: torch.Tensor, n_iterations: int,
+                               cpad: torch.Tensor = None):
     """Fixed-iteration single-RHS CG on a real stencil's coefficient planes
     (``coefp`` from :func:`prepare_stream_coef_real`); returns as
-    :func:`stream_cg_real_planes`, whose count its launches add to.  CPU
-    tensors run :func:`stream_cg_real_coef_planes_plain`."""
+    :func:`stream_cg_real_planes`, whose count its launches add to.
+
+    cpad : the planes at the kernel's pitch (:func:`pad_real_planes`), made
+           once for many launches on one grid.  None costs each launch a
+           full copy of the planes (335 MB at N = 4096 with 5 taps).
+           coefp may be the view ``cpad[..., :Nh]``, so that only the copy
+           is kept.  Read on a card only.
+
+    CPU tensors run :func:`stream_cg_real_coef_planes_plain`."""
     _check_coef(offsets, coefp, bp, x0p, n_iterations)
     if bp.device.type == "cuda":
-        return _launch(offsets, coefp, None, bp, x0p, n_iterations)
+        return _launch(offsets, coefp, None, bp, x0p, n_iterations, cpad)
     if bp.device.type == "cpu":
         return stream_cg_real_coef_planes_plain(offsets, coefp, bp, x0p,
                                                 n_iterations)
@@ -386,16 +552,17 @@ def prepare_real(stencil):
         return "coef", prepare_stream_coef_real(stencil)
 
 
-def solve_real_planes(offsets, prepared, bp, x0p, n_iterations):
+def solve_real_planes(offsets, prepared, bp, x0p, n_iterations, cpad=None):
     """One RHS through the mode ``prepared`` (from :func:`prepare_real`)
-    names."""
+    names; ``cpad``: coef mode's planes at the kernel's pitch (see
+    :func:`stream_cg_real_coef_planes`)."""
     mode, operand = prepared
     if mode == "const":
         taps, strips = operand
         return stream_cg_real_planes(offsets, tuple(bp.shape), taps, strips,
                                      bp, x0p, n_iterations)
     return stream_cg_real_coef_planes(offsets, operand, bp, x0p,
-                                      n_iterations)
+                                      n_iterations, cpad=cpad)
 
 
 def stream_cg_real(stencil, b, x0=None, n_iterations: int = 10):
