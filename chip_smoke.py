@@ -401,9 +401,7 @@ def phase_main(dev, N, iters, check_residual):
     import tpcg_torch
     from tpcg_torch.cg import block_cg
     from tpcg_torch.ops.cplx import block_cg_planes, make_pair_operator
-    from tpcg_torch.ops.fused_cg import (fused_cg_stencil,
-                                         fused_cg_stencil_plain,
-                                         prepare_coef3)
+    from tpcg_torch.ops.fused_cg import fused_cg_stencil_plain, prepare_coef3
     from tpcg_torch.problems import helm_fe, plane_wave_rhs
 
     A = helm_fe(N, K_WAVE, eps=K_WAVE, device=dev)
@@ -415,7 +413,7 @@ def phase_main(dev, N, iters, check_residual):
     plan = tpcg_torch.plan_stencil_cg(A, iters)
     x, hist = plan.solve(bg)
     torch.cuda.synchronize()
-    launches = fused_cg_stencil.launches
+    launches = moved_counts().get("fused_cg_stencil", 0)
     print(f"main N={N}: n={n} nnz={nnz} path={plan.path} "
           f"kernel launches={launches}")
     if plan.path != "l2-coef" or launches < 1:
@@ -516,7 +514,7 @@ def dia_close(xk, hk, xp, hp):
 
 
 def dia_kernels():
-    """name -> (wrapper with its launch count, plain version, route info)."""
+    """name -> (wrapper, plain version, route info)."""
     from tpcg_torch.ops import fused_cg_dia as fd
     from tpcg_torch.ops import stream_cg_dia as sd
     return {
@@ -622,33 +620,28 @@ def phase_dia_compare(dev):
     return worst
 
 
-def wrappers():
-    """kernel name -> the wrapper that counts its launches."""
-    from tpcg_torch.ops.fused_cg import fused_cg_stencil
-    from tpcg_torch.ops.stream_cg import stream_cg_const_planes
-    from tpcg_torch.ops.fused_cg_const import fused_cg_const_planes
-    from tpcg_torch.ops.stream_cg_real import stream_cg_real_planes
-    from tpcg_torch.ops.stream_cg_sym import stream_cg_sym_planes
-    from tpcg_torch.ops.stream_cg_coef import stream_cg_coef_planes
-    out = {"fused_cg_stencil": fused_cg_stencil,
-           "fused_cg_const": fused_cg_const_planes,
-           "stream_cg": stream_cg_const_planes,
-           "stream_cg_sym": stream_cg_sym_planes,
-           "stream_cg_real": stream_cg_real_planes,
-           "stream_cg_coef": stream_cg_coef_planes}
-    out.update({k: v[0] for k, v in dia_kernels().items()})
-    from tpcg_torch.ops.route_spmv import routed_matvec_block
-    out["route_spmv"] = routed_matvec_block
-    return out
+# kernel name here -> its launch counter in tpcg_torch.trace
+LAUNCH_COUNTERS = {"fused_cg_stencil": "launch.fused_cg",
+                   "fused_cg_const": "launch.fused_const",
+                   "stream_cg": "launch.stream_const",
+                   "stream_cg_sym": "launch.stream_sym",
+                   "stream_cg_real": "launch.stream_real",
+                   "stream_cg_coef": "launch.stream_coef",
+                   "stream_cg_dia": "launch.stream_dia",
+                   "stream_cg_dia_cplx": "launch.stream_dia_cplx",
+                   "fused_cg_dia_cplx": "launch.fused_dia",
+                   "route_spmv": "launch.route_spmv"}
 
 
 def reset_counts():
-    for w in wrappers().values():
-        w.launches = 0
+    from tpcg_torch import trace
+    trace.clear()
 
 
 def moved_counts():
-    return {k: w.launches for k, w in wrappers().items() if w.launches}
+    from tpcg_torch import trace
+    c = trace.counters()
+    return {k: c[v] for k, v in LAUNCH_COUNTERS.items() if c.get(v)}
 
 
 def csr_args(A):
@@ -992,6 +985,7 @@ def phase_sym_compare(dev):
     from tpcg_torch.ops import stream_cg_sym as tss
     from tpcg_torch.problems import helm_fe
     from tpcg_torch.sparse import Stencil2D
+    from tpcg_torch.trace import counters
     worst = 0.0
     # odd heights and widths (513 x 1027: rows padded to 1056 floats) and
     # grids whose blocks take uneven numbers of tiles (700 x 901)
@@ -1042,11 +1036,11 @@ def phase_sym_compare(dev):
     # launches, each column its single-RHS launch's bits
     S, half, cplanes, b1, x1 = sym_case(dev, 520, 520, 5)
     _, _, _, b2, x2 = sym_case(dev, 520, 520, 6, direction=(0.6, 0.8))
-    copies = tss.pad_sym_planes.copies
+    copies = counters().get("copy.pad_sym_planes", 0)
     plan = tpcg_torch.plan_stencil_cg(S, 40, nb=2)
     xb, hb = plan.solve_planes(torch.stack([b1, b2], dim=1),
                                torch.stack([x1, x2], dim=1))
-    copies = tss.pad_sym_planes.copies - copies
+    copies = counters().get("copy.pad_sym_planes", 0) - copies
     same = plan.path == "stream-coef" and copies == 1
     for c, (b, x0) in enumerate(((b1, x1), (b2, x2))):
         xs, hs = tss.stream_cg_sym_planes(half, cplanes, b, x0, 40)

@@ -15,11 +15,19 @@ import torch
 
 import tpcg_torch
 from tpcg_torch.problems import helm_fe, plane_wave_rhs, poisson
+from tpcg_torch import trace
+from tpcg_torch.trace import counters
 
 # the package exports a function named fused_cg that hides the module
 tfc = importlib.import_module("tpcg_torch.ops.fused_cg")
 
 pytestmark = pytest.mark.cuda
+
+
+def _counted(name):
+    """The counter ``name`` of ``tpcg_torch.trace`` (0 before its first
+    count)."""
+    return counters().get(name, 0)
 
 
 @pytest.fixture
@@ -75,9 +83,9 @@ def _case(dev, name, N, nb, x0_kind="0", k=5.0):
     ("poisson", 16, 3, "0", 0.0, 25)])
 def test_kernel_matches_plain(dev, name, N, nb, x0_kind, k, iters):
     S, coef3, bp, x0p = _case(dev, name, N, nb, x0_kind, k)
-    before = tfc.fused_cg_stencil.launches
+    before = _counted("launch.fused_cg")
     xk, hk = tfc.fused_cg_stencil(S.offsets, coef3, bp, x0p, iters)
-    assert tfc.fused_cg_stencil.launches == before + 1
+    assert _counted("launch.fused_cg") == before + 1
     xp, hp = tfc.fused_cg_stencil_plain(S.offsets, coef3, bp, x0p, iters)
     _assert_fused_close(xk, hk, xp, hp)
     # fixed-order reductions: a second launch agrees bit for bit
@@ -120,9 +128,9 @@ def test_planner_on_card_takes_the_kernel_path(dev):
     assert tpcg_torch.plan_stencil_cg(S, 10, nb=3).path == "eager"
     plan = tpcg_torch.plan_stencil_cg(S, 10)
     assert plan.path == "l2-coef"
-    before = tfc.fused_cg_stencil.launches
+    before = _counted("launch.fused_cg")
     x, hist = plan.solve(plane_wave_rhs(16, 5.0))
-    assert tfc.fused_cg_stencil.launches == before + 1
+    assert _counted("launch.fused_cg") == before + 1
     assert np.isfinite(x).all() and hist.shape == (11,)
     # past the whole-solve size: a constant-tap grid takes the streaming
     # kernel, at a prime height too (JAX row-pads it; the kernel reads any
@@ -199,11 +207,12 @@ def test_stream_dia_kernel_matches_plain_small(dev, cplx, nb):
     else:
         offs, vals = tsd.prepare_dia_rows(D)
         wrap, plain = tsd.stream_cg_dia_rows, tsd.stream_cg_dia_rows_plain
+    launches = "launch.stream_dia_cplx" if cplx else "launch.stream_dia"
     b = _rhs(D.n, nb, cplx, dev)
     x0 = 0.1 * _rhs(D.n, nb, cplx, dev, seed=2)
-    before = wrap.launches
+    before = _counted(launches)
     xk, hk = _run_twice(wrap, offs, vals, b, x0, 40)
-    assert wrap.launches == before + 2
+    assert _counted(launches) == before + 2
     xp, hp = plain(offs, vals, b, x0, 40)
     for c in range(nb):
         _assert_dia_close(xk[..., c, :], hk[:, c], xp[..., c, :], hp[:, c])
@@ -219,9 +228,9 @@ def test_fused_dia_kernel_matches_plain_small(dev):
     offs, vals = tsd.prepare_dia_rows_cplx(D)
     b = _rhs(D.n, 3, True, dev)
     x0 = 0.1 * _rhs(D.n, 3, True, dev, seed=2)
-    before = tfd.fused_cg_dia_rows_cplx.launches
+    before = _counted("launch.fused_dia")
     xk, hk = _run_twice(tfd.fused_cg_dia_rows_cplx, offs, vals, b, x0, 40)
-    assert tfd.fused_cg_dia_rows_cplx.launches == before + 2
+    assert _counted("launch.fused_dia") == before + 2
     xp, hp = tfd.fused_cg_dia_rows_cplx_plain(offs, vals, b, x0, 40)
     for c in range(3):
         _assert_dia_close(xk[:, c], hk[:, c], xp[:, c], hp[:, c])
@@ -304,9 +313,9 @@ def test_stream_dia_chunks_past_its_rhs_limit(dev):
     offs, vals = tsd.prepare_dia_rows(D)
     b = _rhs(D.n, 9, False, dev)
     x0 = torch.zeros_like(b)
-    before = tsd.stream_cg_dia_rows.launches
+    before = _counted("launch.stream_dia")
     xk, hk = tsd.stream_cg_dia_rows(offs, vals, b, x0, 30)
-    assert tsd.stream_cg_dia_rows.launches == before + 2
+    assert _counted("launch.stream_dia") == before + 2
     with pytest.raises(ValueError):
         tsd._launch(offs, vals[None], b[None], x0[None], 30)
     xp, hp = tsd.stream_cg_dia_rows_plain(offs, vals, b, x0, 30)
@@ -377,24 +386,24 @@ def test_api_cg_launches_each_dia_kernel(dev):
     and routing= -> the CSR kernel (csrc/route_spmv.cu) alone."""
     import scipy.sparse as sp
     from tpcg_torch.problems import banded_complex
-    counters = (tsd.stream_cg_dia_rows, tfd.fused_cg_dia_rows_cplx,
-                tsd.stream_cg_dia_rows_cplx)
+    kernels = ("launch.stream_dia", "launch.fused_dia",
+               "launch.stream_dia_cplx")
     cases = [(banded_complex(777, (0, 1, 3, 40)).real.astype(np.float32),
-              tsd.stream_cg_dia_rows),
+              "launch.stream_dia"),
              (banded_complex(1280, tuple(range(0, 9)), seed=2)
-              .astype(np.complex64), tfd.fused_cg_dia_rows_cplx),
+              .astype(np.complex64), "launch.fused_dia"),
              (banded_complex(1280, tuple(range(0, 13)), seed=2)
-              .astype(np.complex64), tsd.stream_cg_dia_rows_cplx)]
+              .astype(np.complex64), "launch.stream_dia_cplx")]
     for A, expect in cases:
         A = sp.csr_matrix(A)
         n = A.shape[0]
         b = np.ones(2 * n, dtype=A.dtype)
-        before = [c.launches for c in counters]
+        before = [_counted(k) for k in kernels]
         x = tpcg_torch.cg(n, A.nnz, A.data, b, A.indptr, A.indices,
                           n_rhs=2, n_iterations=60, device=dev)
-        moved = [c for c, b0 in zip(counters, before) if c.launches != b0]
-        assert moved == [expect] and expect.launches == before[
-            counters.index(expect)] + 1
+        moved = [k for k, b0 in zip(kernels, before) if _counted(k) != b0]
+        assert moved == [expect] and _counted(expect) == before[
+            kernels.index(expect)] + 1
         res = A.astype(np.complex128) @ x[:n] - b[:n]
         assert np.linalg.norm(res) <= 1e-3 * np.linalg.norm(b[:n])
     rng = np.random.default_rng(11)
@@ -403,7 +412,7 @@ def test_api_cg_launches_each_dia_kernel(dev):
     R = sp.csr_matrix(R + R.T + 8 * sp.eye(100), dtype=np.float32)
     bR = np.ones(100, np.float32)
     from tpcg_torch.ops.routing import build_routing_spmv
-    route = trs.routed_matvec_block
+    route = "launch.route_spmv"
     for solve in (lambda: tpcg_torch.cg(100, R.nnz, R.data, bR, R.indptr,
                                         R.indices, n_iterations=60,
                                         device=dev),
@@ -412,12 +421,98 @@ def test_api_cg_launches_each_dia_kernel(dev):
                   lambda: tpcg_torch.cg_matrix(
                       R, bR, n_iterations=60,
                       routing=build_routing_spmv(R), device=dev)):
-        before = [c.launches for c in counters] + [route.launches]
+        before = [_counted(k) for k in kernels] + [_counted(route)]
         x = solve()
-        assert [c.launches for c in counters] == before[:-1]
-        assert route.launches == before[-1] + 61
+        assert [_counted(k) for k in kernels] == before[:-1]
+        assert _counted(route) == before[-1] + 61
         res = R.astype(np.complex128) @ x - bR
         assert np.linalg.norm(res) <= 1e-3 * np.linalg.norm(bR)
+
+
+def _traced(call):
+    """``call()`` under the profiler with the trace's state cleared first;
+    returns its result, the records and the counters, after checking that
+    each record brackets its host event in the profiler's timeline (the
+    clock the benchmark's readers rely on)."""
+    trace.clear()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = call()
+    recs = trace.records()
+    events = sorted((ev.start_ns(), ev.start_ns() + ev.duration_ns(),
+                     ev.name())
+                    for ev in prof.profiler.kineto_results.events()
+                    if ev.name().startswith(trace.PREFIX)
+                    and ev.device_type() == torch.autograd.DeviceType.CPU)
+    assert len(events) == len(recs)
+    for r in recs:
+        s, e, _ = next(ev for ev in events if ev[2] == r.name
+                       and r.start_ns <= ev[0] <= ev[1] <= r.end_ns)
+        assert (r.end_ns - r.start_ns) - (e - s) < 1_000_000, r.name
+    return out, recs, trace.counters()
+
+
+def _launched(c):
+    return {k: v for k, v in c.items() if k.startswith("launch.")}
+
+
+def test_api_cg_copies_and_launches_of_one_csr_call(dev):
+    """One tpcg_torch.cg call on helm_fe(128) as CSR arrays (the
+    helm_fem.csr_calls cell at 20 iterations): the values, b and the
+    offsets go up and x and the history come down, to the byte, around one
+    launch of the complex streaming kernel; the spans of the call nest as
+    its layers run, a wait for the card before each blocking copy."""
+    A = helm_fe(128, 12.0, eps=12.0, device="cpu").to_scipy().tocsr()
+    A = A.astype(np.complex64)
+    A.sort_indices()
+    n, iters = A.shape[0], 20
+    coo = A.tocoo()
+    ndiag = len(np.unique(coo.col - coo.row))
+    b = plane_wave_rhs(128, 12.0).reshape(-1).astype(np.complex64)
+    (x, h), recs, c = _traced(lambda: tpcg_torch.cg(
+        n, A.nnz, A.data, b, A.indptr, A.indices, n_iterations=iters,
+        record_history=True, device=dev))
+    assert c["h2d_bytes"] == ndiag * n * 8 + n * 8 + ndiag * 4
+    assert c["d2h_bytes"] == n * 8 + (iters + 1) * 4
+    assert _launched(c) == {"launch.stream_dia_cplx": 1}
+    assert [r.name for r in recs] == [
+        "tpcg.cg", "tpcg.convert", "tpcg.convert.dia", "tpcg.wait",
+        "tpcg.upload", "tpcg.pack", "tpcg.prepare", "tpcg.wait",
+        "tpcg.upload", "tpcg.launch.stream_dia_cplx", "tpcg.wait",
+        "tpcg.upload", "tpcg.wait", "tpcg.download", "tpcg.download",
+        "tpcg.pack"]
+    assert recs[0].counts == c
+    assert {r.call for r in recs} == {recs[0].id}
+    assert np.isfinite(x).all() and h.shape == (iters + 1, 1)
+
+
+def test_api_cg_matrix_copies_and_launches_of_one_block_call(dev):
+    """One cg_matrix call on a DiaMatrix kept on the card with 16 RHS
+    (the m_t1.block16 cell at n = 4000 and 200 iterations): b up, the
+    offsets up for each of the two launches of 8 RHS, x and the history
+    down, to the byte."""
+    from tpcg_torch.problems import banded_spd
+    D = _dia(banded_spd(4000, 50), np.float32, dev)
+    n, nrhs, iters, ndiag = D.n, 16, 200, len(D.offsets)
+    b = np.random.default_rng(5).standard_normal(n * nrhs).astype(np.float32)
+    (x, h), recs, c = _traced(lambda: tpcg_torch.cg_matrix(
+        D, b, n_rhs=nrhs, n_iterations=iters, record_history=True))
+    assert c["h2d_bytes"] == nrhs * n * 4 + 2 * ndiag * 4
+    assert c["d2h_bytes"] == nrhs * n * 4 + (iters + 1) * nrhs * 4
+    assert _launched(c) == {"launch.stream_dia": 2}
+    launch = ["tpcg.launch.stream_dia", "tpcg.wait", "tpcg.upload"]
+    assert [r.name for r in recs] == [
+        "tpcg.cg_matrix", "tpcg.pack", "tpcg.prepare", "tpcg.wait",
+        "tpcg.upload", *launch, *launch, "tpcg.wait", "tpcg.download",
+        "tpcg.download", "tpcg.pack"]
+    # the second launch's offsets wait for the first launch and the
+    # downloads for the second, each in a span of its own: a copy's span
+    # holds the copy alone
+    waits = [r.end_ns - r.start_ns for r in recs if r.name == "tpcg.wait"]
+    assert max(waits[:2]) < min(waits[2:])
+    assert recs[0].counts == c
+    assert x.shape == (n * nrhs,) and h.shape == (iters + 1, nrhs)
 
 
 # ---- streaming constant-tap kernel (csrc/stream_cg.cu) ----
@@ -461,10 +556,10 @@ def _stream_case(dev, nv, nh, x0_seed=None, k=12.0):
     (513, 1027, 5, 40), (700, 901, 6, 40)])
 def test_stream_kernel_matches_plain(dev, nv, nh, seed, iters):
     S, taps, strips, bp, x0p = _stream_case(dev, nv, nh, seed)
-    before = tsc.stream_cg_const_planes.launches
+    before = _counted("launch.stream_const")
     xk, hk = _run_twice(tsc.stream_cg_const_planes, S.offsets, S.grid, taps,
                         strips, bp, x0p, iters)
-    assert tsc.stream_cg_const_planes.launches == before + 2
+    assert _counted("launch.stream_const") == before + 2
     xp, hp = tsc.stream_cg_const_planes_plain(S.offsets, S.grid, taps, strips,
                                               bp, x0p, iters)
     _assert_dia_close(xk, hk, xp, hp)
@@ -504,17 +599,17 @@ def test_stream_plan_batch_columns_equal_single_launches(dev):
     B = torch.stack(cols, dim=1)
     plan = tpcg_torch.plan_stencil_cg(S, 30, nb=3)
     assert plan.path == "stream"
-    before = tsc.stream_cg_const_planes.launches
+    before = _counted("launch.stream_const")
     xb, hb = plan.solve_planes(B)
-    assert tsc.stream_cg_const_planes.launches == \
+    assert _counted("launch.stream_const") == \
         before + _stream_plan_launches(S, 3)
     for c in range(3):
         x1, h1 = plan.solve_planes(cols[c])
         assert torch.equal(xb[:, c], x1) and torch.equal(hb[:, c], h1)
     b = plane_wave_rhs(520, 12.0)
-    before = tsc.stream_cg_const_planes.launches
+    before = _counted("launch.stream_const")
     x, hist = plan.solve(b)
-    assert tsc.stream_cg_const_planes.launches == before + 1
+    assert _counted("launch.stream_const") == before + 1
     assert np.isfinite(x).all() and hist.shape == (31,)
     np.testing.assert_array_equal(hist, hb[:, 0].cpu().numpy())
 
@@ -570,9 +665,9 @@ def test_stream_batched_kernel_matches_plain(dev, nv, nh, seed, nb):
     multiple of 128 and an odd width; two launches bit-equal."""
     S, taps, strips, bp, x0p = _stream_batch(dev, nv, nh, nb, seed)
     args = (S.offsets, S.grid, taps, strips, bp, x0p, 40)
-    before = tsc.stream_cg_const_planes.launches
+    before = _counted("launch.stream_const")
     xk, hk = _run_twice(tsc.stream_cg_const_planes_batched, *args)
-    assert tsc.stream_cg_const_planes.launches == before + 2
+    assert _counted("launch.stream_const") == before + 2
     xp, hp = tsc.stream_cg_const_planes_batched_plain(*args)
     for c in range(nb):
         _assert_dia_close(xk[:, c], hk[:, c], xp[:, c], hp[:, c])
@@ -628,9 +723,9 @@ def test_stream_plan_launches_by_batch(dev, monkeypatch, nb, batched):
     assert _stream_plan_launches(S, nb) == (-(-nb // 8) if batched else nb)
     plan = tpcg_torch.plan_stencil_cg(S, 20, nb=nb)
     assert plan.path == "stream"
-    before = tsc.stream_cg_const_planes.launches
+    before = _counted("launch.stream_const")
     xb, hb = plan.solve_planes(bp, x0p)
-    assert tsc.stream_cg_const_planes.launches == \
+    assert _counted("launch.stream_const") == \
         before + _stream_plan_launches(S, nb)
     for c in (0, nb - 1):
         x1, h1 = tsc.stream_cg_const_planes(S.offsets, S.grid, taps, strips,
@@ -739,10 +834,10 @@ def _sym_case(dev, nv, nh, x0_seed=None, omega=40.0):
     (600, 1000, 4, 40), (1024, 1024, None, 100), (2049, 2049, None, 100)])
 def test_sym_kernel_matches_plain(dev, nv, nh, seed, iters):
     S, half, cplanes, bp, x0p = _sym_case(dev, nv, nh, seed)
-    before = tss.stream_cg_sym_planes.launches
+    before = _counted("launch.stream_sym")
     xk, hk = _run_twice(tss.stream_cg_sym_planes, half, cplanes, bp, x0p,
                         iters)
-    assert tss.stream_cg_sym_planes.launches == before + 2
+    assert _counted("launch.stream_sym") == before + 2
     xp, hp = tss.stream_cg_sym_planes_plain(half, cplanes, bp, x0p, iters)
     _assert_dia_close(xk, hk, xp, hp)
 
@@ -770,9 +865,9 @@ def test_sym_plan_batch_columns_equal_single_launches(dev):
         for _ in range(2)]
     plan = tpcg_torch.plan_stencil_cg(S, 30, nb=3)
     assert plan.path == "stream-coef"
-    before = tss.stream_cg_sym_planes.launches
+    before = _counted("launch.stream_sym")
     xb, hb = plan.solve_planes(torch.stack(cols, dim=1))
-    assert tss.stream_cg_sym_planes.launches == before + 3
+    assert _counted("launch.stream_sym") == before + 3
     for c in range(3):
         x1, h1 = tss.stream_cg_sym_planes(half, cplanes, cols[c],
                                           torch.zeros_like(bp), 30)
@@ -809,9 +904,9 @@ def test_planner_on_card_takes_the_sym_path(dev):
     plan = tpcg_torch.plan_stencil_cg(S, 5)
     assert plan.path == "stream-coef"
     b = plane_wave_rhs(2049, 40.0)[:, :600]
-    sym0, gen0 = tss.stream_cg_sym_planes.launches, _coef_launches()
+    sym0, gen0 = _counted("launch.stream_sym"), _coef_launches()
     plan.solve(b)
-    assert (tss.stream_cg_sym_planes.launches, _coef_launches()) == (
+    assert (_counted("launch.stream_sym"), _coef_launches()) == (
         sym0 + 1, gen0)
     coef = S.coef.clone()
     coef[1] *= 1.5
@@ -820,7 +915,7 @@ def test_planner_on_card_takes_the_sym_path(dev):
     x, _ = plan.solve(b)
     torch.cuda.synchronize()
     assert np.isfinite(x).all()
-    assert (tss.stream_cg_sym_planes.launches, _coef_launches()) == (
+    assert (_counted("launch.stream_sym"), _coef_launches()) == (
         sym0 + 1, gen0 + 1)
 
 
@@ -900,24 +995,24 @@ def test_sym_plan_copies_half_planes_once(dev):
     cols = [bp] + [bp + 0.1 * torch.from_numpy(
         rng.standard_normal(bp.shape).astype(np.float32)).to(dev)
         for _ in range(2)]
-    copies = tss.pad_sym_planes.copies
+    copies = _counted("copy.pad_sym_planes")
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated(dev)
     plan = tpcg_torch.plan_stencil_cg(S, 30, nb=3)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated(dev) - held
     assert plan.path == "stream-coef"
-    assert tss.pad_sym_planes.copies == copies + 1
+    assert _counted("copy.pad_sym_planes") == copies + 1
     # the padded copy, and not also the unpadded half planes
     pitch = tss.sym_layout(513, 1027, 1, len(half)).pitch
     assert 4 * cplanes.numel() * pitch // 1027 <= held \
         < 4 * cplanes.numel() * (1 + pitch / 1027)
-    before = tss.stream_cg_sym_planes.launches
+    before = _counted("launch.stream_sym")
     xb, hb = plan.solve_planes(torch.stack(cols, dim=1))
-    assert tss.stream_cg_sym_planes.launches == before + 3
-    assert tss.pad_sym_planes.copies == copies + 1
+    assert _counted("launch.stream_sym") == before + 3
+    assert _counted("copy.pad_sym_planes") == copies + 1
     plan.solve_planes(torch.stack(cols, dim=1))
-    assert tss.pad_sym_planes.copies == copies + 1
+    assert _counted("copy.pad_sym_planes") == copies + 1
     for c in range(3):
         x1, h1 = tss.stream_cg_sym_planes(half, cplanes, cols[c],
                                           torch.zeros_like(bp), 30)
@@ -933,7 +1028,7 @@ tgc = importlib.import_module("tpcg_torch.ops.stream_cg_coef")
 
 
 def _coef_launches():
-    return tgc.stream_cg_coef_planes.launches
+    return _counted("launch.stream_coef")
 
 
 def _coef_case(dev, nv, nh, nb=1, x0_seed=None):
@@ -1234,9 +1329,9 @@ def test_real_kernel_matches_plain(dev, nv, nh, seed, kind, mode):
     prepared = tsr.prepare_real(S)
     assert prepared[0] == mode
     b, x0 = _real_rhs(dev, nv, nh, seed)
-    before = tsr.stream_cg_real_planes.launches
+    before = _counted("launch.stream_real")
     xk, hk = _run_twice(_real_run, S, prepared, b, x0, 40)
-    assert tsr.stream_cg_real_planes.launches == before + 2
+    assert _counted("launch.stream_real") == before + 2
     xp, hp = _real_run(S, prepared, b, x0, 40, plain=True)
     _assert_dia_close(xk, hk, xp, hp)
 
@@ -1261,9 +1356,9 @@ def test_real_plan_batch_columns_equal_single_launches(dev):
     plan = tpcg_torch.plan_stencil_cg(S, 30, nb=3)
     assert plan.path == "stream-real"
     cols = [_real_rhs(dev, 1024, 1024, s)[0] for s in range(3)]
-    before = tsr.stream_cg_real_planes.launches
+    before = _counted("launch.stream_real")
     xb, hb = plan.solve_planes(torch.stack(cols))
-    assert tsr.stream_cg_real_planes.launches == before + 3
+    assert _counted("launch.stream_real") == before + 3
     for c in range(3):
         x1, h1 = plan.solve_planes(cols[c])
         assert torch.equal(xb[c], x1) and torch.equal(hb[:, c], h1)
@@ -1397,24 +1492,24 @@ def test_real_plan_copies_coef_planes_once(dev):
     nv, nh = 1031, 1100
     S = _real_stencil(dev, "vardiag", nv, nh)
     cols = [_real_rhs(dev, nv, nh, s)[0] for s in range(3)]
-    copies = tsr.pad_real_planes.copies
+    copies = _counted("copy.pad_real_planes")
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated(dev)
     plan = tpcg_torch.plan_stencil_cg(S, 30, nb=3)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated(dev) - held
     assert plan.path == "stream-real"
-    assert tsr.pad_real_planes.copies == copies + 1
+    assert _counted("copy.pad_real_planes") == copies + 1
     # the padded copy, and not also the unpadded planes
     noff = len(S.offsets)
     pitch = tsr.real_layout(nv, nh, 1, noff, True).pitch
     assert 4 * noff * nv * pitch <= held < 4 * noff * nv * (nh + pitch)
-    before = tsr.stream_cg_real_planes.launches
+    before = _counted("launch.stream_real")
     xb, hb = plan.solve_planes(torch.stack(cols))
-    assert tsr.stream_cg_real_planes.launches == before + 3
-    assert tsr.pad_real_planes.copies == copies + 1
+    assert _counted("launch.stream_real") == before + 3
+    assert _counted("copy.pad_real_planes") == copies + 1
     plan.solve_planes(torch.stack(cols))
-    assert tsr.pad_real_planes.copies == copies + 1
+    assert _counted("copy.pad_real_planes") == copies + 1
     coefp = tsr.prepare_stream_coef_real(S)
     for c in range(3):
         x1, h1 = tsr.stream_cg_real_coef_planes(S.offsets, coefp, cols[c],
@@ -1436,10 +1531,10 @@ tcc = importlib.import_module("tpcg_torch.ops.fused_cg_const")
 def test_const_kernel_matches_plain(dev, name, N, nb, x0_kind, k, iters):
     S, _, bp, x0p = _case(dev, name, N, nb, x0_kind, k)
     cr, ci, strips = tcc.prepare_const(S)
-    before = tcc.fused_cg_const_planes.launches
+    before = _counted("launch.fused_const")
     xk, hk = _run_twice(tcc.fused_cg_const_planes, S.offsets, S.grid, cr, ci,
                         strips, bp, x0p, iters)
-    assert tcc.fused_cg_const_planes.launches == before + 2
+    assert _counted("launch.fused_const") == before + 2
     xp, hp = tcc.fused_cg_const_planes_plain(S.offsets, S.grid, cr, ci,
                                              strips, bp, x0p, iters)
     _assert_fused_close(xk, hk, xp, hp)
@@ -1525,10 +1620,10 @@ def test_route_kernel_matches_plain(dev, name, kind):
             def run():
                 return P.matvec(x)
             per_call = _launches_for(nrhs if kind == "complex" else 2 * nrhs)
-        before = trs.routed_matvec_block.launches
+        before = _counted("launch.route_spmv")
         y1, y2 = run(), run()
         torch.cuda.synchronize()
-        assert trs.routed_matvec_block.launches == before + 2 * per_call
+        assert _counted("launch.route_spmv") == before + 2 * per_call
         assert torch.equal(y1, y2)
         err = float((y1 - yp).abs().max())
         assert err <= 1e-5 * float(yp.abs().max()), (nrhs, err)
@@ -1541,12 +1636,12 @@ def test_route_wrapper_refuses_overflow_and_aliasing_on_card(dev):
                                            device=dev)
     x = torch.ones(D.n, 2, device=dev)
     huge = torch.zeros(1, dtype=torch.int32, device=dev).expand(2**31)
-    before = trs.routed_matvec_block.launches
+    before = _counted("launch.route_spmv")
     with pytest.raises(ValueError, match="int32"):
         trs.routed_matvec_block(D.row_ptr, huge, D.val, x)
     with pytest.raises(ValueError, match="storage"):
         trs.routed_matvec_block(D.row_ptr, D.col, D.val, x, out=x)
-    assert trs.routed_matvec_block.launches == before
+    assert _counted("launch.route_spmv") == before
     out = torch.empty_like(x)
     assert trs.routed_matvec_block(D.row_ptr, D.col, D.val, x,
                                    out=out) is out

@@ -39,6 +39,7 @@ from tpcg_torch.convert import from_tpcg
 from tpcg_torch.ops import auto
 from tpcg_torch.ops import stream_cg as ts
 from tpcg_torch.ops import stream_cg_coef as tgc
+from tpcg_torch.trace import counters
 
 K = 9.0
 
@@ -194,9 +195,9 @@ def test_forced_stream_plan_matches_jax_batched_planner(monkeypatch):
     xj, hj = jplan.solve(B)
     tplan = tpcg_torch.plan_stencil_cg(from_tpcg(A), iters, nb=nb,
                                        path="stream")
-    before = ts.stream_cg_const_planes.launches
+    before = counters().get("launch.stream_const", 0)
     xt, ht = tplan.solve(B)
-    assert ts.stream_cg_const_planes.launches == before
+    assert counters().get("launch.stream_const", 0) == before
     assert xt.dtype == np.complex64 and xt.shape == (nb, N, N)
     assert ht.shape == (iters + 1, nb)
     for c in range(nb):

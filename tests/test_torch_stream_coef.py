@@ -31,6 +31,7 @@ from tpcg.problems import helm_fe, helm_fe_var, plane_wave_rhs
 from tpcg.sparse import Stencil2D as JaxStencil2D
 from tpcg_torch.convert import coef_operands_from_tpcg, from_tpcg
 from tpcg_torch.ops import stream_cg_coef as tsc
+from tpcg_torch.trace import counters
 
 K = 8.0
 
@@ -175,10 +176,10 @@ def test_forced_stream_coef_plan_matches_jax_planner(nb):
     B = B[0] if nb == 1 else B
     xj, hj = tpcg.stencil_cg(A, B, n_iterations=iters, path="stream-coef",
                              interpret=True)
-    before = tsc.stream_cg_coef_planes.launches
+    before = counters().get("launch.stream_coef", 0)
     xt, ht = tpcg_torch.stencil_cg(from_tpcg(A), B, n_iterations=iters,
                                    path="stream-coef")
-    assert tsc.stream_cg_coef_planes.launches == before
+    assert counters().get("launch.stream_coef", 0) == before
     assert xt.dtype == np.complex64 and xt.shape == np.asarray(B).shape
     _assert_close(xt, ht, xj, hj)
     plan = tpcg_torch.plan_stencil_cg(from_tpcg(A), iters, nb=nb,

@@ -36,6 +36,7 @@ from tpcg_torch.convert import (coef_real_from_tpcg, from_tpcg,
 from tpcg_torch.ops import auto
 from tpcg_torch.ops import stream_cg_real as tsr
 from tpcg_torch.problems import parabolic_stencil
+from tpcg_torch.trace import counters
 
 
 def _rect(kind, nv, nh, seed=2):
@@ -269,9 +270,9 @@ def test_forced_plan_solve_matches_jax_planner(monkeypatch, form):
                                        path="stream-real")
     assert tplan.path == "stream-real"
     xj, hj = jplan.solve(b)
-    before = tsr.stream_cg_real_planes.launches
+    before = counters().get("launch.stream_real", 0)
     xt, ht = tplan.solve(b)
-    assert tsr.stream_cg_real_planes.launches == before
+    assert counters().get("launch.stream_real", 0) == before
     assert xt.dtype == np.float32 == np.asarray(xj).dtype
     _assert_close(xt, ht, xj, hj)
     # CG converges on Poisson

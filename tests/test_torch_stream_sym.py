@@ -32,6 +32,7 @@ from tpcg.sparse import Stencil2D as JaxStencil2D
 from tpcg_torch.convert import from_tpcg, sym_operands_from_tpcg
 from tpcg_torch.ops import auto
 from tpcg_torch.ops import stream_cg_sym as tss
+from tpcg_torch.trace import counters
 
 K = 12.0
 
@@ -189,9 +190,9 @@ def test_forced_stream_coef_plan_matches_jax_planner(nb):
     plan = tpcg_torch.plan_stencil_cg(from_tpcg(A), iters, nb=nb,
                                       path="stream-coef")
     assert plan.path == "stream-coef"
-    before = tss.stream_cg_sym_planes.launches
+    before = counters().get("launch.stream_sym", 0)
     xt, ht = plan.solve(B)
-    assert tss.stream_cg_sym_planes.launches == before
+    assert counters().get("launch.stream_sym", 0) == before
     assert xt.dtype == np.complex64
     _assert_close(xt, ht, xj, hj)
     if nb == 2:
@@ -215,9 +216,9 @@ def test_forced_stream_coef_refuses_a_nonsymmetric_stencil():
         tss.prepare_stream_sym(T)
     plan = tpcg_torch.plan_stencil_cg(T, 5, path="stream-coef")
     assert plan.path == "stream-coef"
-    before = tss.stream_cg_sym_planes.launches
+    before = counters().get("launch.stream_sym", 0)
     x, h = plan.solve(plane_wave_rhs(24, K))
-    assert tss.stream_cg_sym_planes.launches == before
+    assert counters().get("launch.stream_sym", 0) == before
     xg, hg = tpcg_torch.stream_cg_coef(T, plane_wave_rhs(24, K), None, 5)
     np.testing.assert_array_equal(h, hg.numpy())
     np.testing.assert_array_equal(x, (xg[0] + 1j * xg[1]).numpy())

@@ -31,6 +31,16 @@ Dispatch keys on the torch device (:func:`_on_card`), not on "not CPU":
 
 On a CUDA device no path runs on the CPU or on a kernel's plain version; a
 kernel that cannot run raises.
+
+Each call is a span of ``tpcg_torch.trace`` (``tpcg.cg``, ``tpcg.cg_matrix``)
+over its layers: ``tpcg.convert`` (CSR or scipy input into the device
+container, with ``tpcg.convert.rcm`` and ``tpcg.convert.dia`` inside),
+``tpcg.pack`` (the host's packing and permutation of b in and x out),
+``tpcg.prepare`` (a DIA kernel's operands laid out on the device: the
+matrix's planes, b's and x0's rows or planes), ``tpcg.upload``,
+``tpcg.launch.<kernel>``, ``tpcg.download`` and
+``tpcg.wait`` (the host's wait for the card before each blocking copy, so
+that the copy's span holds the copy alone).
 """
 from __future__ import annotations
 
@@ -39,8 +49,9 @@ import os
 import numpy as np
 import torch
 
+from . import trace
 from .cg import block_cg
-from .device import resolve_device
+from .device import download, resolve_device, upload, wait
 from .ops import fused_cg_dia as _fd
 from .ops import stream_cg_dia as _sd
 from .ops.cplx import block_cg_planes_chunked, make_pair_operator
@@ -61,7 +72,14 @@ def _is_complex_dtype(dt) -> bool:
 
 
 def _tensor(M, dev, dtype=None):
-    return torch.from_numpy(np.ascontiguousarray(M)).to(dev, dtype)
+    return upload(torch.from_numpy(np.ascontiguousarray(M)), dev, dtype)
+
+
+def _fetch(*ts):
+    """The results ``ts`` (on one device) as numpy arrays on the host, once
+    the device has finished them."""
+    wait(ts[0].device)
+    return tuple(download(t) for t in ts)
 
 
 def _routed_planes_op(A):
@@ -84,7 +102,8 @@ def _resolve_routing(routing, size, is_complex, device):
     if R.n != size:
         raise ValueError(
             f"routing tables are for n={R.n}, matrix has n={size}")
-    D = DeviceRouted.from_routed(R, device=device)
+    with trace.span("convert"):
+        D = DeviceRouted.from_routed(R, device=device)
     if is_complex or D.dtype.is_complex:
         return None, routed_pair(D)
     return D, None
@@ -98,23 +117,25 @@ def _solve_planes(A, B, X0, n_iterations, device, Pop=None):
     if (Pop is None and dtype == np.complex64 and isinstance(A, DiaMatrix)
             and A.data.is_complex()):
         if _fd.fused_dia_cplx_fits(A):
-            X, history = _fd.fused_cg_dia_cplx_block(A, B, X0, n_iterations)
-            return X.cpu().numpy(), history.cpu().numpy()
+            return _fetch(*_fd.fused_cg_dia_cplx_block(A, B, X0,
+                                                       n_iterations))
         if _sd.dia_stream_cplx_fits(A):
-            X, history = _sd.stream_cg_dia_cplx_block(A, B, X0, n_iterations)
-            return X.cpu().numpy(), history.cpu().numpy()
+            return _fetch(*_sd.stream_cg_dia_cplx_block(A, B, X0,
+                                                        n_iterations))
     fdt = torch.float32 if dtype == np.complex64 else torch.float64
-    pair = make_pair_operator(A, dtype=fdt) if Pop is None else Pop
+    if Pop is None:
+        with trace.span("convert"):
+            Pop = make_pair_operator(A, dtype=fdt)
 
     def planes(M):
         return torch.stack([_tensor(M.real, device, fdt),
                             _tensor(M.imag, device, fdt)])
-    res = block_cg_planes_chunked(pair, planes(B),
+    res = block_cg_planes_chunked(Pop, planes(B),
                                   None if X0 is None else planes(X0),
                                   n_iterations=n_iterations)
-    x = res.x.cpu().numpy()
-    return (x[0] + 1j * x[1]).astype(dtype), \
-        res.residual_history.cpu().numpy()
+    x, history = _fetch(res.x, res.residual_history)
+    with trace.span("pack"):
+        return (x[0] + 1j * x[1]).astype(dtype), history
 
 
 def _solve_real(A, B, X0, n_iterations, device):
@@ -126,12 +147,11 @@ def _solve_real(A, B, X0, n_iterations, device):
     if (_on_card(device) and isinstance(A, DiaMatrix)
             and A.dtype == torch.float32 and B.dtype == np.float32
             and _sd.dia_stream_fits(A)):
-        X, history = _sd.stream_cg_dia_block(A, B, X0, n_iterations)
-        return X.cpu().numpy(), history.cpu().numpy()
+        return _fetch(*_sd.stream_cg_dia_block(A, B, X0, n_iterations))
     result = block_cg(A, _tensor(B, device),
                       None if X0 is None else _tensor(X0, device),
                       n_iterations=n_iterations)
-    return result.x.cpu().numpy(), result.residual_history.cpu().numpy()
+    return _fetch(result.x, result.residual_history)
 
 
 def _unpermute(X, perm):
@@ -164,6 +184,13 @@ def cg(size: int, non_zeros: int, a_values, b, a_pointers, a_cols, x=None,
     Returns the solution with the same packing (and the per-RHS residual
     history (n_iterations+1, n_rhs) when ``record_history``).
     """
+    with trace.span("cg"):
+        return _cg(size, a_values, b, a_pointers, a_cols, x, n_rhs,
+                   n_iterations, is_complex, record_history, routing, device)
+
+
+def _cg(size, a_values, b, a_pointers, a_cols, x, n_rhs, n_iterations,
+        is_complex, record_history, routing, device):
     import scipy.sparse as sp
 
     device = resolve_device(device)
@@ -181,29 +208,33 @@ def cg(size: int, non_zeros: int, a_values, b, a_pointers, a_cols, x=None,
         if Pop is not None:
             is_complex, dtype = True, np.complex64   # routed values are f32
     else:
-        A_sci = sp.csr_matrix((a_values.astype(dtype), np.asarray(a_cols),
-                               np.asarray(a_pointers)), shape=(size, size))
-        # banded (after RCM where that helps) -> DIA; on the card an
-        # unstructured real matrix -> the CSR kernel's operand, and a complex
-        # one reaches it below through _routed_planes_op
-        A, perm = to_device_matrix(A_sci, reorder=True,
-                                   route_fallback=on_card and not is_complex,
-                                   device=device)
-        if on_card and isinstance(A, EllMatrix):
-            A = DeviceRouted.from_ell(A)
-    B = np.asarray(b, dtype=dtype).reshape(n_rhs, size).T      # (n, nrhs)
-    X0 = (np.asarray(x, dtype=dtype).reshape(n_rhs, size).T
-          if x is not None else None)
-    if perm is not None:
-        B = B[perm]
-        X0 = X0[perm] if X0 is not None else None
+        with trace.span("convert"):
+            A_sci = sp.csr_matrix((a_values.astype(dtype), np.asarray(a_cols),
+                                   np.asarray(a_pointers)),
+                                  shape=(size, size))
+            # banded (after RCM where that helps) -> DIA; on the card an
+            # unstructured real matrix -> the CSR kernel's operand, and a
+            # complex one reaches it below through _routed_planes_op
+            A, perm = to_device_matrix(
+                A_sci, reorder=True,
+                route_fallback=on_card and not is_complex, device=device)
+            if on_card and isinstance(A, EllMatrix):
+                A = DeviceRouted.from_ell(A)
+    with trace.span("pack"):
+        B = np.asarray(b, dtype=dtype).reshape(n_rhs, size).T    # (n, nrhs)
+        X0 = (np.asarray(x, dtype=dtype).reshape(n_rhs, size).T
+              if x is not None else None)
+        if perm is not None:
+            B = B[perm]
+            X0 = X0[perm] if X0 is not None else None
     if is_complex and (on_card or Pop is not None):
         if Pop is None:
             Pop = _routed_planes_op(A)
         X, history = _solve_planes(A, B, X0, n_iterations, device, Pop)
     else:
         X, history = _solve_real(A, B, X0, n_iterations, device)
-    out = _unpermute(X, perm).T.reshape(-1)                    # column-major
+    with trace.span("pack"):
+        out = _unpermute(X, perm).T.reshape(-1)                # column-major
     if record_history:
         return out, history
     return out
@@ -222,6 +253,13 @@ def cg_matrix(A, b, x=None, n_rhs=None, n_iterations=10,
              another device raises.  On the card an ``EllMatrix`` container
              runs through the CSR kernel, its padding dropped.
     """
+    with trace.span("cg_matrix"):
+        return _cg_matrix(A, b, x, n_rhs, n_iterations, record_history,
+                          routing, device)
+
+
+def _cg_matrix(A, b, x, n_rhs, n_iterations, record_history, routing,
+               device):
     import scipy.sparse as sp
 
     n = A.shape[0]
@@ -240,25 +278,28 @@ def cg_matrix(A, b, x=None, n_rhs=None, n_iterations=10,
         A, Pop = _resolve_routing(routing, n, np.iscomplexobj(b) or a_cplx,
                                   device)
     elif sp.issparse(A):
-        A, perm = to_device_matrix(sp.csr_matrix(A), reorder=True,
-                                   route_fallback=on_card, device=device)
+        with trace.span("convert"):
+            A, perm = to_device_matrix(sp.csr_matrix(A), reorder=True,
+                                       route_fallback=on_card, device=device)
     if on_card and isinstance(A, EllMatrix):
-        A = DeviceRouted.from_ell(A)
-    n_rhs = n_rhs or (b.size // n)
-    B = b.reshape(n_rhs, n).T
-    X0 = np.asarray(x).reshape(n_rhs, n).T if x is not None else None
-    if perm is not None:
-        B = B[perm]
-        X0 = X0[perm] if X0 is not None else None
-    # a complex matrix with a real RHS still needs the complex solve (a
-    # routed complex operand has A None and Pop set)
-    is_complex = (np.iscomplexobj(B) or A is None
-                  or _is_complex_dtype(A.dtype))
-    if is_complex and not np.iscomplexobj(B):
-        a_dtype = (np.complex64 if A is None
-                   else torch.empty((), dtype=A.dtype).numpy().dtype)
-        B = B.astype(np.result_type(B.dtype, a_dtype))
-        X0 = X0.astype(B.dtype) if X0 is not None else None
+        with trace.span("convert"):
+            A = DeviceRouted.from_ell(A)
+    with trace.span("pack"):
+        n_rhs = n_rhs or (b.size // n)
+        B = b.reshape(n_rhs, n).T
+        X0 = np.asarray(x).reshape(n_rhs, n).T if x is not None else None
+        if perm is not None:
+            B = B[perm]
+            X0 = X0[perm] if X0 is not None else None
+        # a complex matrix with a real RHS still needs the complex solve (a
+        # routed complex operand has A None and Pop set)
+        is_complex = (np.iscomplexobj(B) or A is None
+                      or _is_complex_dtype(A.dtype))
+        if is_complex and not np.iscomplexobj(B):
+            a_dtype = (np.complex64 if A is None
+                       else torch.empty((), dtype=A.dtype).numpy().dtype)
+            B = B.astype(np.result_type(B.dtype, a_dtype))
+            X0 = X0.astype(B.dtype) if X0 is not None else None
     if is_complex and (on_card or Pop is not None):
         if Pop is None:
             Pop = _routed_planes_op(A)
@@ -268,7 +309,8 @@ def cg_matrix(A, b, x=None, n_rhs=None, n_iterations=10,
         X, history = _solve_planes(A, B, X0, n_iterations, device, Pop)
     else:
         X, history = _solve_real(A, B, X0, n_iterations, device)
-    out = np.asarray(_unpermute(X, perm)).T.reshape(-1)
+    with trace.span("pack"):
+        out = np.asarray(_unpermute(X, perm)).T.reshape(-1)
     if record_history:
         return out, history
     return out

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .. import trace
 
 
 def _pad_for(offsets) -> int:
@@ -177,7 +178,7 @@ def _launch(offsets, coef3, b, x0, n_iterations):
     coef3, b, x0 = coef3.contiguous(), b.contiguous(), x0.contiguous()
     P = _pad_for(offsets)
     dev = b.device
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), trace.span("launch.fused_cg"):
         grid = ctypes.c_int()
         _build.check(lib.tpcg_fused_cg_grid(nv * nh, ctypes.byref(grid)),
                      "tpcg_fused_cg_grid")
@@ -196,8 +197,8 @@ def _launch(offsets, coef3, b, x0, n_iterations):
             part[0].data_ptr(), part[1].data_ptr(), nv, nh, nb, noff, offs,
             P, n_iterations, grid.value,
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "tpcg_fused_cg_stencil")
-    fused_cg_stencil.launches += 1
+        _build.check(err, "tpcg_fused_cg_stencil")
+        trace.count("launch.fused_cg")
     return x, hist
 
 
@@ -213,7 +214,7 @@ def fused_cg_stencil(offsets: Sequence[Tuple[int, int]],
     Returns (x, residual_history): (2, B, Nv, Nh) and (n_iterations+1, B),
     with the COCG numerics of ``tpcg_torch.ops.cplx.block_cg_planes``.
 
-    CUDA tensors launch the kernel (``fused_cg_stencil.launches`` counts the
+    CUDA tensors launch the kernel (``launch.fused_cg`` counts the
     launches); CPU tensors run :func:`fused_cg_stencil_plain`.
     """
     _check_args(offsets, coef3, b, x0, n_iterations)
@@ -222,9 +223,6 @@ def fused_cg_stencil(offsets: Sequence[Tuple[int, int]],
     if b.device.type == "cpu":
         return fused_cg_stencil_plain(offsets, coef3, b, x0, n_iterations)
     raise ValueError(f"no fused_cg_stencil for device {b.device}")
-
-
-fused_cg_stencil.launches = 0
 
 
 def run_chunked(solve, b, x0, chunk: int):

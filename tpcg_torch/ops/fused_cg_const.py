@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .. import trace
 from .fused_cg import (_pad_for, cocg_padded_plain, kernel_limits,
                        run_chunked)
 
@@ -221,7 +222,7 @@ def _launch(offsets, grid, cr, ci, strips, b, x0, n_iterations):
     b, x0 = b.contiguous(), x0.contiguous()
     P = _pad_for(offsets)
     dev = b.device
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), trace.span("launch.fused_const"):
         grid_size = ctypes.c_int()
         _build.check(lib.tpcg_fused_cg_grid(nv * nh, ctypes.byref(grid_size)),
                      "tpcg_fused_cg_grid")
@@ -242,8 +243,8 @@ def _launch(offsets, grid, cr, ci, strips, b, x0, n_iterations):
             dpad.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), nv, nh,
             nb, noff, offs, taps, groups, P, n_iterations, grid_size.value,
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "tpcg_fused_cg_const")
-    fused_cg_const_planes.launches += 1
+        _build.check(err, "tpcg_fused_cg_const")
+        trace.count("launch.fused_const")
     return x, hist
 
 
@@ -257,7 +258,7 @@ def fused_cg_const_planes(offsets, grid, cr, ci, strips, b: torch.Tensor,
     Returns (x (2, B, Nv, Nh), residual_history (n_iterations+1, B)), as
     ``fused_cg_stencil``.
 
-    CUDA tensors launch the kernel (``fused_cg_const_planes.launches``
+    CUDA tensors launch the kernel (``launch.fused_const``
     counts the launches); CPU tensors run
     :func:`fused_cg_const_planes_plain`.
     """
@@ -268,9 +269,6 @@ def fused_cg_const_planes(offsets, grid, cr, ci, strips, b: torch.Tensor,
         return fused_cg_const_planes_plain(offsets, grid, cr, ci, strips, b,
                                            x0, n_iterations)
     raise ValueError(f"no fused_cg_const_planes for device {b.device}")
-
-
-fused_cg_const_planes.launches = 0
 
 
 def fused_cg_const_chunked(offsets, grid, cr, ci, strips, b, x0,

@@ -28,6 +28,8 @@ from typing import Sequence
 import torch
 
 from . import _build
+from .. import trace
+from ..device import upload
 from .cplx import cdiv, udot_planes
 from .stream_cg_dia import (_check_args, _cplx_cols, _pad_for,
                             prepare_dia_rows_cplx)
@@ -136,9 +138,9 @@ def _launch(offsets, values, b, x0, n_iterations):
     nb = b.shape[1]
     values, b, x0 = values.contiguous(), b.contiguous(), x0.contiguous()
     dev = b.device
-    with torch.cuda.device(dev):
-        offs = torch.tensor([int(o) for o in offsets], dtype=torch.int32,
-                            device=dev)
+    with torch.cuda.device(dev), trace.span("launch.fused_dia"):
+        offs = upload(torch.tensor([int(o) for o in offsets],
+                                   dtype=torch.int32), dev)
         x = torch.empty_like(b)
         hist = torch.empty((n_iterations + 1, nb), dtype=torch.float32,
                            device=dev)
@@ -146,8 +148,8 @@ def _launch(offsets, values, b, x0, n_iterations):
             values.data_ptr(), offs.data_ptr(), b.data_ptr(), x0.data_ptr(),
             x.data_ptr(), hist.data_ptr(), n, ndiag, nb, _pad_for(offsets),
             n_iterations, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "tpcg_fused_dia")
-    fused_cg_dia_rows_cplx.launches += 1
+        _build.check(err, "tpcg_fused_dia")
+        trace.count("launch.fused_dia")
     return x, hist
 
 
@@ -158,10 +160,10 @@ def fused_cg_dia_rows_cplx(offsets: Sequence[int], values: torch.Tensor,
     row-DIA planes (:func:`prepare_dia_rows_cplx`), ``b``/``x0`` (2, B, n).
     Returns ``x`` (2, B, n) and the history (n_iterations+1, B).
 
-    CUDA tensors launch the kernel once, one block per RHS
-    (``fused_cg_dia_rows_cplx.launches`` counts the launches); a geometry
-    that does not fit (:func:`fused_dia_cplx_fits`) raises.  CPU tensors run
-    :func:`fused_cg_dia_rows_cplx_plain`."""
+    CUDA tensors launch the kernel once, one block per RHS (the counter
+    ``launch.fused_dia`` of ``tpcg_torch.trace`` counts the launches); a
+    geometry that does not fit (:func:`fused_dia_cplx_fits`) raises.  CPU
+    tensors run :func:`fused_cg_dia_rows_cplx_plain`."""
     _check_args(offsets, values, b, x0, n_iterations, 2)
     if b.device.type == "cuda":
         n = values.shape[2]
@@ -178,19 +180,17 @@ def fused_cg_dia_rows_cplx(offsets: Sequence[int], values: torch.Tensor,
     raise ValueError(f"no fused_cg_dia kernel for device {b.device}")
 
 
-fused_cg_dia_rows_cplx.launches = 0
-
-
 def fused_cg_dia_cplx_block(dia, B, X0=None, n_iterations: int = 10):
     """Multi-RHS whole solve on a small complex :class:`DiaMatrix`:
     ``B``/``X0`` complex (n, nrhs).  Returns ``X`` complex64 (n, nrhs) and
     the history (n_iterations+1, nrhs) on the matrix's device.  Each RHS is
     its own block of one launch, so its result does not depend on the RHS
     count (the JAX wrapper lax.maps the columns)."""
-    offsets, values = prepare_dia_rows_cplx(dia)
-    dev = values.device
-    b = _cplx_cols(B, dev)
-    x0 = torch.zeros_like(b) if X0 is None else _cplx_cols(X0, dev)
+    with trace.span("prepare"):
+        offsets, values = prepare_dia_rows_cplx(dia)
+        dev = values.device
+        b = _cplx_cols(B, dev)
+        x0 = torch.zeros_like(b) if X0 is None else _cplx_cols(X0, dev)
     x, hist = fused_cg_dia_rows_cplx(offsets, values, b, x0, n_iterations)
     return torch.complex(x[0], x[1]).T, hist
 

@@ -7,8 +7,8 @@ and computes it from CSR: :func:`routed_matvec_block` launches the
 hand-written CUDA kernel ``csrc/route_spmv.cu`` (one warp per row, see the
 note there) on CUDA tensors and raises if it cannot; on CPU tensors it runs
 :func:`routed_matvec_plain`, the same function in plain PyTorch (a gather
-and a sum in row order).  ``routed_matvec_block.launches`` counts the
-launches.
+and a sum in row order).  ``tpcg_torch.trace``'s counter
+``launch.route_spmv`` counts the launches.
 
 The names are JAX's, so a reader finds each counterpart:
 
@@ -38,7 +38,8 @@ import numpy as np
 import torch
 
 from . import _build
-from ..device import resolve_device
+from .. import trace
+from ..device import resolve_device, upload
 
 _INT32_MAX = 2**31 - 1
 _COLS = (8, 4, 2, 1)         # the kernel's template instances
@@ -130,7 +131,7 @@ def _launch(row_ptr, col, val, x, out):
     y = torch.empty_like(x) if out is None else out
     if n == 0 or ldx == 0:
         return y
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), trace.span("launch.route_spmv"):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         c0 = 0
         while c0 < ldx:
@@ -140,7 +141,7 @@ def _launch(row_ptr, col, val, x, out):
                 x.data_ptr(), y.data_ptr(), n, nnz, ldx, c0, nc,
                 int(val.dim() == 2), stream)
             _build.check(err, "tpcg_route_spmv")
-            routed_matvec_block.launches += 1
+            trace.count("launch.route_spmv")
             c0 += nc
     return y
 
@@ -155,7 +156,7 @@ def routed_matvec_block(row_ptr: torch.Tensor, col: torch.Tensor,
     share storage with x.
 
     CUDA tensors launch ``csrc/route_spmv.cu`` (one launch per column
-    chunk of at most 8, each counted in ``routed_matvec_block.launches``);
+    chunk of at most 8, each counted in ``launch.route_spmv``);
     CPU tensors run :func:`routed_matvec_plain`.  Raises ``ValueError`` for
     operands the kernel does not take, int32 overflow among them."""
     _check_args(row_ptr, col, val, x, out)
@@ -165,9 +166,6 @@ def routed_matvec_block(row_ptr: torch.Tensor, col: torch.Tensor,
         y = routed_matvec_plain(row_ptr, col, val, x)
         return y if out is None else out.copy_(y)
     raise ValueError(f"no route_spmv kernel for device {x.device}")
-
-
-routed_matvec_block.launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,8 +222,8 @@ class DeviceRouted:
                 if np.iscomplexobj(A.data) else A.data)
 
         def put(a, dt):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(
-                device)
+            return upload(torch.from_numpy(np.ascontiguousarray(a, dtype=dt)),
+                          device)
         return DeviceRouted(put(A.indptr, np.int32), put(A.indices, np.int32),
                             put(data, np.float32), n)
 

@@ -7,12 +7,12 @@ runs the same for B right-hand sides, each with its own alpha, beta and
 freeze guard.  On CUDA tensors both launch the hand-written kernel
 ``tpcg_torch/csrc/stream_cg.cu`` (one persistent cooperative launch per
 solve, or per chunk of at most ``kernel_limits()[2]`` RHS; see the note at
-the top of that file) and raise if the kernel cannot run;
-``stream_cg_const_planes.launches`` counts the launches of both.  Each RHS
-of a chunk gives the bits of its own single-RHS launch.  On CPU tensors
-they run :func:`stream_cg_const_planes_plain` (per RHS), the same function
-in plain PyTorch, which is also what the kernel is compared with on the
-card.
+the top of that file) and raise if the kernel cannot run; the counter
+``launch.stream_const`` of ``tpcg_torch.trace`` counts the launches of both.
+Each RHS of a chunk gives the bits of its own single-RHS launch.  On CPU
+tensors they run :func:`stream_cg_const_planes_plain` (per RHS), the same
+function in plain PyTorch, which is also what the kernel is compared with
+on the card.
 
 The operator (``prepare_stream``) is the JAX package's: constant interior
 taps, constant left/right edge taps applied to columns 0 and Nh-1 of every
@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .. import trace
 from .fused_cg import _cdiv, _hist_row, _pad_for, _rr_grid, _udot_grid
 from .fused_cg_const import split_const_stencil
 
@@ -338,7 +339,7 @@ def _launch(offsets, grid, taps, strips, bp, x0p, n_iterations,
     dev = bp.device
     m = min(nb, chunk)
     lay = stream_layout(nv, nh, P)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), trace.span("launch.stream_const"):
         f32 = dict(dtype=torch.float32, device=dev)
         x = torch.empty_like(bp)
         # state for the largest chunk in the kernel's padded rows, reused by
@@ -365,7 +366,7 @@ def _launch(offsets, grid, taps, strips, bp, x0p, n_iterations,
                 lay.tile_rows, lay.col_halo, lay.stages, n_iterations,
                 blocks, stream)
             _build.check(err, "tpcg_stream_cg")
-            stream_cg_const_planes.launches += 1
+            trace.count("launch.stream_const")
             hists.append(hist)
     return x, hists[0] if len(hists) == 1 else torch.cat(hists, dim=1)
 
@@ -382,7 +383,7 @@ def stream_cg_const_planes(offsets: Sequence[Tuple[int, int]], grid, taps,
     Returns (x_planes (2, Nv, Nh), residual_history (n_iterations+1,)).
 
     CUDA tensors launch the kernel's single-RHS instance
-    (``stream_cg_const_planes.launches`` counts the launches); CPU tensors
+    (``launch.stream_const`` counts the launches); CPU tensors
     run :func:`stream_cg_const_planes_plain`.
     """
     _check_args(offsets, grid, taps, strips, bp, x0p, n_iterations)
@@ -394,9 +395,6 @@ def stream_cg_const_planes(offsets: Sequence[Tuple[int, int]], grid, taps,
         return stream_cg_const_planes_plain(offsets, grid, taps, strips, bp,
                                             x0p, n_iterations)
     raise ValueError(f"no stream_cg_const_planes for device {bp.device}")
-
-
-stream_cg_const_planes.launches = 0
 
 
 def stream_cg_const_planes_batched(offsets: Sequence[Tuple[int, int]], grid,
@@ -414,7 +412,7 @@ def stream_cg_const_planes_batched(offsets: Sequence[Tuple[int, int]], grid,
     Returns (x (2, B, Nv, Nh), residual_history (n_iterations+1, B)).
 
     CUDA tensors launch the kernel once per chunk of RHS (counted in
-    ``stream_cg_const_planes.launches``), queued on the current stream with
+    ``launch.stream_const``), queued on the current stream with
     no host sync; each RHS gives the bits of its own single-RHS launch, so
     the chunking changes no result.  CPU tensors run
     :func:`stream_cg_const_planes_batched_plain`.

@@ -19,7 +19,8 @@ hand-written kernel ``tpcg_torch/csrc/stream_cg_coef.cu`` (one persistent
 cooperative launch per chunk of at most 8 RHS, which share one read of the
 coefficient planes; :func:`coef_layout` gives its tiles and rings; see the
 note at the top of that file) and raise if it cannot run;
-``stream_cg_coef_planes.launches`` counts the launches of all of them.  On
+the counter ``launch.stream_coef`` of ``tpcg_torch.trace`` counts the
+launches of all of them.  On
 CPU tensors they run their plain versions, the same functions in plain
 PyTorch, which are also what the kernel is compared with on the card.
 
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .. import trace
 from ._device_limits import (BLOCK_RESERVED, BLOCK_SHARED, SM_SHARED,
                              STATIC_SHARED)
 from .fused_cg import _pad_for
@@ -277,7 +279,7 @@ def _launch(offsets, coefp, bp, x0p, n_iterations):
     dev = bp.device
     lay = coef_layout(nv, nh, P, nb, noff)
     chunk = lay.rhs_per_launch
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), trace.span("launch.stream_coef"):
         f32 = dict(dtype=torch.float32, device=dev)
         # the coefficient planes at the kernel's pitch, once a solve
         cpad = pad_rows(coefp, lay.pitch).contiguous()
@@ -305,7 +307,7 @@ def _launch(offsets, coefp, bp, x0p, n_iterations):
                 lay.col_halo, lay.stages, lay.coef_stages, n_iterations,
                 blocks, stream)
             _build.check(err, "tpcg_stream_coef")
-            stream_cg_coef_planes.launches += 1
+            trace.count("launch.stream_coef")
             hists.append(hist)
     return x, hists[0] if len(hists) == 1 else torch.cat(hists, dim=1)
 
@@ -323,7 +325,7 @@ def stream_cg_coef_planes(offsets: Sequence[Offset], coefp: torch.Tensor,
     Returns (x_planes (2, Nv, Nh), residual_history (n_iterations+1,)).
 
     CUDA tensors launch the kernel's single-RHS instance
-    (``stream_cg_coef_planes.launches`` counts the launches); CPU tensors
+    (``launch.stream_coef`` counts the launches); CPU tensors
     run :func:`stream_cg_coef_planes_plain`.
     """
     _check_args(offsets, coefp, bp, x0p, n_iterations, batched=False)
@@ -335,9 +337,6 @@ def stream_cg_coef_planes(offsets: Sequence[Offset], coefp: torch.Tensor,
         return stream_cg_coef_planes_plain(offsets, coefp, bp, x0p,
                                            n_iterations)
     raise ValueError(f"no stream_cg_coef_planes for device {bp.device}")
-
-
-stream_cg_coef_planes.launches = 0
 
 
 def stream_cg_coef_planes_batched_fat(offsets: Sequence[Offset],
@@ -352,7 +351,7 @@ def stream_cg_coef_planes_batched_fat(offsets: Sequence[Offset],
 
     CUDA tensors launch the kernel once per chunk of at most
     ``coef_layout(...).rhs_per_launch`` RHS (8; counted in
-    ``stream_cg_coef_planes.launches``), queued on the current stream with
+    ``launch.stream_coef``), queued on the current stream with
     no host sync; CPU tensors run
     :func:`stream_cg_coef_planes_batched_fat_plain`.  Each RHS of a launch
     follows its plain version and gives the bits of its own single-RHS
@@ -376,7 +375,7 @@ def stream_cg_coef_planes_batched(offsets: Sequence[Offset],
     one RHS a grid column): the function of
     :func:`stream_cg_coef_planes_batched_fat`, which it runs, the same
     kernel on a card (one launch per chunk of RHS, counted in
-    ``stream_cg_coef_planes.launches``) and the plain version on the CPU.
+    ``launch.stream_coef``) and the plain version on the CPU.
     bp, x0p : (2, B, Nv, Nh); returns (x (2, B, Nv, Nh), residual_history
     (n_iterations+1, B))."""
     return stream_cg_coef_planes_batched_fat(offsets, coefp, bp, x0p,

@@ -40,6 +40,8 @@ import numpy as np
 import torch
 
 from . import _build
+from .. import trace
+from ..device import upload
 from .cplx import cdiv, udot_planes
 
 # fit rule: the kernel's tap list lives in shared memory, and its indices
@@ -226,14 +228,15 @@ def _launch(offsets, values, b, x0, n_iterations):
     P = _pad_for(offsets)
     dev = b.device
     cplx = int(planes == 2)
-    with torch.cuda.device(dev):
+    kernel = "launch.stream_dia_cplx" if cplx else "launch.stream_dia"
+    with torch.cuda.device(dev), trace.span(kernel):
         grid = ctypes.c_int()
         _build.check(lib.tpcg_stream_dia_grid(cplx, nb, n, ndiag,
                                               ctypes.byref(grid)),
                      "tpcg_stream_dia_grid")
         f32 = dict(dtype=torch.float32, device=dev)
-        offs = torch.tensor([int(o) for o in offsets], dtype=torch.int32,
-                            device=dev)
+        offs = upload(torch.tensor([int(o) for o in offsets],
+                                   dtype=torch.int32), dev)
         x = torch.empty_like(b)
         hist = torch.empty((n_iterations + 1, nb), **f32)
         r = torch.empty_like(b)
@@ -246,11 +249,8 @@ def _launch(offsets, values, b, x0, n_iterations):
             q.data_ptr(), dpad.data_ptr(), part[0].data_ptr(),
             part[1].data_ptr(), n, ndiag, nb, P, n_iterations, grid.value,
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "tpcg_stream_dia")
-    if cplx:
-        stream_cg_dia_rows_cplx.launches += 1
-    else:
-        stream_cg_dia_rows.launches += 1
+        _build.check(err, "tpcg_stream_dia")
+        trace.count(kernel)
     return x, hist
 
 
@@ -294,15 +294,12 @@ def stream_cg_dia_rows(offsets: Sequence[int], values: torch.Tensor,
     same device.  Returns ``x`` (B, n) and the history (n_iterations+1, B).
 
     CUDA tensors launch the kernel, at most 8 RHS (the kernel's limit) per
-    launch in balanced chunks; ``stream_cg_dia_rows.launches`` counts the
-    launches.  CPU tensors run :func:`stream_cg_dia_rows_plain` in the same
-    chunks."""
+    launch in balanced chunks; ``tpcg_torch.trace``'s counter
+    ``launch.stream_dia`` counts the launches.  CPU tensors run
+    :func:`stream_cg_dia_rows_plain` in the same chunks."""
     _check_args(offsets, values[None], b[None], x0[None], n_iterations, 1)
     x, hist = _solve(offsets, values[None], b[None], x0[None], n_iterations)
     return x[0], hist
-
-
-stream_cg_dia_rows.launches = 0
 
 
 def stream_cg_dia_rows_cplx(offsets: Sequence[int], values: torch.Tensor,
@@ -311,13 +308,10 @@ def stream_cg_dia_rows_cplx(offsets: Sequence[int], values: torch.Tensor,
     """Device-resident complex solve: ``values`` (2, ndiag, n), ``b``/``x0``
     (2, B, n) float32 re/im planes.  Returns ``x`` (2, B, n) and the
     history (n_iterations+1, B).  Launches and chunks as
-    :func:`stream_cg_dia_rows`; ``stream_cg_dia_rows_cplx.launches`` counts
-    the launches."""
+    :func:`stream_cg_dia_rows`; the counter ``launch.stream_dia_cplx``
+    counts the launches."""
     _check_args(offsets, values, b, x0, n_iterations, 2)
     return _solve(offsets, values, b, x0, n_iterations)
-
-
-stream_cg_dia_rows_cplx.launches = 0
 
 
 def prepare_dia_rows(dia) -> Tuple[Tuple[int, ...], torch.Tensor]:
@@ -340,7 +334,7 @@ def prepare_dia_rows_cplx(dia) -> Tuple[Tuple[int, ...], torch.Tensor]:
 
 def _as_tensor(a, dev, dtype=None):
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
-    return t.to(dev) if dtype is None else t.to(dev, dtype)
+    return upload(t, dev, dtype)
 
 
 def _cols(B, dev):
@@ -364,10 +358,11 @@ def stream_cg_dia_block(dia, B, X0=None, n_iterations: int = 10):
     ``X`` (n, nrhs) float32 and the history (n_iterations+1, nrhs).  Each
     launch applies every value fetch to up to 8 RHS (report Fig. 6); per RHS
     the result does not depend on the RHS count."""
-    offsets, values = prepare_dia_rows(dia)
-    dev = values.device
-    b = _cols(B, dev)
-    x0 = torch.zeros_like(b) if X0 is None else _cols(X0, dev)
+    with trace.span("prepare"):
+        offsets, values = prepare_dia_rows(dia)
+        dev = values.device
+        b = _cols(B, dev)
+        x0 = torch.zeros_like(b) if X0 is None else _cols(X0, dev)
     x, hist = stream_cg_dia_rows(offsets, values, b, x0, n_iterations)
     return x.T, hist
 
@@ -388,10 +383,11 @@ def stream_cg_dia_cplx_block(dia, B, X0=None, n_iterations: int = 10):
     the history (n_iterations+1, nrhs) on the matrix's device.  The JAX
     module runs columns one by one; here up to 8 share each launch, and per
     RHS the result does not depend on the RHS count."""
-    offsets, values = prepare_dia_rows_cplx(dia)
-    dev = values.device
-    b = _cplx_cols(B, dev)
-    x0 = torch.zeros_like(b) if X0 is None else _cplx_cols(X0, dev)
+    with trace.span("prepare"):
+        offsets, values = prepare_dia_rows_cplx(dia)
+        dev = values.device
+        b = _cplx_cols(B, dev)
+        x0 = torch.zeros_like(b) if X0 is None else _cplx_cols(X0, dev)
     x, hist = stream_cg_dia_rows_cplx(offsets, values, b, x0, n_iterations)
     return torch.complex(x[0], x[1]).T, hist
 

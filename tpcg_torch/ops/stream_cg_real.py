@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .. import trace
 from ._device_limits import (BLOCK_RESERVED, BLOCK_SHARED, SM_SHARED,
                              STATIC_SHARED)
 from .fused_cg import _pad_for
@@ -407,15 +408,12 @@ def pad_real_planes(offsets: Sequence[Offset],
     """The coefficient planes (noff, Nv, Nh) copied to the kernel's pitch
     (:func:`real_layout`), zero past column Nh: the operand every coef-mode
     launch on the grid reads.  A plan makes it once (``auto``'s
-    ``stream-real`` branch); ``pad_real_planes.copies`` counts the
-    copies."""
+    ``stream-real`` branch); the counter ``copy.pad_real_planes`` of
+    ``tpcg_torch.trace`` counts the copies."""
     noff, nv, nh = coefp.shape
     pitch = real_layout(nv, nh, _pad_for(offsets), noff, True).pitch
-    pad_real_planes.copies += 1
+    trace.count("copy.pad_real_planes")
     return pad_rows(coefp, pitch).contiguous()
-
-
-pad_real_planes.copies = 0
 
 
 def grid_blocks(nv: int, nh: int, pad: int, noff: int, coef: bool) -> int:
@@ -464,7 +462,7 @@ def _launch(offsets, operand, taps, bp, x0p, n_iterations, cpad=None):
         operand = cpad
     else:
         operand = operand.contiguous()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), trace.span("launch.stream_real"):
         blocks = grid_blocks(nv, nh, P, noff, coef)
         f32 = dict(dtype=torch.float32, device=dev)
         x = torch.empty_like(bp)
@@ -486,8 +484,8 @@ def _launch(offsets, operand, taps, bp, x0p, n_iterations, cpad=None):
             tap_vals, groups, int(coef), P, lay.tile_rows, lay.col_halo,
             lay.stages, lay.coef_stages, n_iterations, blocks,
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "tpcg_stream_real")
-    stream_cg_real_planes.launches += 1
+        _build.check(err, "tpcg_stream_real")
+        trace.count("launch.stream_real")
     return x, hist
 
 
@@ -502,7 +500,7 @@ def stream_cg_real_planes(offsets: Sequence[Offset], grid, taps,
     bp, x0p : (Nv, Nh) float32 RHS / initial guess.
     Returns (x (Nv, Nh), residual_history (n_iterations+1,)).
 
-    CUDA tensors launch the kernel (``stream_cg_real_planes.launches``
+    CUDA tensors launch the kernel (``launch.stream_real``
     counts the launches of both modes); CPU tensors run
     :func:`stream_cg_real_planes_plain`.
     """
@@ -513,9 +511,6 @@ def stream_cg_real_planes(offsets: Sequence[Offset], grid, taps,
         return stream_cg_real_planes_plain(offsets, grid, taps, strips, bp,
                                            x0p, n_iterations)
     raise ValueError(f"no stream_cg_real_planes for device {bp.device}")
-
-
-stream_cg_real_planes.launches = 0
 
 
 def stream_cg_real_coef_planes(offsets: Sequence[Offset],

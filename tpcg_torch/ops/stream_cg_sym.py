@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .. import trace
 from ._device_limits import (BLOCK_RESERVED, BLOCK_SHARED, SM_SHARED,
                              STATIC_SHARED)
 from .fused_cg import _pad_for
@@ -301,14 +302,12 @@ def pad_sym_planes(half_offsets: Sequence[Offset],
     """The half planes (2, nH1, Nv, Nh) copied to the kernel's pitch
     (:func:`sym_layout`), zero past column Nh: the operand every launch on
     the grid reads.  A plan makes it once (``auto``'s ``stream-coef``
-    branch); ``pad_sym_planes.copies`` counts the copies."""
+    branch); the counter ``copy.pad_sym_planes`` of ``tpcg_torch.trace``
+    counts the copies."""
     _, nh1, nv, nh = cplanes.shape
     pitch = sym_layout(nv, nh, _pad_for(half_offsets), nh1).pitch
-    pad_sym_planes.copies += 1
+    trace.count("copy.pad_sym_planes")
     return pad_rows(cplanes, pitch).contiguous()
-
-
-pad_sym_planes.copies = 0
 
 
 def grid_blocks(nv: int, nh: int, pad: int, nh1: int) -> int:
@@ -346,7 +345,7 @@ def _launch(half_offsets, cplanes, bp, x0p, n_iterations, cpad):
         raise ValueError(f"cpad must be contiguous float32 (2, {nh1}, {nv}, "
                          f"{lay.pitch}) on {dev}, got {tuple(cpad.shape)} "
                          f"{cpad.dtype} on {cpad.device}")
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), trace.span("launch.stream_sym"):
         blocks = grid_blocks(nv, nh, P, nh1)
         f32 = dict(dtype=torch.float32, device=dev)
         x = torch.empty_like(bp)
@@ -366,8 +365,8 @@ def _launch(half_offsets, cplanes, bp, x0p, n_iterations, cpad):
             lay.tile_rows, lay.tile_cols, lay.col_halo, lay.stages,
             lay.coef_stages, n_iterations, blocks,
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "tpcg_stream_sym")
-    stream_cg_sym_planes.launches += 1
+        _build.check(err, "tpcg_stream_sym")
+        trace.count("launch.stream_sym")
     return x, hist
 
 
@@ -386,7 +385,7 @@ def stream_cg_sym_planes(half_offsets: Sequence[Offset],
            the copy is kept.  Read on a card only.
     Returns (x_planes (2, Nv, Nh), residual_history (n_iterations+1,)).
 
-    CUDA tensors launch the kernel (``stream_cg_sym_planes.launches``
+    CUDA tensors launch the kernel (``launch.stream_sym``
     counts the launches); CPU tensors run
     :func:`stream_cg_sym_planes_plain`.
     """
@@ -397,9 +396,6 @@ def stream_cg_sym_planes(half_offsets: Sequence[Offset],
         return stream_cg_sym_planes_plain(half_offsets, cplanes, bp, x0p,
                                           n_iterations)
     raise ValueError(f"no stream_cg_sym_planes for device {bp.device}")
-
-
-stream_cg_sym_planes.launches = 0
 
 
 def stream_cg_sym(stencil, b, x0=None, n_iterations: int = 10):

@@ -28,7 +28,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .device import resolve_device
+from . import trace
+from .device import resolve_device, upload
 
 def _shift_rows(x: torch.Tensor, off: int) -> torch.Tensor:
     """out[i] = x[i + off] with zero fill outside [0, n).  Static ``off``."""
@@ -120,15 +121,16 @@ class DiaMatrix:
         ``device`` (default: the CUDA device, raising without one)."""
         import scipy.sparse as sp
         device = resolve_device(device)
-        A = sp.coo_matrix(A)
-        n = A.shape[0]
-        d = A.col - A.row
-        offs = np.unique(d)
-        data = np.zeros((len(offs), n), dtype=dtype or A.dtype)
-        d_idx = np.searchsorted(offs, d)
-        np.add.at(data, (d_idx, A.row), A.data)
+        with trace.span("convert.dia"):
+            A = sp.coo_matrix(A)
+            n = A.shape[0]
+            d = A.col - A.row
+            offs = np.unique(d)
+            data = np.zeros((len(offs), n), dtype=dtype or A.dtype)
+            d_idx = np.searchsorted(offs, d)
+            np.add.at(data, (d_idx, A.row), A.data)
         return DiaMatrix(tuple(int(o) for o in offs),
-                         torch.from_numpy(data).to(device), n)
+                         upload(torch.from_numpy(data), device), n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,8 +203,8 @@ class EllMatrix:
         vals = np.zeros((n, L), dtype=dtype or a_values.dtype)
         cols[rows, lane] = a_cols
         vals[rows, lane] = a_values
-        return EllMatrix(torch.from_numpy(cols).to(device),
-                         torch.from_numpy(vals).to(device), n)
+        return EllMatrix(upload(torch.from_numpy(cols), device),
+                         upload(torch.from_numpy(vals), device), n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -319,8 +321,9 @@ def to_device_matrix(A, prefer_dia_band: int = 4096, reorder: bool = False,
         return (M, None) if (reorder or route_fallback) else M
     if reorder or route_fallback:
         from scipy.sparse.csgraph import reverse_cuthill_mckee
-        perm = np.asarray(reverse_cuthill_mckee(A, symmetric_mode=True))
-        Ap = A[perm][:, perm]
+        with trace.span("convert.rcm"):
+            perm = np.asarray(reverse_cuthill_mckee(A, symmetric_mode=True))
+            Ap = A[perm][:, perm]
         if _dia_worthwhile(Ap, prefer_dia_band):
             return DiaMatrix.from_scipy(Ap, device=device), perm
         if route_fallback and not np.iscomplexobj(A.data):
