@@ -1,0 +1,486 @@
+"""Probe: kernel A (``csrc/stream_cg_dia.cu``) timed an iteration on the
+m_t1 band, with and without its window of the direction in shared memory.
+
+Run from the root of a checkout on a machine with an NVIDIA GPU:
+
+    python3 probes/stream_dia_window.py freeze
+    python3 probes/stream_dia_window.py rule
+    python3 probes/stream_dia_window.py compare --tree DIR
+    python3 probes/stream_dia_window.py split
+    python3 probes/stream_dia_window.py table
+    python3 probes/stream_dia_window.py variants
+
+``freeze``: kernel A at m_t1's n and offsets, B = 1, 2, 4 and 8 RHS a
+launch, on the benchmark's stand-in ``banded_spd(97578, 50)`` (every RHS
+freezes by iteration ~10: ``<r, r>`` underflows) and on a band of the same
+n, offsets and layout that converges slowly: the stand-in's off-diagonals
+made negative and damped by (min|off| / |off|)^4, each row's diagonal their
+magnitudes' sum times 1 + 1e-5 (SPD by Gershgorin; ||r|| falls ~10x in
+1,100 iterations).  It checks that no RHS of the second band
+freezes within the timed iterations (no history entry 0 or equal to the one
+before: a frozen RHS holds its delta) and prints the per-iteration times
+of the two bands side by side: the kernel does the same work on a frozen
+RHS, so they agree.
+
+``rule``: the staged window against the direct L2 read (``dia_layout``
+forced to ``staged=False``) at helm_fem (complex, 1 RHS, 7 diagonals),
+m_t1 (B = 1, 8) and parabolic_fem (B = 1, 8), in turns.
+
+``compare --tree DIR``: this checkout's kernel A and the one of the
+``tpcg_torch`` package under DIR (for example the parent commit's, from
+``git archive`` under ``probes/_variants/``, which git ignores) at m_t1
+B = 1 and 8, helm_fem and parabolic_fem, each in its own process, in turns
+(DIR, this, this, DIR).
+
+``split``: a copy of the kernel's source that stamps ``%globaltimer`` in
+block 0 after each grid barrier of an iteration and around its window's
+fill, built into a library of its own: per iteration, phase 1 (the fill,
+q = A d and the <d, q> partials, with its barrier wait), the fill alone
+(its copies in flight beside the first diagonals' values), phase 2 (x,
+r and the <r, r> partials) and phase 3 (d), at m_t1 B = 1 and 8, helm_fem
+and parabolic_fem.
+
+``table``: PERF.md's kernel table rows 3-5 at their cells, one solve on
+device operands timed by CUDA events, median of ``REPS``: mhd1280b through
+kernel B (``csrc/fused_cg_dia.cu``, 5000 iterations), m_t1 B = 1 (200) and
+helm_fem as a DIA matrix (5000) through kernel A.
+
+``variants``: edited copies of the kernel's source (threads a block, rows
+a thread takes through one pass of the taps, diagonals of values in
+flight) built into
+libraries of their own under ``probes/_variants/`` and timed at m_t1 B = 8
+and B = 1; each build prints its instances' registers and spills.
+
+Times are CUDA-event slopes: a solve of ``IT0 + IT`` iterations less one of
+``IT0``, over ``IT``, the median of ``REPS`` rounds.  Every line names the
+card and its power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib
+import json
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+VARIANTS = ROOT / "probes" / "_variants"
+IT0, IT, REPS = 100, 1000, 3
+RHS_COUNTS = (1, 2, 4, 8)
+# (threads a block, rows a thread takes at once, diagonals of values in
+# flight); each ring at most 80 KB, so m_t1's 143 KB window fits beside it
+VARIANT_GRID = [(256, 3, 8), (256, 3, 16), (256, 3, 4), (192, 4, 8),
+                (128, 6, 8), (384, 2, 8), (512, 2, 8), (768, 1, 8)]
+
+
+def _card():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()
+    return out[0] if out else "unknown card"
+
+
+def _import(tree):
+    if tree is not None:
+        sys.path.insert(0, str(pathlib.Path(tree).resolve()))
+    else:
+        sys.path.insert(0, str(ROOT))
+    return importlib.import_module("tpcg_torch.ops.stream_cg_dia")
+
+
+def _dia(A, dtype, dev):
+    import scipy.sparse as sp
+    from tpcg_torch.sparse import DiaMatrix
+    return DiaMatrix.from_scipy(sp.csr_matrix(A.astype(dtype)), device=dev)
+
+
+def _band(name):
+    """Host scipy matrix and whether it is complex."""
+    import scipy.sparse as sp
+    from tpcg_torch.problems import banded_spd, helm_fe, parabolic_stencil
+    if name == "m_t1":
+        return banded_spd(97578, 50), False
+    if name == "m_t1_live":
+        # the stand-in's off-diagonals made negative and damped by
+        # (min|off| / |off|)^4, each row's diagonal their magnitudes' sum
+        # times 1 + 1e-5: SPD by Gershgorin, condition ~1e5.  (The stand-in
+        # with its diagonal lowered to that sum + 0.01 underflows by
+        # iteration ~50, and with the signs made negative by ~500.)
+        A = banded_spd(97578, 50).tocoo()
+        far = np.abs(A.col - A.row)
+        keep = far > 0
+        w = -np.abs(A.data[keep]) * (far[keep].min() / far[keep]) ** 4.0
+        off = sp.csr_matrix((w, (A.row[keep], A.col[keep])), shape=A.shape)
+        d = np.asarray(-off.sum(axis=1)).ravel() * (1 + 1e-5)
+        return (off + sp.diags(d)).tocsr(), False
+    if name == "parabolic":
+        return parabolic_stencil(725, device="cpu").to_dia().to_scipy(), False
+    return helm_fe(128, 12.0, eps=12.0, device="cpu").to_scipy(), True
+
+
+_MADE = {}
+
+
+def _operands(tsd, name, nb, dev):
+    key = (id(tsd), name, nb)
+    if key not in _MADE:
+        _MADE[key] = _make(tsd, name, nb, dev)
+    return _MADE[key]
+
+
+def _make(tsd, name, nb, dev):
+    import torch
+    A, cplx = _band(name)
+    D = _dia(A, np.complex64 if cplx else np.float32, dev)
+    offs, vals = (tsd.prepare_dia_rows_cplx(D) if cplx
+                  else tsd.prepare_dia_rows(D))
+    rng = np.random.default_rng(11)
+    shape = (2, nb, D.n) if cplx else (nb, D.n)
+    b = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    solve = tsd.stream_cg_dia_rows_cplx if cplx else tsd.stream_cg_dia_rows
+    return solve, offs, vals, b, torch.zeros_like(b)
+
+
+def _time(run, iters):
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = run(iters)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _slope(run):
+    """Median over REPS of (t(IT0 + IT) - t(IT0)) / IT, in us, and the last
+    history of IT0 + IT iterations."""
+    run(IT0)
+    times, hist = [], None
+    for _ in range(REPS):
+        t1, _ = _time(run, IT0)
+        t2, (_, hist) = _time(run, IT0 + IT)
+        times.append((t2 - t1) / IT * 1e3)
+    return float(np.median(times)), hist
+
+
+def _solver(tsd, name, nb, dev, staged=None):
+    solve, offs, vals, b, x0 = _operands(tsd, name, nb, dev)
+    if staged is False:
+        layout = tsd.dia_layout
+        tsd.dia_layout = lambda *a: layout(*a)._replace(staged=False)
+
+    def run(iters):
+        return solve(offs, vals, b, x0, iters)
+    if staged is False:
+        out = _slope(run)
+        tsd.dia_layout = layout
+        return out
+    return _slope(run)
+
+
+def _frozen(hist):
+    """Per RHS: the first iteration whose history entry is 0 or equals the
+    one before (a frozen RHS holds its delta), or None."""
+    h = hist.cpu().numpy()
+    out = []
+    for c in range(h.shape[1]):
+        bad = np.where((h[1:, c] == 0) | (h[1:, c] == h[:-1, c]))[0]
+        out.append(int(bad[0]) + 1 if len(bad) else None)
+    return out
+
+
+def freeze(args):
+    import torch
+    tsd = _import(None)
+    dev = torch.device("cuda:0")
+    card = _card()
+    for nb in RHS_COUNTS:
+        rows = {}
+        for name in ("m_t1", "m_t1_live", "m_t1_live", "m_t1"):
+            us, hist = _solver(tsd, name, nb, dev)
+            rows.setdefault(name, []).append(us)
+            rows[name + ".frozen"] = _frozen(hist)
+        a, b = np.median(rows["m_t1"]), np.median(rows["m_t1_live"])
+        print(json.dumps({
+            "probe": "freeze", "card": card, "nb": nb,
+            "us_per_it_stand_in": rows["m_t1"],
+            "us_per_it_live": rows["m_t1_live"],
+            "live_over_stand_in": b / a,
+            "frozen_at_stand_in": rows["m_t1.frozen"],
+            "frozen_at_live": rows["m_t1_live.frozen"]}), flush=True)
+        live = rows["m_t1_live.frozen"]
+        if any(f is not None for f in live):
+            print(f"FAIL: a RHS of the live band froze: {live}", flush=True)
+        if abs(b / a - 1) > 0.03:
+            print(f"FAIL: live / stand-in {b / a:.4f}", flush=True)
+
+
+def rule(args):
+    import torch
+    tsd = _import(None)
+    dev = torch.device("cuda:0")
+    card = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, nb in (("helm_fem", 1), ("m_t1", 1), ("m_t1", 8),
+                     ("parabolic", 1), ("parabolic", 8)):
+        out = {}
+        for staged in (True, False, False, True):
+            us, _ = _solver(tsd, name, nb, dev, staged=staged)
+            out.setdefault("staged" if staged else "direct", []).append(us)
+        A, cplx = _band(name)
+        offs = tuple(int(o) for o in _dia(A, np.complex64 if cplx else
+                                          np.float32, "cpu").offsets)
+        print(json.dumps({"probe": "rule", "card": card, "case": name,
+                          "nb": nb, "ndiag_x_nb": len(offs) * nb,
+                          "layout": tsd.dia_layout(A.shape[0], offs, nb,
+                                                   2 if cplx else 1,
+                                                   sms)._asdict(),
+                          "us_per_it": out}), flush=True)
+
+
+CASES = (("m_t1", 1), ("m_t1", 8), ("helm_fem", 1), ("parabolic", 1))
+
+
+def time_tree(args):
+    import torch
+    tsd = _import(args.tree)
+    dev = torch.device("cuda:0")
+    for name, nb in CASES:
+        us, _ = _solver(tsd, name, nb, dev)
+        print(json.dumps({"tree": args.tree or "this", "case": name,
+                          "nb": nb, "us_per_it": us}), flush=True)
+
+
+def compare(args):
+    card = _card()
+    rows = {}
+    for tree in (args.tree, None, None, args.tree):
+        cmd = [sys.executable, __file__, "time"]
+        if tree is not None:
+            cmd += ["--tree", tree]
+        out = subprocess.run(cmd, capture_output=True, text=True)
+        if out.returncode:
+            print(out.stdout, out.stderr, flush=True)
+            raise SystemExit(out.returncode)
+        for line in out.stdout.splitlines():
+            rec = json.loads(line)
+            rows.setdefault((rec["case"], rec["nb"]), {}).setdefault(
+                rec["tree"], []).append(rec["us_per_it"])
+    for (name, nb), by in rows.items():
+        base, this = np.median(by[args.tree]), np.median(by["this"])
+        print(json.dumps({"probe": "compare", "card": card, "case": name,
+                          "nb": nb, "us_per_it": by,
+                          "this_over_tree": this / base}), flush=True)
+
+
+class _Lib:
+    """Stands in for ``ops._build`` with a variant's library."""
+
+    def __init__(self, path):
+        lib = ctypes.CDLL(str(path))
+        sig = importlib.import_module("tpcg_torch.ops._build")._SIGNATURES
+        for name in ("tpcg_stream_dia_limits", "tpcg_stream_dia_grid",
+                     "tpcg_stream_dia"):
+            getattr(lib, name).argtypes = list(sig[name])
+            getattr(lib, name).restype = ctypes.c_int
+        self.lib = lib
+
+    def load(self):
+        return self.lib
+
+    @staticmethod
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def _variant_source(threads, rows, depth):
+    src = (ROOT / "tpcg_torch" / "csrc" / "stream_cg_dia.cu").read_text()
+    edits = [(r"constexpr int kThreads = \d+;",
+              f"constexpr int kThreads = {threads};"),
+             (r"constexpr int kRows = \d+;", f"constexpr int kRows = {rows};"),
+             (r"constexpr int kDepth = \d+;",
+              f"constexpr int kDepth = {depth};")]
+    for pat, rep in edits:
+        src, hits = re.subn(pat, rep, src)
+        if hits != 1:
+            raise RuntimeError(f"variant edit {pat!r} matched {hits} times")
+    return src
+
+
+SPLIT_SLOTS = ("phase1", "phase2", "phase3", "fill")
+
+
+def _stamped(src):
+    """The kernel's source with block 0's barrier stamps (``split``)."""
+    head = "namespace {\n"
+    stamp = (
+        "__device__ unsigned long long g_split[4];\n"
+        "__device__ __forceinline__ unsigned long long split_now() {\n"
+        "  unsigned long long t;\n"
+        '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));\n'
+        "  return t;\n}\n")
+    edits = [(head, head + stamp, 1),
+             ("  if (STAGED) issue_window<P * NB>(p.dpad, t, win);\n",
+              "  const unsigned long long f0 = split_now();\n"
+              "  if (STAGED) issue_window<P * NB>(p.dpad, t, win);\n", 1),
+             ("  copy_wait<D - 1>();  // the window's group, the oldest\n"
+              "  __syncthreads();\n",
+              "  copy_wait<D - 1>();  // the window's group, the oldest\n"
+              "  __syncthreads();\n"
+              "  if (STORE_Q && blockIdx.x == 0 && threadIdx.x == 0)\n"
+              "    g_split[3] += split_now() - f0;\n", 1)]
+    for old, new, count in edits:
+        if src.count(old) != count:
+            raise RuntimeError(f"split edit {old!r} matched "
+                               f"{src.count(old)} times")
+        src = src.replace(old, new)
+    loop = "  for (int it = 0; it < p.n_iterations; ++it) {\n"
+    pre, body = src.split(loop)
+    end = body.index("\n}\n")      # the kernel's closing brace
+    syncs = body[:end].split("    grid.sync();\n")
+    if len(syncs) != 4:
+        raise RuntimeError("split: the iteration has not 3 grid barriers")
+    stamped = "".join(
+        part + "    grid.sync();\n    if (blockIdx.x == 0 && threadIdx.x == "
+        "0) {\n      const unsigned long long u = split_now();\n"
+        f"      g_split[{k}] += u - split_t;\n      split_t = u;\n    }}\n"
+        for k, part in enumerate(syncs[:3])) + syncs[3]
+    src = (pre + "  unsigned long long split_t = split_now();\n" + loop +
+           stamped + body[end:])
+    return src + (
+        '\nextern "C" int tpcg_dia_split(unsigned long long* out) {\n'
+        "  cudaError_t err = cudaMemcpyFromSymbol(out, g_split, "
+        "sizeof(g_split));\n"
+        "  static const unsigned long long zero[4] = {};\n"
+        "  if (err == cudaSuccess)\n"
+        "    err = cudaMemcpyToSymbol(g_split, zero, sizeof(zero));\n"
+        "  return err;\n}\n")
+
+
+def _build_variants(named_sources):
+    """Build each (name, source) into probes/_variants/<name>/k.so in
+    parallel; print each build's registers and spills; return the
+    libraries that built."""
+    build = importlib.import_module("tpcg_torch.ops._build")
+    jobs = []
+    for name, src in named_sources:
+        d = VARIANTS / name
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        (d / "k.cu").write_text(src)
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
+               str(d / "k.so"), str(d / "k.cu")]
+        jobs.append((name, d, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    libs = []
+    for name, d, proc in jobs:
+        log, _ = proc.communicate()
+        regs = re.findall(r"Function properties for (\S*stream_dia_kernel\S*)"
+                          r"[\s\S]*?(\d+) bytes spill stores[\s\S]*?Used "
+                          r"(\d+) registers", log)
+        print(json.dumps({"probe": "build", "variant": name,
+                          "ok": proc.returncode == 0,
+                          "max_registers": max((int(r[2]) for r in regs),
+                                               default=None),
+                          "spill_stores": sum(int(r[1]) for r in regs)}),
+              flush=True)
+        if proc.returncode == 0:
+            libs.append((name, d / "k.so"))
+        else:
+            print(log[-3000:], flush=True)
+    return libs
+
+
+def split(args):
+    import torch
+    tsd = _import(None)
+    card = _card()
+    dev = torch.device("cuda:0")
+    src = (ROOT / "tpcg_torch" / "csrc" / "stream_cg_dia.cu").read_text()
+    libs = _build_variants([("dia_split", _stamped(src))])
+    if not libs:
+        raise SystemExit(1)
+    shim = _Lib(libs[0][1])
+    read = shim.lib.tpcg_dia_split
+    read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    tsd._build = shim
+    out = (ctypes.c_ulonglong * 4)()
+    for name, nb in (("m_t1", 8), ("m_t1", 1), ("helm_fem", 1),
+                     ("parabolic", 1)):
+        solve, offs, vals, b, x0 = _operands(tsd, name, nb, dev)
+        solve(offs, vals, b, x0, IT0)
+        torch.cuda.synchronize()
+        shim.check(read(out), "tpcg_dia_split")
+        solve(offs, vals, b, x0, IT)
+        torch.cuda.synchronize()
+        shim.check(read(out), "tpcg_dia_split")
+        print(json.dumps({"probe": "split", "card": card, "case": name,
+                          "nb": nb, "us_per_it": {
+                              k: out[i] / IT / 1e3
+                              for i, k in enumerate(SPLIT_SLOTS)}}),
+              flush=True)
+
+
+def table(args):
+    import torch
+    tsd = _import(None)
+    from tpcg_torch.problems import banded_complex
+    tfd = importlib.import_module("tpcg_torch.ops.fused_cg_dia")
+    card = _card()
+    dev = torch.device("cuda:0")
+    mhd = _dia(banded_complex(1280, tuple(range(0, 9)), seed=2),
+               np.complex64, dev)
+    offs, vals = tsd.prepare_dia_rows_cplx(mhd)
+    b = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (2, 1, mhd.n)).astype(np.float32)).to(dev)
+    rows = [(3, "mhd1280b", 5000, tfd.fused_cg_dia_rows_cplx,
+             (offs, vals, b, torch.zeros_like(b)))]
+    for row, name, iters in ((4, "m_t1", 200), (5, "helm_fem", 5000)):
+        solve, offs, vals, b, x0 = _operands(tsd, name, 1, dev)
+        rows.append((row, name, iters, solve, (offs, vals, b, x0)))
+    for row, name, iters, solve, ops in rows:
+        solve(*ops, iters)
+        ms = [_time(lambda k: solve(*ops, k), iters)[0] for _ in range(REPS)]
+        print(json.dumps({"probe": "table", "card": card, "row": row,
+                          "case": name, "iterations": iters, "ms": ms}),
+              flush=True)
+
+
+def variants(args):
+    import torch
+    tsd = _import(None)
+    card = _card()
+    dev = torch.device("cuda:0")
+    libs = _build_variants([("dia_t%d_r%d_d%d" % v, _variant_source(*v))
+                            for v in VARIANT_GRID])
+    for name, nb in (("m_t1", 8), ("m_t1", 1)):
+        for v, path in libs + libs[::-1]:
+            tsd._build = _Lib(path)
+            us, _ = _solver(tsd, name, nb, dev)
+            print(json.dumps({"probe": "variant", "card": card,
+                              "variant": v, "case": name, "nb": nb,
+                              "us_per_it": us}), flush=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("mode", choices=["freeze", "rule", "compare", "time",
+                                     "split", "table", "variants"])
+    ap.add_argument("--tree", default=None)
+    args = ap.parse_args(argv)
+    if args.mode == "compare" and args.tree is None:
+        ap.error("compare needs --tree")
+    {"freeze": freeze, "rule": rule, "compare": compare, "time": time_tree,
+     "split": split, "table": table, "variants": variants}[args.mode](args)
+
+
+if __name__ == "__main__":
+    main()

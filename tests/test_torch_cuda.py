@@ -7,6 +7,7 @@ it there without the conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import ctypes
 import importlib
 
 import numpy as np
@@ -325,6 +326,106 @@ def test_stream_dia_chunks_past_its_rhs_limit(dev):
     assert torch.equal(x1[0], xk[4]) and torch.equal(h1[:, 0], hk[:, 4])
 
 
+def _window_case(name, dev):
+    """(DiaMatrix on dev, cplx) of the window tests: m_t1 at full size; a
+    symmetric band of half-width 6000 at n = 20,000, whose window passes a
+    block's shared memory at 8 RHS (400 KB) and fits at 1 (50 KB); at
+    n = 70,001 (tiles of 544 rows, the last of 369) a band that reaches 700
+    rows ahead and 1500 behind, so a window spans parts of five tiles and
+    the first and last tiles' windows run into the zero border, real and
+    complex."""
+    import scipy.sparse as sp
+    if name == "m_t1":
+        return _main_path_case("m_t1", dev)
+    if name == "wide":
+        n, offs, sym = 20_000, (6000,), True
+    else:
+        n, offs, sym = 70_001, (1, 5, 700, -3, -1100, -1500), False
+    rng = np.random.default_rng(5)
+    cplx = name == "edges_cplx"
+    diags = [rng.standard_normal(n - abs(o)) * 0.1
+             + (1j * rng.standard_normal(n - abs(o)) * 0.1 if cplx else 0)
+             for o in offs]
+    A = sp.diags(diags, offs, shape=(n, n))
+    A = (A + A.T if sym else A) + sp.eye(n) * (20.0 + (5j if cplx else 0))
+    return _dia(A, np.complex64 if cplx else np.float32, dev), cplx
+
+
+@pytest.mark.parametrize("name,nb,staged", [
+    ("m_t1", 8, True), ("wide", 8, False), ("wide", 1, True),
+    ("edges", 3, True), ("edges_cplx", 2, True)])
+def test_stream_dia_window_matches_plain(dev, name, nb, staged):
+    """The staged window and the direct read against the plain version over
+    100 iterations, twice bit-equal, with the counter ``staged.*`` moving
+    only on launches that staged: m_t1 at 8 RHS (143 KB a block); a band too
+    wide for the window at 8 RHS and one that fits at 1; tiles whose halo
+    crosses the first and last tiles and a ragged last tile."""
+    D, cplx = _window_case(name, dev)
+    if cplx:
+        offs, vals = tsd.prepare_dia_rows_cplx(D)
+        wrap, plain = tsd.stream_cg_dia_rows_cplx, \
+            tsd.stream_cg_dia_rows_cplx_plain
+    else:
+        offs, vals = tsd.prepare_dia_rows(D)
+        wrap, plain = tsd.stream_cg_dia_rows, tsd.stream_cg_dia_rows_plain
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lay = tsd.dia_layout(D.n, offs, nb, 2 if cplx else 1, sms)
+    assert lay.staged == staged
+    kernel = "stream_dia_cplx" if cplx else "stream_dia"
+    b = _rhs(D.n, nb, cplx, dev, seed=3)
+    x0 = 0.1 * _rhs(D.n, nb, cplx, dev, seed=4)
+    before = [_counted(k + kernel) for k in ("launch.", "staged.")]
+    xk, hk = _run_twice(wrap, offs, vals, b, x0, 100)
+    assert [_counted(k + kernel) for k in ("launch.", "staged.")] == [
+        before[0] + 2, before[1] + 2 * staged]
+    xp, hp = plain(offs, vals, b, x0, 100)
+    for c in range(nb):
+        _assert_dia_close(xk[..., c, :], hk[:, c], xp[..., c, :], hp[:, c])
+
+
+@pytest.mark.parametrize("name", ["m_t1", "wide"])
+def test_stream_dia_rhs_bits_do_not_depend_on_the_launch(dev, name):
+    """RHS 4 of an 8-RHS launch equals its 1-RHS launch bit for bit: at
+    m_t1 both launches stage their window; on the wide band the 8-RHS
+    launch reads d from L2 and the 1-RHS launch stages it, the same
+    values."""
+    D, _ = _window_case(name, dev)
+    offs, vals = tsd.prepare_dia_rows(D)
+    b = _rhs(D.n, 8, False, dev, seed=6)
+    x0 = torch.zeros_like(b)
+    x8, h8 = tsd.stream_cg_dia_rows(offs, vals, b, x0, 60)
+    x1, h1 = tsd.stream_cg_dia_rows(offs, vals, b[4:5], x0[4:5], 60)
+    assert torch.equal(x1[0], x8[4]) and torch.equal(h1[:, 0], h8[:, 4])
+
+
+def test_stream_dia_layout_is_the_kernels(dev):
+    """dia_layout's shared-memory rule against the kernel's own: at the
+    widest band whose window the rule stages, the C side accepts the
+    staged launch of every instance it was asked for; one row wider, the
+    rule reads from L2.  And the tiles are the card's: at most one an SM."""
+    lib = tsd._build.load()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = 200_000
+    with torch.cuda.device(dev):
+        for planes, nb in ((1, 1), (1, 8), (2, 1), (2, 8)):
+            lo, hi = 1, n        # staged at lo, not at hi
+            while hi - lo > 1:
+                mid = (lo + hi) // 2
+                staged = tsd.dia_layout(n, (0, mid, -mid), nb, planes,
+                                        sms).staged
+                lo, hi = (mid, hi) if staged else (lo, mid)
+            pad = lo
+            assert not tsd.dia_layout(n, (0, pad + 1, -pad - 1), nb, planes,
+                                      sms).staged
+            lay = tsd.dia_layout(n, (0, pad, -pad), nb, planes, sms)
+            assert lay.tiles <= sms
+            grid = ctypes.c_int()
+            tsd._build.check(lib.tpcg_stream_dia_grid(
+                planes - 1, nb, n, 3, pad, lay.tile_rows, 1,
+                ctypes.byref(grid)), "tpcg_stream_dia_grid")
+            assert grid.value == lay.tiles
+
+
 def test_dia_zero_rhs_column_freezes(dev):
     for cplx in (False, True):
         D = _dia(_small_band(cplx), np.complex64 if cplx else np.float32,
@@ -476,6 +577,7 @@ def test_api_cg_copies_and_launches_of_one_csr_call(dev):
     assert c["h2d_bytes"] == ndiag * n * 8 + n * 8 + ndiag * 4
     assert c["d2h_bytes"] == n * 8 + (iters + 1) * 4
     assert _launched(c) == {"launch.stream_dia_cplx": 1}
+    assert c["staged.stream_dia_cplx"] == 1
     assert [r.name for r in recs] == [
         "tpcg.cg", "tpcg.convert", "tpcg.convert.dia", "tpcg.wait",
         "tpcg.upload", "tpcg.pack", "tpcg.prepare", "tpcg.wait",
@@ -501,6 +603,7 @@ def test_api_cg_matrix_copies_and_launches_of_one_block_call(dev):
     assert c["h2d_bytes"] == nrhs * n * 4 + 2 * ndiag * 4
     assert c["d2h_bytes"] == nrhs * n * 4 + (iters + 1) * nrhs * 4
     assert _launched(c) == {"launch.stream_dia": 2}
+    assert c["staged.stream_dia"] == 2
     launch = ["tpcg.launch.stream_dia", "tpcg.wait", "tpcg.upload"]
     assert [r.name for r in recs] == [
         "tpcg.cg_matrix", "tpcg.pack", "tpcg.prepare", "tpcg.wait",

@@ -20,38 +20,70 @@
 //   keeps alpha = beta = 0 and its delta, so its direction is r and it
 //   resumes from d = r where <d,q> reached 0 with delta not 0;
 //   hist[it+1] = sqrt(delta) (real), sqrt(sqrt(|delta|^2)) (complex)
-// with unconjugated dots <u,v> = sum u*v.
+// with unconjugated dots <u,v> = sum u*v.  A frozen RHS costs the same
+// work as a live one: every iteration runs q = A d and every state pass.
 //
-// What bounds it on the H100: bytes.  Each iteration reads every value
-// once (the m_t1 class: 101 diagonals x 97,578 rows x 4 B = 39.4 MB; the
-// parabolic class: 7 x 525,625 x 4 B = 14.7 MB) and, per RHS, the direction
-// once per diagonal through L2, plus a few passes over the state.  With the
-// state, m_t1 at 1 RHS sits just under the 50 MB L2 and above it at 8 RHS.
-// The three grid barriers per iteration (after q = A d and the <d,q>
-// partials; after the x, r update and the <r,r> partials; after the d
-// update, which other rows read) add a fixed latency of a few microseconds.
+// What bounds it on the H100.  Each iteration reads every value once (the
+// m_t1 class: 101 diagonals x 97,578 rows x 4 B = 39.4 MB; the parabolic
+// class: 7 x 525,625 x 4 B = 14.7 MB) from HBM, and q = A d needs, per RHS,
+// the direction once per diagonal and row: 101 x 8 x 4 B a row at 8 RHS.
+// Read from L2 that is 315 MB an iteration on m_t1, eight times the
+// values, and L2-to-SM bandwidth would pace the kernel; read from shared
+// memory, its 128 bytes a clock an SM (about 11 us an iteration at 8 RHS)
+// and the values' stream from HBM (about 12 us) bound q = A d, and the two
+// overlap only in part.  Three grid barriers per iteration (after q = A d
+// and the <d,q> partials; after the x, r update and the <r,r> partials;
+// after the d update, which other rows read) add a fixed latency of a few
+// microseconds, which is what bounds small bands (helm_fem: 7 diagonals).
 //
 // What the design does about it:
-//   * it reads the matrix in its own row layout: across a warp, vals[k, i]
-//     and d[i + off_k] are consecutive addresses, so every load is
-//     coalesced and the TPU kernel's 128-lane column-major regrid and its
-//     wrap-filled halo have no purpose here; the direction sits in a
-//     zero-bordered buffer of length n + 2 max|off| instead;
+//   * a block owns one tile of consecutive rows (ops/stream_cg_dia.py::
+//     dia_layout: n over the SM count rounded up to 32, at least 512 rows,
+//     so at most one tile an SM) and its threads keep the same rows in
+//     every phase; a thread takes kRows rows through each pass of the
+//     taps;
+//   * the window: at the start of q = A d, after the barrier that ends the
+//     d update, the block copies its window of the direction, rows
+//     [t0 - pad, t1 + pad) of every RHS and plane, from L2 into shared
+//     memory (16-byte cp.async pieces), and the taps read it there, so the
+//     direction crosses L2 once an iteration plus the halo (m_t1 at 8 RHS:
+//     143 KB a block, 18 MB in all); the x, r and d updates read the
+//     block's own d there too.  Where the window passes the block's shared
+//     memory (very wide bands at many RHS), the launch reads d from L2
+//     (template argument STAGED; the same values, so the choice changes no
+//     bits);
+//   * the values: each thread copies its rows' values kDepth diagonals
+//     ahead into a ring of its own in shared memory (4-byte cp.async), so
+//     no value load stalls a pass; the window's copies are in flight beside
+//     the first diagonals';
+//   * resident state: where a tile is one pass of the threads' rows (m_t1,
+//     helm_fem), each thread keeps x, r and q of its rows in registers for
+//     the whole solve and writes x once at the end; only d goes to memory,
+//     for the next window;
+//   * the matrix stays in its own row layout: across a warp, vals[k, i]
+//     and d[i + off_k] are consecutive addresses, so every copy is
+//     coalesced and the window's reads are free of bank conflicts; the
+//     direction sits in a zero-bordered buffer of length n + 2 max|off|,
+//     so no read needs a mask at the matrix's ends;
 //   * each value is loaded once per iteration and applied to all nb RHS of
 //     the launch (the nb-fold value amortisation of _build_dia_batch);
 //   * the tap list lives in shared memory, loaded once per launch, so the
 //     101 diagonals of the m_t1 class cost no parameter space;
 //   * one launch for the whole solve, no host round trip for the scalars;
-//   * at most two blocks of 512 threads per SM, all co-resident; the grid
-//     size depends on n only, so a RHS gives the same bits whatever the
-//     launch's RHS count;
+//   * the tile and the grid depend on n and the SM count only, so a RHS
+//     gives the same bits whatever the launch's RHS count, and each row's
+//     sum over the taps runs in ascending order;
 //   * dot products reduce in a fixed order (thread, warp shuffle, shared
-//     memory, then over blocks in block order, the same in every block), so
-//     every block derives bit-identical scalars and reruns agree bit for
-//     bit.
-// The direction, which other blocks write, is read with __ldcg (L2,
-// coherent) after a grid barrier; values, b and x0 go through __ldg.
-// wgmma and TMA have no place here: there is no matrix product.
+//     memory, then over blocks in block order, the same in every block,
+//     from partials stored RHS by RHS so that one warp reads one RHS's in
+//     a few coalesced loads), so every block derives bit-identical scalars
+//     and reruns agree bit for bit.
+// The direction, which other blocks write, is read through L2 alone
+// (cp.async.cg, __ldcg) after a grid barrier; values, b and x0 may pass L1.
+// wgmma has no place here: there is no matrix product.  TMA bulk copies
+// of the values, issued by one thread into a ring the block shares, were
+// slower than the threads' own rings (the block waits at a barrier every
+// few diagonals).
 //
 // Numerics: build without --use_fast_math (which would flush denormals to
 // zero and move the freeze guards).  Plain C interface, loaded with ctypes
@@ -66,9 +98,13 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 384;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBlocksPerSm = 2;
+constexpr int kRows = 2;  // rows a thread takes through one pass of the taps
+constexpr int kDepth = 8;  // diagonals of values in flight (4 when complex)
+// each thread's ring of values in shared memory: kDepth diagonals (real) or
+// kDepth / 2 diagonals of two planes (complex) of its kRows rows
+constexpr int kRingFloats = kDepth * kRows * kThreads;
 constexpr int kMaxRhs = 8;
 constexpr int kMaxDiags = 4096;
 constexpr int kLatchIters = 256;  // tpcg/ops/stream_cg_dia.py::_CHUNK
@@ -83,10 +119,28 @@ struct Params {
   float* r;           // (P, nb, n)                         scratch
   float* q;           // (P, nb, n)                         scratch
   float* dpad;        // (P, nb, n + 2 pad)                 scratch
-  float* part_dq;     // (gridDim.x, nb, 2) partials <d,q>  scratch
-  float* part_rr;     // (gridDim.x, nb, 2) partials <r,r>  scratch
+  float2* part_dq;    // (nb, gridDim.x) partials <d,q>     scratch
+  float2* part_rr;    // (nb, gridDim.x) partials <r,r>     scratch
   int n, ndiag, pad, n_iterations;
+  int tile_rows;      // rows of a block's tile (the last tile may be shorter)
 };
+
+// Floats a (plane, RHS) row of the window takes: the tile and pad rows each
+// side, plus up to 3 floats before it so that its copy starts on 16 bytes,
+// rounded up to 16 bytes.
+__host__ __device__ __forceinline__ int window_stride(int tile_rows, int pad) {
+  return (tile_rows + 2 * pad + 3 + 3) & ~3;
+}
+
+// Dynamic shared memory of a launch: the window (staged launches), the
+// rings of values, then the tap list.
+size_t smem_bytes(int planes, int nb, int tile_rows, int pad, int ndiag,
+                  bool staged) {
+  const size_t win =
+      staged ? static_cast<size_t>(planes) * nb * window_stride(tile_rows, pad)
+             : 0;
+  return (win + kRingFloats + ndiag) * 4;
+}
 
 __device__ __forceinline__ float2 warp_sum(float2 v) {
   // xor butterfly: every lane ends with the same sum
@@ -98,37 +152,40 @@ __device__ __forceinline__ float2 warp_sum(float2 v) {
 }
 
 // Block-wide sums of acc[0..NB); block partial of RHS b goes to
-// part[(blockIdx.x * NB + b) * 2 + {0, 1}].
+// part[b * gridDim.x + blockIdx.x], so that one RHS's partials are
+// contiguous.
 template <int NB>
 __device__ void block_partials(const float2 (&acc)[NB],
-                               float2 (*red)[kMaxRhs], float* part) {
+                               float2 (*red)[kMaxRhs], float2* part) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float2 v[NB];
 #pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    const float2 v = warp_sum(acc[b]);
-    if (lane == 0) red[warp][b] = v;
+  for (int b = 0; b < NB; ++b) v[b] = warp_sum(acc[b]);
+  if (lane == 0) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) red[warp][b] = v[b];
   }
   __syncthreads();
   if (warp < NB) {
     float2 w = lane < kWarps ? red[lane][warp] : make_float2(0.f, 0.f);
     w = warp_sum(w);
-    if (lane == 0) {
-      float* o = part + (static_cast<size_t>(blockIdx.x) * NB + warp) * 2;
-      o[0] = w.x;
-      o[1] = w.y;
-    }
+    if (lane == 0)
+      part[static_cast<size_t>(warp) * gridDim.x + blockIdx.x] = w;
   }
   __syncthreads();
 }
 
-// Sum over blocks of the partials of RHS rhs, by one warp, in a fixed order.
-__device__ float2 grid_total(const float* part, int nblocks, int nb, int rhs) {
+// Sum over blocks of the partials of RHS rhs, by one warp, in a fixed
+// order (each lane its blocks in ascending order, then the butterfly).
+__device__ float2 grid_total(const float2* part, int nblocks, int rhs) {
   const int lane = threadIdx.x & 31;
+  const float2* p = part + static_cast<size_t>(rhs) * nblocks;
   float2 v = make_float2(0.f, 0.f);
+#pragma unroll 4
   for (int g = lane; g < nblocks; g += 32) {
-    const float* p = part + (static_cast<size_t>(g) * nb + rhs) * 2;
-    v.x += __ldcg(p);
-    v.y += __ldcg(p + 1);
+    const float2 u = __ldcg(p + g);
+    v.x += u.x;
+    v.y += u.y;
   }
   return warp_sum(v);
 }
@@ -159,42 +216,238 @@ __device__ __forceinline__ float hist_of(float2 dl) {
   return CPLX ? sqrtf(sqrtf(dl.x * dl.x + dl.y * dl.y)) : sqrtf(dl.x);
 }
 
-// (A d)[i] for the NB RHS; d0 points at element i of RHS 0, plane 0, in the
-// padded direction buffer.
-template <bool CPLX, int NB>
-__device__ __forceinline__ void apply_row(const Params& p, const int* s_off,
-                                          int i, size_t pn, const float* d0,
-                                          float (&qr)[NB], float (&qi)[NB]) {
+// A direction value: from the block's window in shared memory, or from L2
+// (other blocks wrote it before the last grid barrier).
+template <bool STAGED>
+__device__ __forceinline__ float dir(const float* p) {
+  return STAGED ? *p : __ldcg(p);
+}
+
+// cp.async of 4 bytes into shared memory (the values, which nothing writes
+// during the solve, so L1 may hold them).
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// cp.async of 16 bytes into shared memory through L2 alone (the direction,
+// which other blocks wrote before the last grid barrier).
+__device__ __forceinline__ void copy16_l2(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Where a block's rows sit: the window holds padded-buffer indices
+// [cb pn + t0 - s, cb pn + t1 + 2 pad) of each (plane, RHS) cb from float
+// cb ws of the window, s = (cb pn + t0) mod 4 floats early so that its copy
+// starts on 16 bytes.  win_base(cb) + i is row i's index in the window.
+struct Tile {
+  int t0, t1;  // the block's rows [t0, t1)
+  int ws;      // window_stride
+  size_t pn;   // n + 2 pad
+  int pad;
+  __device__ __forceinline__ int win_base(int cb) const {
+    return cb * ws + static_cast<int>((cb * pn + t0) & 3) - t0 + pad;
+  }
+};
+
+// Issue the copies of the block's window of the direction, every RHS and
+// plane: rows [t0 - pad, t1 + pad), padded-buffer indices [t0, t1 + 2 pad)
+// (the zero border covers the matrix's ends), in aligned 16-byte pieces
+// (dpad carries 4 floats of slack past its end).
+template <int PNB>
+__device__ __forceinline__ void issue_window(const float* dpad, const Tile& t,
+                                             float* win) {
+  const int len = t.t1 - t.t0 + 2 * t.pad;
 #pragma unroll
-  for (int b = 0; b < NB; ++b) qr[b] = qi[b] = 0.f;
-  const float* d1 = d0 + NB * pn;  // plane 1 (complex only)
-#pragma unroll 4
-  for (int k = 0; k < p.ndiag; ++k) {
+  for (int cb = 0; cb < PNB; ++cb) {
+    const size_t g0 = cb * t.pn + t.t0;
+    const int s = static_cast<int>(g0 & 3);
+    const float* src = dpad + (g0 - s);
+    float* dst = win + cb * t.ws;
+    for (int e = 4 * threadIdx.x; e < len + s; e += 4 * kThreads)
+      copy16_l2(dst + e, src + e);
+  }
+}
+
+// Issue the copies of diagonal k's values of rows i0 + j kThreads, j < nr,
+// into slot k % D of the thread's ring, as one cp.async group (empty past
+// the last diagonal).  Slot layout: (plane c, row j) at
+// ring[(((k % D) * P + c) * kRows + j) * kThreads + threadIdx.x].
+template <bool CPLX>
+__device__ __forceinline__ void issue_values(const Params& p, float* ring,
+                                             int i0, int nr, int k) {
+  constexpr int P = CPLX ? 2 : 1;
+  constexpr int D = kDepth / P;
+  if (k < p.ndiag) {
+    float* slot = ring + (k % D) * P * kRows * kThreads + threadIdx.x;
+#pragma unroll
+    for (int c = 0; c < P; ++c) {
+      const float* v = p.vals + static_cast<size_t>(c * p.ndiag + k) * p.n + i0;
+#pragma unroll
+      for (int j = 0; j < kRows; ++j)
+        if (j < nr) copy4(slot + (c * kRows + j) * kThreads, v + j * kThreads);
+    }
+  }
+  copy_commit();
+}
+
+// (A d) of rows i0 + j kThreads, j < nr <= kRows, for the NB RHS, each
+// row's sum over the taps in ascending order.  w[cb] points at row i0 of
+// (plane, RHS) cb of the direction, in the window (STAGED) or in the padded
+// buffer.  The values reach the thread's ring in shared memory D - 1
+// diagonals ahead of their use, by cp.async, so the loop waits on nothing
+// but the oldest copy; primed: the first D - 1 diagonals were issued
+// already.
+template <bool CPLX, int NB, bool STAGED>
+__device__ __forceinline__ void apply_rows(const Params& p, const int* s_off,
+                                           int i0, int nr, bool primed,
+                                           const float* (&w)[NB * 2],
+                                           float* ring,
+                                           float (&qr)[kRows][NB],
+                                           float (&qi)[kRows][NB]) {
+  constexpr int P = CPLX ? 2 : 1;
+  constexpr int D = kDepth / P;
+  const int ndiag = p.ndiag;
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) qr[j][b] = qi[j][b] = 0.f;
+  }
+  if (!primed) {
+#pragma unroll 1
+    for (int k = 0; k < D - 1; ++k) issue_values<CPLX>(p, ring, i0, nr, k);
+  }
+  const float* mine = ring + threadIdx.x;
+#pragma unroll 2
+  for (int k = 0; k < ndiag; ++k) {
+    issue_values<CPLX>(p, ring, i0, nr, k + D - 1);
+    copy_wait<D - 1>();
     const int off = s_off[k];
-    const float vr = __ldg(p.vals + static_cast<size_t>(k) * p.n + i);
-    if (CPLX) {
-      const float vi =
-          __ldg(p.vals + static_cast<size_t>(p.ndiag + k) * p.n + i);
+    const float* slot = mine + (k % D) * P * kRows * kThreads;
 #pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const float wr = __ldcg(d0 + b * pn + off);
-        const float wi = __ldcg(d1 + b * pn + off);
-        qr[b] = qr[b] + vr * wr - vi * wi;
-        qi[b] = qi[b] + vr * wi + vi * wr;
+    for (int j = 0; j < kRows; ++j) {
+      if (j < nr) {
+        const int o = j * kThreads + off;
+        const float vr = slot[j * kThreads];
+        if (CPLX) {
+          const float vi = slot[(kRows + j) * kThreads];
+#pragma unroll
+          for (int b = 0; b < NB; ++b) {
+            const float wr = dir<STAGED>(w[b] + o);
+            const float wi = dir<STAGED>(w[NB + b] + o);
+            qr[j][b] = qr[j][b] + vr * wr - vi * wi;
+            qi[j][b] = qi[j][b] + vr * wi + vi * wr;
+          }
+        } else {
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+            qr[j][b] = qr[j][b] + vr * dir<STAGED>(w[b] + o);
+        }
       }
-    } else {
+    }
+  }
+  copy_wait<0>();
+}
+
+// q = A d over the block's tile and the partials of <d, q> (STORE_Q) or
+// r = b - A d and the partials of <r, r>; the direction in dpad, staged
+// into the window first where STAGED, its copies in flight beside the
+// first diagonals' values.
+template <bool CPLX, int NB, bool STAGED, bool STORE_Q>
+__device__ __forceinline__ void apply_tile(
+    const Params& p, const int* s_off, float* win, float* ring, const Tile& t,
+    bool resident, float (&rs)[kRows][CPLX ? 2 : 1][NB],
+    float (&qs)[kRows][CPLX ? 2 : 1][NB], float2 (&acc)[NB]) {
+  constexpr int P = CPLX ? 2 : 1;
+  constexpr int D = kDepth / P;
+  const int n = p.n;
+  const int first = t.t0 + threadIdx.x;
+  const int nr0 =
+      first < t.t1 ? min(kRows, (t.t1 - first + kThreads - 1) / kThreads) : 0;
+  if (STAGED) issue_window<P * NB>(p.dpad, t, win);
+  copy_commit();
+#pragma unroll 1
+  for (int k = 0; k < D - 1; ++k) issue_values<CPLX>(p, ring, first, nr0, k);
+  copy_wait<D - 1>();  // the window's group, the oldest
+  __syncthreads();
 #pragma unroll
-      for (int b = 0; b < NB; ++b) qr[b] = qr[b] + vr * __ldcg(d0 + b * pn + off);
+  for (int b = 0; b < NB; ++b) acc[b] = make_float2(0.f, 0.f);
+  for (int i0 = first; i0 < t.t1; i0 += kRows * kThreads) {
+    const int nr = min(kRows, (t.t1 - i0 + kThreads - 1) / kThreads);
+    const float* w[NB * 2];
+#pragma unroll
+    for (int cb = 0; cb < NB * 2; ++cb)
+      w[cb] = cb >= P * NB ? nullptr
+              : STAGED     ? win + t.win_base(cb) + i0
+                           : p.dpad + cb * t.pn + t.pad + i0;
+    float qr[kRows][NB], qi[kRows][NB];
+    apply_rows<CPLX, NB, STAGED>(p, s_off, i0, nr, i0 == first, w, ring, qr,
+                                 qi);
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      if (j < nr) {
+        const int i = i0 + j * kThreads;
+        const int o = j * kThreads;
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          const size_t ir = static_cast<size_t>(b) * n + i;
+          const size_t ii = static_cast<size_t>(NB + b) * n + i;
+          if (STORE_Q) {
+            const float dr = dir<STAGED>(w[b] + o);
+            qs[j][0][b] = qr[j][b];
+            if (!resident) p.q[ir] = qr[j][b];
+            if (CPLX) {
+              const float di = dir<STAGED>(w[NB + b] + o);
+              qs[j][P - 1][b] = qi[j][b];
+              if (!resident) p.q[ii] = qi[j][b];
+              acc[b].x += dr * qr[j][b] - di * qi[j][b];
+              acc[b].y += dr * qi[j][b] + di * qr[j][b];
+            } else {
+              acc[b].x += dr * qr[j][b];
+            }
+          } else {
+            const float rr = __ldg(p.b + ir) - qr[j][b];
+            rs[j][0][b] = rr;
+            if (!resident) p.r[ir] = rr;
+            if (CPLX) {
+              const float ri = __ldg(p.b + ii) - qi[j][b];
+              rs[j][P - 1][b] = ri;
+              if (!resident) p.r[ii] = ri;
+              acc[b].x += rr * rr - ri * ri;
+              acc[b].y += rr * ri;
+            } else {
+              acc[b].x += rr * rr;
+            }
+          }
+        }
+      }
     }
   }
 }
 
-template <bool CPLX, int NB>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-    stream_dia_kernel(Params p) {
+template <bool CPLX, int NB, bool STAGED>
+__global__ void __launch_bounds__(kThreads, 1) stream_dia_kernel(Params p) {
   constexpr int P = CPLX ? 2 : 1;
+  // rows a thread loads at once in the x, r and d passes: its kRows rows
+  // of q = A d, where their state fits the registers
+  constexpr int G = P * NB <= 8 ? kRows : 1;
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ int s_off[];  // ndiag tap offsets
+  // the window (STAGED), the rings of values, the ndiag tap offsets
+  extern __shared__ __align__(16) float smem[];
   __shared__ float2 red[kWarps][kMaxRhs];
   __shared__ float2 s_delta[NB];
   __shared__ float2 s_alpha[NB];
@@ -204,9 +457,18 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   const int n = p.n, pad = p.pad;
   const size_t pn = static_cast<size_t>(n) + 2 * pad;
   const int nblocks = gridDim.x;
-  const int stride = nblocks * kThreads;
-  const int t0 = blockIdx.x * kThreads + threadIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the block's tile of rows [t0, t1); its window rows [t0 - pad, t1 + pad)
+  Tile tile;
+  tile.t0 = blockIdx.x * p.tile_rows;
+  tile.t1 = min(n, tile.t0 + p.tile_rows);
+  tile.ws = window_stride(p.tile_rows, pad);
+  tile.pn = pn;
+  tile.pad = pad;
+  const int t0 = tile.t0, t1 = tile.t1;
+  float* win = smem;
+  float* ring = smem + (STAGED ? P * NB * tile.ws : 0);
+  int* s_off = reinterpret_cast<int*>(ring + kRingFloats);
   // element i of RHS b, plane c: in (P, NB, n) and in dpad
   auto at = [&](int c, int b, int i) {
     return static_cast<size_t>(c * NB + b) * n + i;
@@ -214,24 +476,50 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   auto pad_at = [&](int c, int b, int i) {
     return static_cast<size_t>(c * NB + b) * pn + pad + i;
   };
+  // d of one of the block's rows: from the window (filled this iteration)
+  // or from L2
+  auto d_at = [&](int c, int b, int i) {
+    return STAGED ? win[tile.win_base(c * NB + b) + i]
+                  : __ldcg(p.dpad + pad_at(c, b, i));
+  };
+  // Resident: the tile is one pass of the threads' G = kRows rows, so each
+  // thread keeps x, r and q of its rows in registers for the whole solve
+  // (xs, rs, qs) and writes x once at the end; else they are the
+  // registers of one pass, loaded and stored every phase.
+  const bool resident = G == kRows && p.tile_rows <= kRows * kThreads;
+  float xs[kRows][P][NB], rs[kRows][P][NB], qs[kRows][P][NB];
+  const int first = t0 + threadIdx.x;
+  auto rows_at = [&](int i0) {
+    return min(G, (t1 - i0 + kThreads - 1) / kThreads);
+  };
 
   // 1. taps to shared memory; zero the padded direction buffer, whose
   //    border stays zero for the whole solve.
   for (int k = threadIdx.x; k < p.ndiag; k += kThreads) s_off[k] = p.offs[k];
   if (threadIdx.x < NB) s_done[threadIdx.x] = 0;
-  for (size_t e = t0; e < static_cast<size_t>(P) * NB * pn; e += stride)
+  for (size_t e = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+       e < static_cast<size_t>(P) * NB * pn;
+       e += static_cast<size_t>(nblocks) * kThreads)
     p.dpad[e] = 0.f;
   grid.sync();
 
   // 2. x = x0, staged through the padded buffer for A x0.
-  for (int i = t0; i < n; i += stride) {
+  for (int i0 = first; i0 < t1; i0 += G * kThreads) {
+    const int nr = rows_at(i0);
 #pragma unroll
-    for (int c = 0; c < P; ++c) {
+    for (int j = 0; j < G; ++j) {
+      if (j < nr) {
+        const int i = i0 + j * kThreads;
 #pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const float v = __ldg(p.x0 + at(c, b, i));
-        p.x[at(c, b, i)] = v;
-        p.dpad[pad_at(c, b, i)] = v;
+        for (int c = 0; c < P; ++c) {
+#pragma unroll
+          for (int b = 0; b < NB; ++b) {
+            const float v = __ldg(p.x0 + at(c, b, i));
+            xs[j][c][b] = v;
+            if (!resident) p.x[at(c, b, i)] = v;
+            p.dpad[pad_at(c, b, i)] = v;
+          }
+        }
       }
     }
   }
@@ -240,70 +528,45 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   // 3. r0 = b - A x0 and the partials of <r0, r0>.
   {
     float2 acc[NB];
-#pragma unroll
-    for (int b = 0; b < NB; ++b) acc[b] = make_float2(0.f, 0.f);
-    for (int i = t0; i < n; i += stride) {
-      float qr[NB], qi[NB];
-      apply_row<CPLX, NB>(p, s_off, i, pn, p.dpad + pad_at(0, 0, i), qr, qi);
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const float rr = __ldg(p.b + at(0, b, i)) - qr[b];
-        p.r[at(0, b, i)] = rr;
-        if (CPLX) {
-          const float ri = __ldg(p.b + at(1, b, i)) - qi[b];
-          p.r[at(1, b, i)] = ri;
-          acc[b].x += rr * rr - ri * ri;
-          acc[b].y += rr * ri;
-        } else {
-          acc[b].x += rr * rr;
-        }
-      }
-    }
+    apply_tile<CPLX, NB, STAGED, false>(p, s_off, win, ring, tile, resident,
+                                        rs, qs, acc);
     block_partials<NB>(acc, red, p.part_rr);
   }
   grid.sync();
 
   // 4. delta0 and hist[0]; d0 = r0 (every block is past its reads of x0).
   if (warp < NB) {
-    const float2 t = grid_total(p.part_rr, nblocks, NB, warp);
+    const float2 t = grid_total(p.part_rr, nblocks, warp);
     if (lane == 0) {
       const float2 dl = make_float2(t.x, CPLX ? 2.f * t.y : 0.f);
       s_delta[warp] = dl;
       if (blockIdx.x == 0) p.hist[warp] = hist_of<CPLX>(dl);
     }
   }
-  for (int i = t0; i < n; i += stride) {
+  for (int i0 = first; i0 < t1; i0 += G * kThreads) {
+    const int nr = rows_at(i0);
 #pragma unroll
-    for (int c = 0; c < P; ++c) {
+    for (int j = 0; j < G; ++j) {
+      if (j < nr) {
+        const int i = i0 + j * kThreads;
 #pragma unroll
-      for (int b = 0; b < NB; ++b) p.dpad[pad_at(c, b, i)] = p.r[at(c, b, i)];
+        for (int c = 0; c < P; ++c) {
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+            p.dpad[pad_at(c, b, i)] =
+                resident ? rs[j][c][b] : p.r[at(c, b, i)];
+        }
+      }
     }
   }
   grid.sync();
 
   for (int it = 0; it < p.n_iterations; ++it) {
-    // phase 1: q = A d and the partials of <d, q>.
+    // phase 1: the window of d, q = A d and the partials of <d, q>.
     {
       float2 acc[NB];
-#pragma unroll
-      for (int b = 0; b < NB; ++b) acc[b] = make_float2(0.f, 0.f);
-      for (int i = t0; i < n; i += stride) {
-        float qr[NB], qi[NB];
-        apply_row<CPLX, NB>(p, s_off, i, pn, p.dpad + pad_at(0, 0, i), qr, qi);
-#pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          const float dr = __ldcg(p.dpad + pad_at(0, b, i));
-          p.q[at(0, b, i)] = qr[b];
-          if (CPLX) {
-            const float di = __ldcg(p.dpad + pad_at(1, b, i));
-            p.q[at(1, b, i)] = qi[b];
-            acc[b].x += dr * qr[b] - di * qi[b];
-            acc[b].y += dr * qi[b] + di * qr[b];
-          } else {
-            acc[b].x += dr * qr[b];
-          }
-        }
-      }
+      apply_tile<CPLX, NB, STAGED, true>(p, s_off, win, ring, tile, resident,
+                                         rs, qs, acc);
       block_partials<NB>(acc, red, p.part_dq);
     }
     grid.sync();
@@ -311,7 +574,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     // phase 2: alpha (bit-identical in every block), x += alpha d,
     // r -= alpha q, and the partials of <r, r>.
     if (warp < NB) {
-      const float2 dq = grid_total(p.part_dq, nblocks, NB, warp);
+      const float2 dq = grid_total(p.part_dq, nblocks, warp);
       if (lane == 0) {
         const float2 dl = s_delta[warp];
         const int done = (s_done[warp] && it % kLatchIters != 0) ||
@@ -326,29 +589,64 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
       float2 acc[NB];
 #pragma unroll
       for (int b = 0; b < NB; ++b) acc[b] = make_float2(0.f, 0.f);
-      for (int i = t0; i < n; i += stride) {
+      for (int i0 = first; i0 < t1; i0 += G * kThreads) {
+        // every load of the thread's G rows first: the stores below may
+        // alias them for all the compiler knows, and would hold each RHS's
+        // loads back
+        const int nr = rows_at(i0);
+        float dv[G][P][NB];
 #pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          const float2 a = s_alpha[b];
-          const size_t ir = at(0, b, i);
-          const float dr = __ldcg(p.dpad + pad_at(0, b, i));
-          if (CPLX) {
-            const size_t ii = at(1, b, i);
-            const float di = __ldcg(p.dpad + pad_at(1, b, i));
-            const float qr = p.q[ir], qi = p.q[ii];
-            p.x[ir] = p.x[ir] + a.x * dr - a.y * di;
-            p.x[ii] = p.x[ii] + a.x * di + a.y * dr;
-            const float rr = p.r[ir] - (a.x * qr - a.y * qi);
-            const float ri = p.r[ii] - (a.x * qi + a.y * qr);
-            p.r[ir] = rr;
-            p.r[ii] = ri;
-            acc[b].x += rr * rr - ri * ri;
-            acc[b].y += rr * ri;
-          } else {
-            p.x[ir] = p.x[ir] + a.x * dr;
-            const float rr = p.r[ir] - a.x * p.q[ir];
-            p.r[ir] = rr;
-            acc[b].x += rr * rr;
+        for (int j = 0; j < G; ++j) {
+          if (j < nr) {
+            const int i = i0 + j * kThreads;
+#pragma unroll
+            for (int c = 0; c < P; ++c) {
+#pragma unroll
+              for (int b = 0; b < NB; ++b) {
+                dv[j][c][b] = d_at(c, b, i);
+                if (!resident) {
+                  xs[j][c][b] = p.x[at(c, b, i)];
+                  rs[j][c][b] = p.r[at(c, b, i)];
+                  qs[j][c][b] = p.q[at(c, b, i)];
+                }
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          if (j < nr) {
+            const int i = i0 + j * kThreads;
+#pragma unroll
+            for (int b = 0; b < NB; ++b) {
+              const float2 a = s_alpha[b];
+              const float dr = dv[j][0][b];
+              if (CPLX) {
+                const float di = dv[j][P - 1][b];
+                const float qr = qs[j][0][b], qi = qs[j][P - 1][b];
+                const float xr = xs[j][0][b], xi = xs[j][P - 1][b];
+                xs[j][0][b] = xr + a.x * dr - a.y * di;
+                xs[j][P - 1][b] = xi + a.x * di + a.y * dr;
+                const float rr = rs[j][0][b] - (a.x * qr - a.y * qi);
+                const float ri = rs[j][P - 1][b] - (a.x * qi + a.y * qr);
+                rs[j][0][b] = rr;
+                rs[j][P - 1][b] = ri;
+                acc[b].x += rr * rr - ri * ri;
+                acc[b].y += rr * ri;
+              } else {
+                xs[j][0][b] = xs[j][0][b] + a.x * dr;
+                const float rr = rs[j][0][b] - a.x * qs[j][0][b];
+                rs[j][0][b] = rr;
+                acc[b].x += rr * rr;
+              }
+              if (!resident) {
+#pragma unroll
+                for (int c = 0; c < P; ++c) {
+                  p.x[at(c, b, i)] = xs[j][c][b];
+                  p.r[at(c, b, i)] = rs[j][c][b];
+                }
+              }
+            }
           }
         }
       }
@@ -358,7 +656,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 
     // phase 3: beta, delta (held while frozen), hist[it+1], d = r + beta d.
     if (warp < NB) {
-      const float2 t = grid_total(p.part_rr, nblocks, NB, warp);
+      const float2 t = grid_total(p.part_rr, nblocks, warp);
       if (lane == 0) {
         const float2 dn = make_float2(t.x, CPLX ? 2.f * t.y : 0.f);
         const float2 dl = s_delta[warp];
@@ -371,45 +669,108 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
       }
     }
     __syncthreads();
-    for (int i = t0; i < n; i += stride) {
+    for (int i0 = first; i0 < t1; i0 += G * kThreads) {
+      const int nr = rows_at(i0);
+      float dv[G][P][NB];
 #pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const float2 be = s_beta[b];
-        const size_t pr = pad_at(0, b, i);
-        const float dr = __ldcg(p.dpad + pr);
-        if (CPLX) {
-          const size_t pi = pad_at(1, b, i);
-          const float di = __ldcg(p.dpad + pi);
-          p.dpad[pr] = p.r[at(0, b, i)] + be.x * dr - be.y * di;
-          p.dpad[pi] = p.r[at(1, b, i)] + be.x * di + be.y * dr;
-        } else {
-          p.dpad[pr] = p.r[at(0, b, i)] + be.x * dr;
+      for (int j = 0; j < G; ++j) {
+        if (j < nr) {
+          const int i = i0 + j * kThreads;
+#pragma unroll
+          for (int c = 0; c < P; ++c) {
+#pragma unroll
+            for (int b = 0; b < NB; ++b) {
+              dv[j][c][b] = d_at(c, b, i);
+              if (!resident) rs[j][c][b] = p.r[at(c, b, i)];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (j < nr) {
+          const int i = i0 + j * kThreads;
+#pragma unroll
+          for (int b = 0; b < NB; ++b) {
+            const float2 be = s_beta[b];
+            const float dr = dv[j][0][b];
+            if (CPLX) {
+              const float di = dv[j][P - 1][b];
+              p.dpad[pad_at(0, b, i)] = rs[j][0][b] + be.x * dr - be.y * di;
+              p.dpad[pad_at(P - 1, b, i)] =
+                  rs[j][P - 1][b] + be.x * di + be.y * dr;
+            } else {
+              p.dpad[pad_at(0, b, i)] = rs[j][0][b] + be.x * dr;
+            }
+          }
         }
       }
     }
     grid.sync();
   }
+
+  // 5. x out, where it stayed in registers.
+  if (resident && first < t1) {
+    const int nr = rows_at(first);
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if (j < nr) {
+#pragma unroll
+        for (int c = 0; c < P; ++c) {
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+            p.x[at(c, b, first + j * kThreads)] = xs[j][c][b];
+        }
+      }
+    }
+  }
 }
 
 using KernelFn = void (*)(Params);
 
-template <bool CPLX>
+template <bool CPLX, bool STAGED>
 KernelFn pick(int nb) {
   switch (nb) {
-    case 1: return stream_dia_kernel<CPLX, 1>;
-    case 2: return stream_dia_kernel<CPLX, 2>;
-    case 3: return stream_dia_kernel<CPLX, 3>;
-    case 4: return stream_dia_kernel<CPLX, 4>;
-    case 5: return stream_dia_kernel<CPLX, 5>;
-    case 6: return stream_dia_kernel<CPLX, 6>;
-    case 7: return stream_dia_kernel<CPLX, 7>;
-    case 8: return stream_dia_kernel<CPLX, 8>;
+    case 1: return stream_dia_kernel<CPLX, 1, STAGED>;
+    case 2: return stream_dia_kernel<CPLX, 2, STAGED>;
+    case 3: return stream_dia_kernel<CPLX, 3, STAGED>;
+    case 4: return stream_dia_kernel<CPLX, 4, STAGED>;
+    case 5: return stream_dia_kernel<CPLX, 5, STAGED>;
+    case 6: return stream_dia_kernel<CPLX, 6, STAGED>;
+    case 7: return stream_dia_kernel<CPLX, 7, STAGED>;
+    case 8: return stream_dia_kernel<CPLX, 8, STAGED>;
     default: return nullptr;
   }
 }
 
-KernelFn kernel_for(int cplx, int nb) {
-  return cplx ? pick<true>(nb) : pick<false>(nb);
+KernelFn kernel_for(int cplx, int nb, int staged) {
+  if (cplx) return staged ? pick<true, true>(nb) : pick<true, false>(nb);
+  return staged ? pick<false, true>(nb) : pick<false, false>(nb);
+}
+
+// The instance of a launch, with its dynamic shared memory allowed: null
+// where the arguments are out of range or the memory passes the block's.
+cudaError_t instance(int cplx, int nb, int n, int ndiag, int pad,
+                     int tile_rows, int staged, KernelFn* fn, size_t* smem) {
+  *fn = kernel_for(cplx, nb, staged);
+  if (*fn == nullptr || n < 1 || ndiag < 1 || ndiag > kMaxDiags || pad < 0 ||
+      tile_rows < 1)
+    return cudaErrorInvalidValue;
+  *smem = smem_bytes(cplx ? 2 : 1, nb, tile_rows, pad, ndiag, staged != 0);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(*fn));
+  if (err != cudaSuccess) return err;
+  if (*smem + attr.sharedSizeBytes > static_cast<size_t>(optin))
+    return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(*fn),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
 }
 
 }  // namespace
@@ -423,15 +784,19 @@ int tpcg_stream_dia_limits(int* max_rhs, int* max_diags) {
   return 0;
 }
 
-// Grid size for n rows on the current device: one row per thread where the
-// card has room, at most kBlocksPerSm blocks per SM, never more than can be
-// co-resident (a larger cooperative launch is refused).
-int tpcg_stream_dia_grid(int cplx, int nb, int n, int ndiag, int* grid_out) {
-  const KernelFn fn = kernel_for(cplx, nb);
-  if (fn == nullptr || n < 1 || ndiag < 1 || ndiag > kMaxDiags)
-    return cudaErrorInvalidValue;
+// Grid of a launch on the current device: one block per tile of tile_rows
+// rows, every block co-resident (a larger cooperative launch is refused).
+// staged: the window's shared memory must fit the block's, or the call
+// returns cudaErrorInvalidValue.
+int tpcg_stream_dia_grid(int cplx, int nb, int n, int ndiag, int pad,
+                         int tile_rows, int staged, int* grid_out) {
+  KernelFn fn = nullptr;
+  size_t smem = 0;
+  cudaError_t err =
+      instance(cplx, nb, n, ndiag, pad, tile_rows, staged, &fn, &smem);
+  if (err != cudaSuccess) return err;
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   int sms = 0, coop = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -439,29 +804,34 @@ int tpcg_stream_dia_grid(int cplx, int nb, int n, int ndiag, int* grid_out) {
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fn, kThreads, static_cast<size_t>(ndiag) * sizeof(int));
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                      smem);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  if (per_sm > kBlocksPerSm) per_sm = kBlocksPerSm;
-  int g = (n + kThreads - 1) / kThreads;
-  if (g > per_sm * sms) g = per_sm * sms;
-  *grid_out = g < 1 ? 1 : g;
+  const int g = (n + tile_rows - 1) / tile_rows;
+  if (per_sm < 1 || g > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
+  *grid_out = g;
   return 0;
 }
 
 // vals: (cplx ? 2 : 1, ndiag, n); offs: device array of ndiag ints with
 // |offs[k]| <= pad; b, x0, x, r, q: (cplx ? 2 : 1, nb, n); dpad:
-// (cplx ? 2 : 1, nb, n + 2 pad); hist: (n_iterations + 1, nb); part_dq and
-// part_rr: grid * nb * 2 floats each.  grid: from tpcg_stream_dia_grid.
+// (cplx ? 2 : 1, nb, n + 2 pad) and 4 floats of slack; hist:
+// (n_iterations + 1, nb); part_dq and part_rr: grid * nb * 2 floats each,
+// 8-byte aligned.  tile_rows, staged: the layout of
+// ops/stream_cg_dia.py::dia_layout; grid: from tpcg_stream_dia_grid with
+// the same layout.
 int tpcg_stream_dia(int cplx, const float* vals, const int* offs,
                     const float* b, const float* x0, float* x, float* hist,
                     float* r, float* q, float* dpad, float* part_dq,
                     float* part_rr, int n, int ndiag, int nb, int pad,
-                    int n_iterations, int grid, void* stream) {
-  const KernelFn fn = kernel_for(cplx, nb);
-  if (fn == nullptr || n < 1 || ndiag < 1 || ndiag > kMaxDiags || pad < 0 ||
-      n_iterations < 0 || grid < 1)
+                    int n_iterations, int tile_rows, int staged, int grid,
+                    void* stream) {
+  KernelFn fn = nullptr;
+  size_t smem = 0;
+  cudaError_t err =
+      instance(cplx, nb, n, ndiag, pad, tile_rows, staged, &fn, &smem);
+  if (err != cudaSuccess) return err;
+  if (n_iterations < 0 || grid != (n + tile_rows - 1) / tile_rows)
     return cudaErrorInvalidValue;
   Params p;
   p.vals = vals;
@@ -473,17 +843,17 @@ int tpcg_stream_dia(int cplx, const float* vals, const int* offs,
   p.r = r;
   p.q = q;
   p.dpad = dpad;
-  p.part_dq = part_dq;
-  p.part_rr = part_rr;
+  p.part_dq = reinterpret_cast<float2*>(part_dq);
+  p.part_rr = reinterpret_cast<float2*>(part_rr);
   p.n = n;
   p.ndiag = ndiag;
   p.pad = pad;
   p.n_iterations = n_iterations;
+  p.tile_rows = tile_rows;
   void* args[] = {&p};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(fn), dim3(grid), dim3(kThreads), args,
-      static_cast<size_t>(ndiag) * sizeof(int),
-      static_cast<cudaStream_t>(stream));
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
+                                    dim3(grid), dim3(kThreads), args, smem,
+                                    static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

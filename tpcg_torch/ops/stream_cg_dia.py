@@ -13,6 +13,9 @@ Larger RHS counts are split into balanced chunks, never zero-padded.
 Layout: the matrix stays in its own row-DIA layout,
 ``values[d, i] = A[i, i + offsets[d]]`` (``DiaMatrix.data``), and the
 direction sits in a zero-bordered buffer of length ``n + 2 max|offset|``.
+Each block of the launch owns one tile of consecutive rows and, where it
+fits the block's shared memory, stages its window of the direction there
+once an iteration (:func:`dia_layout`).
 The JAX kernel's column-major ``(nv, 128)`` regrid, its wrap-filled halo,
 its ``_CHUNK = 256`` call splitting with the tail update in XLA, and its
 deferred update exist because of TPU lanes and VMEM; they are not ported.
@@ -34,7 +37,7 @@ Public surface as in the JAX module: ``stream_cg_dia`` /
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +54,14 @@ _MAX_RHS = 8
 # a frozen RHS stays frozen until the next multiple of this many iterations
 # (JAX's ``_CHUNK``, the iterations of one kernel call)
 _LATCH_ITERS = 256
+# the kernel's tiles: at least this many rows, at most one tile an SM
+TILE_ROWS_MIN = 512
+# shared memory an H100 block may use, and a bound on the kernel's static
+# part (its reductions and scalars); the rest holds the window, each
+# thread's ring of values (8 diagonals of 2 rows, 384 threads) and the taps
+SMEM_PER_BLOCK = 232_448
+_STATIC_SMEM = 1280
+RING_BYTES = 4 * 8 * 2 * 384
 
 
 def _pad_for(offsets) -> int:
@@ -73,6 +84,47 @@ def dia_stream_cplx_fits(dia) -> bool:
     """Fit rule of the complex kernel: the same geometry limits as
     :func:`dia_stream_fits` (the planes share one index space)."""
     return _fits(dia)
+
+
+class DiaLayout(NamedTuple):
+    """A launch's geometry: ``tile_rows`` rows a block, ``tiles`` blocks,
+    whether each block stages its window of the direction in shared memory
+    (``staged``), and the dynamic shared memory a block takes."""
+    tile_rows: int
+    tiles: int
+    staged: bool
+    smem: int
+
+
+def tile_rows(n: int, sms: int) -> int:
+    """Rows of a block's tile: n over the SM count, rounded up to a warp's
+    32 rows, and at least ``TILE_ROWS_MIN``, so that a launch has at most one
+    tile an SM.  It depends on n and the card alone, never on the RHS count,
+    so each RHS gives the same bits in a launch of any size."""
+    per_sm = -(-n // sms)
+    return max(TILE_ROWS_MIN, -(-per_sm // 32) * 32)
+
+
+def window_bytes(n: int, offsets, nb: int, planes: int, sms: int) -> int:
+    """Shared memory of one block's window: its tile's rows and ``max|off|``
+    rows each side, for every RHS and plane, in float32, each (plane, RHS)
+    row with up to 3 floats before it and rounded up to 16 bytes (its copy
+    moves aligned 16-byte pieces)."""
+    rows = tile_rows(n, sms) + 2 * _pad_for(offsets) + 3
+    return 4 * planes * nb * (-(-rows // 4) * 4)
+
+
+def dia_layout(n: int, offsets, nb: int, planes: int, sms: int) -> DiaLayout:
+    """The layout of a launch of ``csrc/stream_cg_dia.cu`` on a card with
+    ``sms`` SMs: the tiles of :func:`tile_rows`, staged wherever the window,
+    the rings of values and the tap list fit the block's shared memory, else
+    read from L2 (the same values, so the choice changes no bits)."""
+    rows = tile_rows(n, sms)
+    fixed = RING_BYTES + 4 * len(offsets)
+    win = window_bytes(n, offsets, nb, planes, sms)
+    staged = win + fixed <= SMEM_PER_BLOCK - _STATIC_SMEM
+    return DiaLayout(rows, -(-n // rows), staged,
+                     fixed + (win if staged else 0))
 
 
 def _check_args(offsets, values, b, x0, n_iterations, planes):
@@ -228,10 +280,14 @@ def _launch(offsets, values, b, x0, n_iterations):
     P = _pad_for(offsets)
     dev = b.device
     cplx = int(planes == 2)
-    kernel = "launch.stream_dia_cplx" if cplx else "launch.stream_dia"
-    with torch.cuda.device(dev), trace.span(kernel):
+    kernel = "stream_dia_cplx" if cplx else "stream_dia"
+    with torch.cuda.device(dev), trace.span("launch." + kernel):
+        lay = dia_layout(n, offsets, nb, planes,
+                         torch.cuda.get_device_properties(dev)
+                         .multi_processor_count)
         grid = ctypes.c_int()
-        _build.check(lib.tpcg_stream_dia_grid(cplx, nb, n, ndiag,
+        _build.check(lib.tpcg_stream_dia_grid(cplx, nb, n, ndiag, P,
+                                              lay.tile_rows, int(lay.staged),
                                               ctypes.byref(grid)),
                      "tpcg_stream_dia_grid")
         f32 = dict(dtype=torch.float32, device=dev)
@@ -241,16 +297,20 @@ def _launch(offsets, values, b, x0, n_iterations):
         hist = torch.empty((n_iterations + 1, nb), **f32)
         r = torch.empty_like(b)
         q = torch.empty_like(b)
-        dpad = torch.empty((planes, nb, n + 2 * P), **f32)
+        # the window's aligned copies may read 3 floats past the end
+        dpad = torch.empty(planes * nb * (n + 2 * P) + 4, **f32)
         part = torch.empty((2, grid.value, nb, 2), **f32)
         err = lib.tpcg_stream_dia(
             cplx, values.data_ptr(), offs.data_ptr(), b.data_ptr(),
             x0.data_ptr(), x.data_ptr(), hist.data_ptr(), r.data_ptr(),
             q.data_ptr(), dpad.data_ptr(), part[0].data_ptr(),
-            part[1].data_ptr(), n, ndiag, nb, P, n_iterations, grid.value,
+            part[1].data_ptr(), n, ndiag, nb, P, n_iterations,
+            lay.tile_rows, int(lay.staged), grid.value,
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "tpcg_stream_dia")
-        trace.count(kernel)
+        trace.count("launch." + kernel)
+        if lay.staged:
+            trace.count("staged." + kernel)
     return x, hist
 
 
@@ -295,7 +355,8 @@ def stream_cg_dia_rows(offsets: Sequence[int], values: torch.Tensor,
 
     CUDA tensors launch the kernel, at most 8 RHS (the kernel's limit) per
     launch in balanced chunks; ``tpcg_torch.trace``'s counter
-    ``launch.stream_dia`` counts the launches.  CPU tensors run
+    ``launch.stream_dia`` counts the launches, and ``staged.stream_dia``
+    those that staged the direction in shared memory.  CPU tensors run
     :func:`stream_cg_dia_rows_plain` in the same chunks."""
     _check_args(offsets, values[None], b[None], x0[None], n_iterations, 1)
     x, hist = _solve(offsets, values[None], b[None], x0[None], n_iterations)
@@ -308,8 +369,9 @@ def stream_cg_dia_rows_cplx(offsets: Sequence[int], values: torch.Tensor,
     """Device-resident complex solve: ``values`` (2, ndiag, n), ``b``/``x0``
     (2, B, n) float32 re/im planes.  Returns ``x`` (2, B, n) and the
     history (n_iterations+1, B).  Launches and chunks as
-    :func:`stream_cg_dia_rows`; the counter ``launch.stream_dia_cplx``
-    counts the launches."""
+    :func:`stream_cg_dia_rows`; the counters ``launch.stream_dia_cplx``
+    and ``staged.stream_dia_cplx`` count the launches and the staged
+    ones."""
     _check_args(offsets, values, b, x0, n_iterations, 2)
     return _solve(offsets, values, b, x0, n_iterations)
 

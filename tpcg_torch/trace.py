@@ -22,6 +22,9 @@ The counters the program keeps:
   ``stream_dia_cplx``, ``fused_cg``, ``fused_const``, ``fused_dia``,
   ``stream_const``, ``stream_coef``, ``stream_sym``, ``stream_real``,
   ``route_spmv``);
+* ``staged.stream_dia``, ``staged.stream_dia_cplx``: launches of kernel A
+  (``csrc/stream_cg_dia.cu``) whose blocks staged their window of the
+  direction in shared memory (a ``launch.*`` count too; not itself one);
 * ``copy.pad_sym_planes``, ``copy.pad_real_planes``: padded copies of a
   stencil's planes made for the kernels;
 * ``h2d_bytes``, ``d2h_bytes``: bytes copied from host to device and back
