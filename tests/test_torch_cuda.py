@@ -1512,6 +1512,58 @@ def test_planner_on_card_takes_the_real_path(dev):
     assert np.linalg.norm(r) <= 1e-2 * np.linalg.norm(b)
 
 
+def _parabolic_fem(dev, Ng=725):
+    """parabolic_fem's stand-in at its published size, diagonal 6, and the
+    seeded standard-normal RHS of the checks below."""
+    from tpcg_torch.problems import parabolic_stencil
+    S = parabolic_stencil(Ng, device=dev, diag=6.0)
+    b = np.random.default_rng(0).standard_normal((Ng, Ng)).astype(np.float32)
+    return S, b
+
+
+def test_planner_takes_stream_real_at_parabolic_fem(dev):
+    """A float32 real grid below 1024^2 nodes plans stream-real on the card
+    (the H100's rule, auto._REAL_F32_MIN_SIDE): parabolic_fem at 725^2, one
+    launch of the kernel a solve, x and the history as the kernel's plain
+    version's over 100 iterations, and <r, r> not yet 0 at iteration 5000
+    (the diagonal 6 keeps CG working; with 8 it underflows by ~100)."""
+    S, b = _parabolic_fem(dev)
+    plan = tpcg_torch.plan_stencil_cg(S, 5000)
+    assert plan.path == "stream-real"
+    bp = torch.from_numpy(b).to(dev)
+    before = _counted("launch.stream_real")
+    x, h = plan.solve_planes(bp)
+    assert _counted("launch.stream_real") == before + 1
+    assert torch.isfinite(x).all() and 0 < float(h[-1]) < 1e-3 * float(h[0])
+    xk, hk = tpcg_torch.plan_stencil_cg(S, 100).solve_planes(bp)
+    taps, strips = tsr.prepare_real(S)[1]
+    xp, hp = tsr.stream_cg_real_planes_plain(S.offsets, S.grid, taps, strips,
+                                             bp, torch.zeros_like(bp), 100)
+    _assert_dia_close(xk, hk, xp, hp)
+
+
+def test_stencil_cg_copies_and_launches_of_one_call(dev):
+    """One stencil_cg call on parabolic_fem (the parabolic_fem.stencil_calls
+    cell at 20 iterations): b up, x and the history down, to the byte,
+    around one launch of the real streaming kernel; the plan and the solve
+    are spans of the call, the plan counted by its path."""
+    S, b = _parabolic_fem(dev)
+    iters = 20
+    (x, h), recs, c = _traced(lambda: tpcg_torch.stencil_cg(
+        S, b, n_iterations=iters))
+    assert c["h2d_bytes"] == b.nbytes
+    assert c["d2h_bytes"] == x.nbytes + h.nbytes == b.nbytes + (iters + 1) * 4
+    assert _launched(c) == {"launch.stream_real": 1}
+    assert c["plan.stream-real"] == 1
+    assert [r.name for r in recs] == [
+        "tpcg.stencil_cg", "tpcg.plan", "tpcg.solve", "tpcg.pack",
+        "tpcg.wait", "tpcg.upload", "tpcg.launch.stream_real", "tpcg.wait",
+        "tpcg.download", "tpcg.download", "tpcg.pack"]
+    assert recs[0].counts == c
+    assert {r.call for r in recs} == {recs[0].id}
+    assert x.shape == (725, 725) and h.shape == (iters + 1,)
+
+
 # odd widths whose rows the kernel pads (513 x 1027: pitch 1056) and grids
 # whose blocks take uneven numbers of tiles (700 x 901; 513 x 1027 too), in
 # both modes

@@ -33,8 +33,12 @@ Six paths are ported; each maps to a planner path of the JAX package:
                 ``stream_cg_coef_planes_batched_fat`` per chunk of at most
                 eight RHS, which share one read of the coefficients (one
                 RHS runs the single-RHS instance).
-  stream-real : JAX's ``stream-real``.  Real stencils from 1024^2 nodes on a
-                CUDA device: one launch of the hand-written CUDA kernel
+  stream-real : JAX's ``stream-real``.  Real stencils on a CUDA device:
+                float32 grids from 8 nodes a side, float64 grids from
+                1024^2 nodes (JAX's threshold for every real grid, a rule of
+                its VMEM tiers; the port's float32 rule is the H100's, see
+                ``_REAL_F32_MIN_SIDE``): one launch of the hand-written CUDA
+                kernel
                 ``tpcg_torch/csrc/stream_cg_real.cu`` per RHS, in const mode
                 where ``prepare_stream_real`` accepts the stencil, else in
                 coef mode (``tpcg_torch.ops.stream_cg_real``; the plan
@@ -45,11 +49,12 @@ Six paths are ported; each maps to a planner path of the JAX package:
   eager       : JAX's ``xla``.  Plain PyTorch: ``block_cg_planes_chunked``
                 over float32 planes for complex stencils on a CUDA device,
                 and ``block_cg`` in the stencil's own dtype otherwise.  The
-                default on the CPU, for larger complex batches, and for real
-                stencils below 1024^2 nodes.  On a real stencil
+                default on the CPU, for larger complex batches, and on a
+                card for float64 real stencils below 1024^2 nodes and
+                float32 ones under 8 nodes a side.  On a real stencil
                 ``solve_planes`` takes single (Nv, Nh) or (B, Nv, Nh) planes,
-                as on ``stream-real``, so the surface does not change at
-                1024^2.
+                as on ``stream-real``, so the surface does not change with
+                the path.
 
 Several RHS on ``stream`` share a launch (chunks of up to eight) on grids
 of 1024^2 to below 4096^2 nodes, where that was faster per RHS-iteration
@@ -69,6 +74,14 @@ pad: JAX's ``pad->stream-coef`` becomes ``stream`` for constant taps and
 ``stream-coef`` for variable coefficients, and
 ``pad->stream-real`` becomes ``stream-real``, on the unpadded grid.
 
+Every plan is span ``tpcg.plan`` of ``tpcg_torch.trace`` and counts its
+path in ``plan.<path>``; ``StencilCGPlan.solve`` and ``solve_planes`` are
+span ``tpcg.solve``, and ``stencil_cg`` span ``tpcg.stencil_cg`` around
+both.  ``solve`` copies b and x0 to the device and x and the history back
+through ``device.upload`` and ``device.download`` (spans ``tpcg.upload``,
+``tpcg.wait``, ``tpcg.download``; counters ``h2d_bytes``, ``d2h_bytes``)
+on every path, its host-side packing in ``tpcg.pack``.
+
 The planner dispatches on the torch device of the stencil's coefficients.
 Every tier JAX's planner picks has its kernel on a CUDA device; a kernel
 that cannot run raises, and nothing runs silently on the plain path
@@ -82,7 +95,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..cg import block_cg
+from ..device import download, upload, wait
 from .cplx import block_cg_planes_chunked, make_pair_operator
 from .fused_cg import fused_cg_stencil_chunked, prepare_coef3
 from .fused_cg_const import fused_cg_const_chunked, prepare_const
@@ -97,7 +112,20 @@ from .stream_cg_sym import (pad_sym_planes, prepare_stream_sym,
 # JAX's _VMEM_NODES: complex grids up to here take the whole-solve kernel
 _L2_NODES = 512 * 512
 # JAX's _REAL_STREAM_NODES: real grids from here take the stream-real tier
+# (float64 real grids on a card keep this rule; below it they run eager in
+# float64)
 _REAL_STREAM_NODES = 1024 * 1024
+# A float32 real grid on a card takes stream-real whenever both sides are at
+# least _REAL_F32_MIN_SIDE: the smallest side swept, and the kernel won at
+# every size.  Whole solves of 5000 iterations on device operands, 1 RHS, us
+# an iteration, eager (plain block_cg) / stream-real, on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md, Findings; probes/planner_real_sweep.py): the
+# 7-point FE stencil parabolic_stencil(N, diag=6.0) at N=8 474.5 / 10.9,
+# 16 384.3 / 11.5, 32 466.4 / 10.9, 64 500.6 / 10.3, 128 410.1 / 10.6,
+# 256 487.3 / 10.9, 512 486.4 / 12.2, 725 475.4 / 19.1, 1023 496.0 / 22.9;
+# Poisson at 256 411.9 / 10.1 and 725 401.9 / 17.1.  (JAX's threshold was
+# its VMEM tier rule on the TPU.)
+_REAL_F32_MIN_SIDE = 8
 # JAX's _FUSED_BATCH_MAX: larger complex batches take the plain path
 _FUSED_BATCH_MAX = 2
 
@@ -166,7 +194,8 @@ class StencilCGPlan:
         downloads x; repeated device-resident solves use
         :meth:`solve_planes`.
         """
-        return self._solve(b, x0)
+        with trace.span("solve"):
+            return self._solve(b, x0)
 
     def solve_planes(self, bp: torch.Tensor,
                      x0p: Optional[torch.Tensor] = None):
@@ -178,12 +207,13 @@ class StencilCGPlan:
         history, with no host round trip."""
         axis = 0 if self.real_planes else 1   # the batch axis
         squeeze = bp.dim() == axis + 2
-        if squeeze:
-            bp = bp.unsqueeze(axis)
-            x0p = None if x0p is None else x0p.unsqueeze(axis)
-        if x0p is None:
-            x0p = torch.zeros_like(bp)
-        x, hist = self._solve_planes(bp, x0p)
+        with trace.span("solve"):
+            if squeeze:
+                bp = bp.unsqueeze(axis)
+                x0p = None if x0p is None else x0p.unsqueeze(axis)
+            if x0p is None:
+                x0p = torch.zeros_like(bp)
+            x, hist = self._solve_planes(bp, x0p)
         if squeeze:
             return x.select(axis, 0), hist[:, 0]
         return x, hist
@@ -209,7 +239,8 @@ def _pick_path(stencil, nb: int, on_cuda: bool):
     ``on_cuda`` says whether the solve runs on a card; off the card every
     stencil takes ``eager``.  On the card the rule is JAX's on an
     accelerator (``tpcg/ops/auto.py::plan_stencil_cg``) without its row
-    padding (see the module note)."""
+    padding (see the module note), but for real float32 grids, which take
+    ``stream-real`` from ``_REAL_F32_MIN_SIDE`` nodes a side."""
     nv, nh = stencil.grid
     n = nv * nh
     if not on_cuda:
@@ -221,7 +252,8 @@ def _pick_path(stencil, nb: int, on_cuda: bool):
             return "stream", prepare_stream(stencil)
         except ValueError:
             return "stream-coef", _prepare_coef(stencil)
-    if n >= _REAL_STREAM_NODES:
+    if n >= _REAL_STREAM_NODES or (stencil.coef.dtype == torch.float32
+                                   and min(nv, nh) >= _REAL_F32_MIN_SIDE):
         return "stream-real", prepare_real(stencil)
     return "eager", None
 
@@ -242,7 +274,18 @@ def plan_stencil_cg(stencil, n_iterations: int, nb: int = 1,
            ``ValueError``.  ``stream-coef`` takes any stencil: the
            symmetric kernel where ``prepare_stream_sym`` accepts it, else
            the general one.
+
+    The plan is span ``tpcg.plan`` of ``tpcg_torch.trace`` (the choice,
+    the kernel's operands and padded copies, the solver), and counts its
+    path in ``plan.<path>``.
     """
+    with trace.span("plan"):
+        plan = _plan(stencil, n_iterations, nb, path)
+        trace.count("plan." + plan.path)
+        return plan
+
+
+def _plan(stencil, n_iterations, nb, path):
     nv, nh = stencil.grid
     prepared = None
     if path is None:
@@ -274,17 +317,47 @@ def plan_stencil_cg(stencil, n_iterations: int, nb: int = 1,
 
 def stencil_cg(stencil, b, x0=None, n_iterations: int = 10,
                path: Optional[str] = None):
-    """One-shot convenience: plan + solve (see :func:`plan_stencil_cg`)."""
-    nv, nh = stencil.grid
-    nb = np.asarray(b).size // (nv * nh)
-    plan = plan_stencil_cg(stencil, n_iterations, nb=nb, path=path)
-    return plan.solve(b, x0)
+    """One-shot convenience: plan + solve (see :func:`plan_stencil_cg`), in
+    span ``tpcg.stencil_cg`` around ``tpcg.plan`` and ``tpcg.solve``."""
+    with trace.span("stencil_cg"):
+        nv, nh = stencil.grid
+        nb = np.asarray(b).size // (nv * nh)
+        plan = plan_stencil_cg(stencil, n_iterations, nb=nb, path=path)
+        return plan.solve(b, x0)
 
 
-def _grid_planes(B, dev):
-    """(B, Nv, Nh) complex numpy -> (2, B, Nv, Nh) float32 planes on dev."""
-    return torch.from_numpy(
-        np.stack([B.real, B.imag]).astype(np.float32)).to(dev)
+def _upload_b(b, x0, nv, nh, dev, operand, dtype=None):
+    """``(bp, x0p, squeeze)``: b and x0 (None: zeros) as ``_norm_b``'s
+    (B, Nv, Nh) blocks made host tensors by ``operand`` (in span
+    ``tpcg.pack``), then uploaded to ``dev`` as ``dtype``."""
+    with trace.span("pack"):
+        B, squeeze = _norm_b(b, nv, nh)
+        bt = operand(B)
+        x0t = None if x0 is None else operand(_norm_b(x0, nv, nh)[0])
+    bp = upload(bt, dev, dtype)
+    x0p = torch.zeros_like(bp) if x0t is None else upload(x0t, dev, dtype)
+    return bp, x0p, squeeze
+
+
+def _download(dev, x, hist, squeeze):
+    """x and the history in host memory, after the solve (``tpcg.wait``);
+    a single RHS's without its batch axis (``tpcg.pack``)."""
+    wait(dev)
+    x, hist = download(x), download(hist)
+    if squeeze:
+        with trace.span("pack"):
+            return x[0], hist[:, 0]
+    return x, hist
+
+
+def _real_planes(B):
+    """(B, Nv, Nh) numpy -> float32 host tensor."""
+    return torch.from_numpy(np.ascontiguousarray(B, dtype=np.float32))
+
+
+def _grid_planes(B):
+    """(B, Nv, Nh) complex numpy -> (2, B, Nv, Nh) float32 host planes."""
+    return torch.from_numpy(np.stack([B.real, B.imag]).astype(np.float32))
 
 
 def _build_solver(stencil, n_iterations, path, prepared=None):
@@ -322,19 +395,8 @@ def _build_solver(stencil, n_iterations, path, prepared=None):
                     torch.stack([h for _, h in runs], dim=1))
 
         def solve_real(b, x0):
-            B, squeeze = _norm_b(b, nv, nh)
-
-            def upload(a):
-                return torch.from_numpy(np.ascontiguousarray(
-                    a, dtype=np.float32)).to(dev)
-            bp = upload(B)
-            x0p = (torch.zeros_like(bp) if x0 is None
-                   else upload(_norm_b(x0, nv, nh)[0]))
-            x, hist = solve_planes(bp, x0p)
-            x, hist = x.cpu().numpy(), hist.cpu().numpy()
-            if squeeze:
-                return x[0], hist[:, 0]
-            return x, hist
+            bp, x0p, squeeze = _upload_b(b, x0, nv, nh, dev, _real_planes)
+            return _download(dev, *solve_planes(bp, x0p), squeeze)
         return solve_real, solve_planes
     elif path == "stream-coef" and torch.is_tensor(prepared):
         # general coefficients: one launch per chunk of RHS, which share
@@ -396,17 +458,13 @@ def _build_solver(stencil, n_iterations, path, prepared=None):
                     res.residual_history)
 
     def solve_f32(b, x0):
-        B, squeeze = _norm_b(b, nv, nh)
-        bp = _grid_planes(B, dev)
-        x0p = (torch.zeros_like(bp) if x0 is None
-               else _grid_planes(_norm_b(x0, nv, nh)[0], dev))
-        x, hist = solve_planes(bp, x0p)
-        x = x.cpu().numpy()
-        hist = hist.cpu().numpy()
-        xc = (x[0] + 1j * x[1]).astype(np.complex64)
-        if squeeze:
-            return xc[0], hist[:, 0]
-        return xc, hist
+        bp, x0p, squeeze = _upload_b(b, x0, nv, nh, dev, _grid_planes)
+        x, hist = _download(dev, *solve_planes(bp, x0p), False)
+        with trace.span("pack"):
+            xc = (x[0] + 1j * x[1]).astype(np.complex64)
+            if squeeze:
+                return xc[0], hist[:, 0]
+            return xc, hist
 
     if path != "eager" or (stencil.coef.is_complex()
                            and dev.type == "cuda"):
@@ -419,14 +477,10 @@ def _build_solver(stencil, n_iterations, path, prepared=None):
         torch.complex64 if stencil.coef.is_complex() else torch.float32)
 
     def solve(b, x0):
-        B, squeeze = _norm_b(b, nv, nh)
-        bm = torch.from_numpy(B.reshape(-1, n).T.copy()).to(dev, dt)
-        x0m = (torch.from_numpy(np.asarray(x0).reshape(-1, n).T.copy())
-               .to(dev, dt) if x0 is not None else None)
+        bm, x0m, squeeze = _upload_b(
+            b, x0, nv, nh, dev,
+            lambda B: torch.from_numpy(B.reshape(-1, n).T.copy()), dt)
         res = block_cg(stencil, bm, x0m, n_iterations=n_iterations)
-        x = res.x.T.reshape(-1, nv, nh).cpu().numpy()
-        hist = res.residual_history.cpu().numpy()
-        if squeeze:
-            return x[0], hist[:, 0]
-        return x, hist
+        return _download(dev, res.x.T.reshape(-1, nv, nh),
+                         res.residual_history, squeeze)
     return solve, solve_planes

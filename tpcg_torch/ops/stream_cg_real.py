@@ -1,4 +1,4 @@
-"""Fixed-iteration CG on real stencils from 1024^2 nodes (counterpart of ``tpcg/ops/stream_cg_real.py``, the planner's ``stream-real`` path).
+"""Fixed-iteration CG on real stencils (counterpart of ``tpcg/ops/stream_cg_real.py``, the planner's ``stream-real`` path: float32 grids from 8 nodes a side, float64 ones from 1024^2 nodes, on a card).
 
 The real twin of :mod:`tpcg_torch.ops.stream_cg`: single-RHS CG on one
 float32 plane per field, the state (x, r, the direction d and q = A d) in

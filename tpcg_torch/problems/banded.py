@@ -114,16 +114,22 @@ def banded_complex(n, offsets, seed=0):
     return (A + A.T) * 0.5
 
 
-def parabolic_stencil(Ng=725, device=None) -> Stencil2D:
+def parabolic_stencil(Ng=725, device=None, diag=8.0) -> Stencil2D:
     """benchmarks/bench_fig5.py:195-217: the parabolic_fem class as an
-    Ng x Ng 7-point float32 stencil (diagonal 8, six -1 neighbours, taps
-    that leave the grid zeroed); ``.to_dia()`` gives offsets 0, +-1,
+    Ng x Ng 7-point float32 stencil (diagonal ``diag``, six -1 neighbours,
+    taps that leave the grid zeroed); ``.to_dia()`` gives offsets 0, +-1,
     +-Ng, +-(Ng+1).  ``device`` defaults to the CUDA device (raising
-    without one)."""
+    without one).
+
+    The default diagonal 8 is bench_fig5.py's: strongly dominant, CG's
+    ``<r, r>`` underflows within ~100 float32 iterations.  ``diag=6.0``
+    makes the interior rows sum to zero (the boundary rows, whose outward
+    taps are zeroed, carry the mass), which takes float32 CG thousands of
+    iterations: the stiffness-dominated step of a parabolic problem."""
     device = resolve_device(device)
     offs = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (-1, -1))
     coef = np.empty((7, Ng, Ng), np.float32)
-    coef[0] = 8.0
+    coef[0] = diag
     for s in range(1, 7):
         coef[s] = -1.0
     coef[1][:, -1] = 0

@@ -27,6 +27,8 @@ The counters the program keeps:
   direction in shared memory (a ``launch.*`` count too; not itself one);
 * ``copy.pad_sym_planes``, ``copy.pad_real_planes``: padded copies of a
   stencil's planes made for the kernels;
+* ``plan.<path>``: plans of the stencil planner (``ops.auto``) by the path
+  each took (``plan.stream-real``, ``plan.eager``, ...);
 * ``h2d_bytes``, ``d2h_bytes``: bytes copied from host to device and back
   by ``device.upload`` and ``device.download``.
 
