@@ -9,6 +9,8 @@ Run from the root of a checkout on a machine with an NVIDIA GPU:
     python3 probes/stream_dia_window.py split
     python3 probes/stream_dia_window.py table
     python3 probes/stream_dia_window.py variants
+    python3 probes/stream_dia_window.py floor
+    python3 probes/stream_dia_window.py cluster
 
 ``freeze``: kernel A at m_t1's n and offsets, B = 1, 2, 4 and 8 RHS a
 launch, on the benchmark's stand-in ``banded_spd(97578, 50)`` (every RHS
@@ -44,6 +46,18 @@ and parabolic_fem.
 device operands timed by CUDA events, median of ``REPS``: mhd1280b through
 kernel B (``csrc/fused_cg_dia.cu``, 5000 iterations), m_t1 B = 1 (200) and
 helm_fem as a DIA matrix (5000) through kernel A.
+
+``floor``: a kernel of its own that does an iteration's three phases
+with no work: a barrier across the launch, and the exchange of one float2
+partial a block, summed in block order; cooperative grids of 16, 32 and
+132 blocks against one cluster of 2, 4, 8 and 16 blocks, whose exchange
+is a cluster barrier (with and without its release), a read over
+distributed shared memory after it, or a push by st.async into every
+block's slot completing on its mbarrier.  us a phase.
+
+``cluster``: helm_fem at 1 and 8 RHS as the cooperative grid and as one
+cluster of 4, 8 and 16 blocks (``dia_layout(cluster=C)``), us an
+iteration in turns, then each one's phases from the ``split`` build.
 
 ``variants``: edited copies of the kernel's source (threads a block, rows
 a thread takes through one pass of the taps, diagonals of values in
@@ -169,19 +183,31 @@ def _slope(run):
     return float(np.median(times)), hist
 
 
-def _solver(tsd, name, nb, dev, staged=None):
+def _forced(tsd, cluster=None, staged=None):
+    """tsd.dia_layout, taking ``cluster`` (0: the cooperative layout, C: a
+    cluster of C blocks) and, where ``staged`` is False, reading d from L2;
+    an explicit ``cluster=`` of the caller (the wrapper's fallback) wins."""
+    layout = tsd.dia_layout
+    if cluster is None and staged is None:
+        return layout       # (an older tree's dia_layout has no cluster=)
+
+    def forced(*a, cluster=cluster):
+        lay = layout(*a, cluster=cluster)
+        return lay._replace(staged=False) if staged is False else lay
+    return forced
+
+
+def _solver(tsd, name, nb, dev, cluster=None, staged=None):
     solve, offs, vals, b, x0 = _operands(tsd, name, nb, dev)
-    if staged is False:
-        layout = tsd.dia_layout
-        tsd.dia_layout = lambda *a: layout(*a)._replace(staged=False)
+    layout = tsd.dia_layout
+    tsd.dia_layout = _forced(tsd, cluster, staged)
 
     def run(iters):
         return solve(offs, vals, b, x0, iters)
-    if staged is False:
-        out = _slope(run)
+    try:
+        return _slope(run)
+    finally:
         tsd.dia_layout = layout
-        return out
-    return _slope(run)
 
 
 def _frozen(hist):
@@ -231,7 +257,7 @@ def rule(args):
                      ("parabolic", 1), ("parabolic", 8)):
         out = {}
         for staged in (True, False, False, True):
-            us, _ = _solver(tsd, name, nb, dev, staged=staged)
+            us, _ = _solver(tsd, name, nb, dev, cluster=0, staged=staged)
             out.setdefault("staged" if staged else "direct", []).append(us)
         A, cplx = _band(name)
         offs = tuple(int(o) for o in _dia(A, np.complex64 if cplx else
@@ -239,8 +265,8 @@ def rule(args):
         print(json.dumps({"probe": "rule", "card": card, "case": name,
                           "nb": nb, "ndiag_x_nb": len(offs) * nb,
                           "layout": tsd.dia_layout(A.shape[0], offs, nb,
-                                                   2 if cplx else 1,
-                                                   sms)._asdict(),
+                                                   2 if cplx else 1, sms,
+                                                   cluster=0)._asdict(),
                           "us_per_it": out}), flush=True)
 
 
@@ -327,15 +353,15 @@ def _stamped(src):
         '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));\n'
         "  return t;\n}\n")
     edits = [(head, head + stamp, 1),
-             ("  if (STAGED) issue_window<P * NB>(p.dpad, t, win);\n",
-              "  const unsigned long long f0 = split_now();\n"
-              "  if (STAGED) issue_window<P * NB>(p.dpad, t, win);\n", 1),
-             ("  copy_wait<D - 1>();  // the window's group, the oldest\n"
-              "  __syncthreads();\n",
-              "  copy_wait<D - 1>();  // the window's group, the oldest\n"
-              "  __syncthreads();\n"
-              "  if (STORE_Q && blockIdx.x == 0 && threadIdx.x == 0)\n"
-              "    g_split[3] += split_now() - f0;\n", 1)]
+             ("    if (STAGED) issue_window<P * NB>(p.dpad, t, win);\n",
+              "    const unsigned long long f0 = split_now();\n"
+              "    if (STAGED) issue_window<P * NB>(p.dpad, t, win);\n", 1),
+             ("    copy_wait<D - 1>();  // the window's group, the oldest\n"
+              "    __syncthreads();\n",
+              "    copy_wait<D - 1>();  // the window's group, the oldest\n"
+              "    __syncthreads();\n"
+              "    if (STORE_Q && blockIdx.x == 0 && threadIdx.x == 0)\n"
+              "      g_split[3] += split_now() - f0;\n", 1)]
     for old, new, count in edits:
         if src.count(old) != count:
             raise RuntimeError(f"split edit {old!r} matched "
@@ -344,14 +370,16 @@ def _stamped(src):
     loop = "  for (int it = 0; it < p.n_iterations; ++it) {\n"
     pre, body = src.split(loop)
     end = body.index("\n}\n")      # the kernel's closing brace
-    syncs = body[:end].split("    grid.sync();\n")
-    if len(syncs) != 4:
-        raise RuntimeError("split: the iteration has not 3 grid barriers")
+    # the iteration's three exchanges (grid barriers, or in cluster mode
+    # the waits for the pushes of the other blocks)
+    syncs = re.split(r"(    exchange<CLUSTER>\([^;]*\);\n)", body[:end])
+    if len(syncs) != 7:
+        raise RuntimeError("split: the iteration has not 3 exchanges")
     stamped = "".join(
-        part + "    grid.sync();\n    if (blockIdx.x == 0 && threadIdx.x == "
-        "0) {\n      const unsigned long long u = split_now();\n"
-        f"      g_split[{k}] += u - split_t;\n      split_t = u;\n    }}\n"
-        for k, part in enumerate(syncs[:3])) + syncs[3]
+        syncs[2 * k] + syncs[2 * k + 1] + "    if (blockIdx.x == 0 && "
+        "threadIdx.x == 0) {\n      const unsigned long long u = "
+        f"split_now();\n      g_split[{k}] += u - split_t;\n"
+        "      split_t = u;\n    }\n" for k in range(3)) + syncs[6]
     src = (pre + "  unsigned long long split_t = split_now();\n" + loop +
            stamped + body[end:])
     return src + (
@@ -399,10 +427,10 @@ def _build_variants(named_sources):
     return libs
 
 
-def split(args):
+def _splitter(tsd):
+    """Point tsd at the stamped build of the kernel; return a function of
+    (case, nb, cluster) giving block 0's phase times an iteration, in us."""
     import torch
-    tsd = _import(None)
-    card = _card()
     dev = torch.device("cuda:0")
     src = (ROOT / "tpcg_torch" / "csrc" / "stream_cg_dia.cu").read_text()
     libs = _build_variants([("dia_split", _stamped(src))])
@@ -413,19 +441,321 @@ def split(args):
     read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     tsd._build = shim
     out = (ctypes.c_ulonglong * 4)()
+
+    def phases(name, nb, cluster=None):
+        solve, offs, vals, b, x0 = _operands(tsd, name, nb, dev)
+        layout = tsd.dia_layout
+        tsd.dia_layout = _forced(tsd, cluster)
+        try:
+            solve(offs, vals, b, x0, IT0)
+            torch.cuda.synchronize()
+            shim.check(read(out), "tpcg_dia_split")
+            solve(offs, vals, b, x0, IT)
+            torch.cuda.synchronize()
+            shim.check(read(out), "tpcg_dia_split")
+        finally:
+            tsd.dia_layout = layout
+        return {k: out[i] / IT / 1e3 for i, k in enumerate(SPLIT_SLOTS)}
+    return phases
+
+
+def split(args):
+    tsd = _import(None)
+    card = _card()
+    phases = _splitter(tsd)
     for name, nb in (("m_t1", 8), ("m_t1", 1), ("helm_fem", 1),
                      ("parabolic", 1)):
-        solve, offs, vals, b, x0 = _operands(tsd, name, nb, dev)
-        solve(offs, vals, b, x0, IT0)
-        torch.cuda.synchronize()
-        shim.check(read(out), "tpcg_dia_split")
-        solve(offs, vals, b, x0, IT)
-        torch.cuda.synchronize()
-        shim.check(read(out), "tpcg_dia_split")
         print(json.dumps({"probe": "split", "card": card, "case": name,
-                          "nb": nb, "us_per_it": {
-                              k: out[i] / IT / 1e3
-                              for i, k in enumerate(SPLIT_SLOTS)}}),
+                          "nb": nb, "us_per_it": phases(name, nb)}),
+              flush=True)
+
+
+# cluster sizes of the ``cluster`` sweep; 0 is the cooperative grid
+CLUSTER_SIZES = (0, 4, 8, 16)
+
+
+def cluster(args):
+    """helm_fem (complex, 1 and 8 RHS) as a cooperative grid and as one
+    cluster of 4, 8 and 16 blocks: us an iteration in turns, then the
+    phases of each from the stamped build.  A size whose tiles do not fit
+    a block's shared memory reports the kernel's refusal."""
+    import torch
+    tsd = _import(None)
+    card = _card()
+    dev = torch.device("cuda:0")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    A, _ = _band("helm_fem")
+    offs = tuple(int(o) for o in _dia(A, np.complex64, "cpu").offsets)
+    for nb in (1, 8):
+        times = {}
+        for c in CLUSTER_SIZES + CLUSTER_SIZES[::-1]:
+            try:
+                us, _ = _solver(tsd, "helm_fem", nb, dev, cluster=c)
+            except RuntimeError as exc:
+                us = str(exc)
+            times.setdefault(c, []).append(us)
+        for c, us in times.items():
+            lay = tsd.dia_layout(A.shape[0], offs, nb, 2, sms, cluster=c)
+            print(json.dumps({"probe": "cluster", "card": card,
+                              "case": "helm_fem", "nb": nb, "cluster": c,
+                              "layout": lay._asdict(), "us_per_it": us}),
+                  flush=True)
+    phases = _splitter(tsd)
+    for nb in (1, 8):
+        for c in CLUSTER_SIZES:
+            try:
+                row = phases("helm_fem", nb, c)
+            except RuntimeError as exc:
+                row = str(exc)
+            print(json.dumps({"probe": "cluster_split", "card": card,
+                              "case": "helm_fem", "nb": nb, "cluster": c,
+                              "us_per_it": row}), flush=True)
+
+
+FLOOR_SRC = r"""
+// One phase of kernel A with no work: a barrier across the launch and the
+// exchange of one float2 partial a block, each block summing the partials
+// in block order.  mode 0: the barrier alone (grid.sync or
+// barrier.cluster); 1: a block's partial (warp butterflies, shared memory),
+// the barrier, then one warp reads every block's partial (through L2 from
+// global memory, or over distributed shared memory); cluster launches only:
+// 2: each warp's partial in shared memory, the barrier, one warp reads the
+// C x 12 warp partials over distributed shared memory; 3: the block's
+// partial pushed into a slot of every block by st.async, which completes
+// bytes on that block's mbarrier, each block waiting on its own (one
+// one-way trip in place of a barrier and a read); 4: the barrier alone,
+// arrive.relaxed; 5: the barrier alone as remote mbarrier arrivals.
+// Slots and mbarriers alternate by phase parity.
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <cstdint>
+namespace cg = cooperative_groups;
+namespace {
+constexpr int kThreads = 384, kWarps = kThreads / 32;
+__device__ __forceinline__ float2 warp_sum(float2 v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, o);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
+  }
+  return v;
+}
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ uint32_t mapa(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void push(uint32_t dst, float2 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 "
+      "[%0], {%1, %2}, [%3];" :: "r"(dst), "f"(v.x), "f"(v.y), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void remote_arrive(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+      :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ bool try_parity(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n" : "=r"(ok) : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// trap after ~2 s: a push that never lands is a fault, not a hang
+__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
+  if (try_parity(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!try_parity(bar, parity))
+    if (clock64() - t0 > (1ll << 32)) __trap();
+}
+template <bool CLUSTER>
+__global__ void __launch_bounds__(kThreads, 1)
+floor_kernel(float2* part, float* out, int iters, int mode) {
+  __shared__ float2 red[kWarps];
+  __shared__ float2 own[2];
+  __shared__ float2 slot[2][16];
+  __shared__ __align__(8) uint64_t bar[2];
+  __shared__ float2 tot;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nb = gridDim.x;
+  if (CLUSTER && threadIdx.x == 0) {
+    for (int k = 0; k < 2; ++k)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(saddr(&bar[k])), "r"(mode == 5 ? nb : 1)
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (CLUSTER) cg::this_cluster().sync();
+  const uint32_t rank = CLUSTER ? cg::this_cluster().block_rank() : 0;
+  float2 acc = make_float2(threadIdx.x * 1e-3f, 1.f);
+  for (int it = 0; it < iters; ++it) {
+    for (int ph = 0; ph < 3; ++ph) {
+      const int buf = (it * 3 + ph) & 1;
+      if (mode == 0) {
+        if (CLUSTER) cg::this_cluster().sync();
+        else cg::this_grid().sync();
+      } else if (mode == 4) {
+        asm volatile("barrier.cluster.arrive.relaxed.aligned;\n"
+                     "barrier.cluster.wait.aligned;" ::: "memory");
+      } else if (mode == 5) {
+        if (threadIdx.x < nb) remote_arrive(mapa(saddr(&bar[buf]), threadIdx.x));
+        wait_parity(saddr(&bar[buf]), ((it * 3 + ph) >> 1) & 1);
+      } else if (mode == 1) {
+        float2 v = warp_sum(acc);
+        if (lane == 0) red[warp] = v;
+        __syncthreads();
+        if (warp == 0) {
+          float2 w = lane < kWarps ? red[lane] : make_float2(0.f, 0.f);
+          w = warp_sum(w);
+          if (lane == 0) {
+            if (CLUSTER) own[buf] = w;
+            else part[buf * nb + blockIdx.x] = w;
+          }
+        }
+        __syncthreads();
+        if (CLUSTER) cg::this_cluster().sync();
+        else cg::this_grid().sync();
+        if (warp == 0) {
+          float2 u = make_float2(0.f, 0.f);
+          if (lane < nb) {
+            if (CLUSTER) u = *cg::this_cluster().map_shared_rank(&own[buf], lane);
+            else u = __ldcg(part + buf * nb + lane);
+          }
+          u = warp_sum(u);
+          if (lane == 0) tot = u;
+        }
+        __syncthreads();
+        acc.x += tot.x * 1e-9f;
+      } else if (mode == 2) {
+        float2 v = warp_sum(acc);
+        if (lane == 0) red[warp] = v;
+        cg::this_cluster().sync();
+        if (warp == 0) {
+          float2 u = make_float2(0.f, 0.f);
+          for (int e = lane; e < nb * kWarps; e += 32) {
+            const float2 t = *cg::this_cluster().map_shared_rank(
+                &red[e % kWarps], e / kWarps);
+            u.x += t.x;
+            u.y += t.y;
+          }
+          u = warp_sum(u);
+          if (lane == 0) tot = u;
+        }
+        __syncthreads();
+        acc.x += tot.x * 1e-9f;
+      } else {  // mode 3
+        float2 v = warp_sum(acc);
+        if (lane == 0) red[warp] = v;
+        __syncthreads();
+        if (warp == 0) {
+          float2 w = lane < kWarps ? red[lane] : make_float2(0.f, 0.f);
+          w = warp_sum(w);
+          if (lane == 0)
+            asm volatile(
+                "mbarrier.arrive.expect_tx.release.cta.shared::cta.b64 _, "
+                "[%0], %1;" :: "r"(saddr(&bar[buf])), "r"(8 * nb)
+                : "memory");
+          if (lane < nb)
+            push(mapa(saddr(&slot[buf][rank]), lane), w,
+                 mapa(saddr(&bar[buf]), lane));
+        }
+        wait_parity(saddr(&bar[buf]), ((it * 3 + ph) >> 1) & 1);
+        float2 u = lane < nb ? slot[buf][lane] : make_float2(0.f, 0.f);
+        u = warp_sum(u);
+        acc.x += u.x * 1e-9f;
+      }
+    }
+  }
+  if (CLUSTER) cg::this_cluster().sync();
+  if (blockIdx.x == 0 && threadIdx.x == 0) out[0] = acc.x;
+}
+}  // namespace
+extern "C" int tpcg_floor(int cluster, int nblocks, int mode, int iters,
+                          void* part, void* out, void* stream) {
+  void* args[] = {&part, &out, &iters, &mode};
+  cudaError_t err;
+  if (!cluster) {
+    err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(floor_kernel<false>), dim3(nblocks),
+        dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  } else {
+    const void* fn = reinterpret_cast<const void*>(floor_kernel<true>);
+    if (nblocks > 8) {
+      err = cudaFuncSetAttribute(fn,
+          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return err;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(nblocks);
+    cfg.blockDim = dim3(kThreads);
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = nblocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int active = 0;
+    err = cudaOccupancyMaxActiveClusters(&active, fn, &cfg);
+    if (err != cudaSuccess) return err;
+    if (active < 1) return cudaErrorInvalidConfiguration;
+    err = cudaLaunchKernelExC(&cfg, fn, args);
+  }
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+"""
+# (cluster size or 0 for a cooperative grid, blocks)
+FLOOR_CASES = ((0, 132), (0, 32), (0, 16), (2, 2), (4, 4), (8, 8),
+               (16, 16))
+
+
+def floor(args):
+    """The floor of one phase of kernel A: a barrier across the launch with
+    and without the reduction of one float2 a block (``FLOOR_SRC``)."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    card = _card()
+    libs = _build_variants([("dia_floor", FLOOR_SRC)])
+    if not libs:
+        raise SystemExit(1)
+    lib = ctypes.CDLL(str(libs[0][1]))
+    lib.tpcg_floor.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    lib.tpcg_floor.restype = ctypes.c_int
+    part = torch.zeros(2 * 132 * 2, device="cuda:0")
+    out = torch.zeros(1, device="cuda:0")
+
+    def run(cluster, blocks, mode, iters):
+        err = lib.tpcg_floor(cluster, blocks, mode, iters, part.data_ptr(),
+                             out.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"tpcg_floor: CUDA error {err}")
+        return None, None
+    for cluster, blocks in FLOOR_CASES + FLOOR_CASES[::-1]:
+        row = {}
+        modes = ((0, "barrier"), (1, "barrier_and_partials"))
+        if cluster:
+            modes += ((2, "warp_partials_read"), (3, "push_partials"),
+                      (4, "barrier_relaxed"), (5, "barrier_by_arrivals"))
+        for mode, what in modes:
+            try:
+                us, _ = _slope(lambda k: run(cluster, blocks, mode, k))
+            except RuntimeError as exc:
+                row[what] = str(exc)
+                continue
+            row[what] = us / 3
+        print(json.dumps({"probe": "floor", "card": card,
+                          "launch": "cluster" if cluster else "cooperative",
+                          "blocks": blocks, "us_per_phase": row}),
               flush=True)
 
 
@@ -473,13 +803,15 @@ def variants(args):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=["freeze", "rule", "compare", "time",
-                                     "split", "table", "variants"])
+                                     "split", "table", "variants",
+                                     "floor", "cluster"])
     ap.add_argument("--tree", default=None)
     args = ap.parse_args(argv)
     if args.mode == "compare" and args.tree is None:
         ap.error("compare needs --tree")
     {"freeze": freeze, "rule": rule, "compare": compare, "time": time_tree,
-     "split": split, "table": table, "variants": variants}[args.mode](args)
+     "split": split, "table": table, "variants": variants,
+     "floor": floor, "cluster": cluster}[args.mode](args)
 
 
 if __name__ == "__main__":

@@ -7,6 +7,7 @@ it there without the conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import contextlib
 import ctypes
 import importlib
 
@@ -197,6 +198,26 @@ def _run_twice(fn, *args):
     return xk, hk
 
 
+@contextlib.contextmanager
+def _dia_layout(cluster):
+    """Kernel A's launches inside take ``dia_layout(cluster=cluster)``: 0
+    the cooperative grid, C one cluster of C blocks, None the rule (an
+    explicit ``cluster=`` of the wrapper's fallback still wins)."""
+    layout = tsd.dia_layout
+    if cluster is not None:
+        tsd.dia_layout = lambda *a, cluster=cluster: layout(*a,
+                                                            cluster=cluster)
+    try:
+        yield
+    finally:
+        tsd.dia_layout = layout
+
+
+# kernel A's two modes: the layout rule (cluster mode on the small bands
+# of the freeze and latch tests) and the cooperative grid forced
+DIA_MODES = ((None, "cluster"), (0, "cooperative"))
+
+
 @pytest.mark.parametrize("cplx,nb", [(False, 1), (False, 3), (True, 1),
                                      (True, 2)])
 def test_stream_dia_kernel_matches_plain_small(dev, cplx, nb):
@@ -339,10 +360,17 @@ def _window_case(name, dev):
         return _main_path_case("m_t1", dev)
     if name == "wide":
         n, offs, sym = 20_000, (6000,), True
+    elif name == "ragged":
+        # cluster mode: 10 tiles of 512 rows, the last of 392
+        n, offs, sym = 5000, (1, 64), True
+    elif name.startswith("far"):
+        # cluster mode: 6 tiles of 512 rows, a halo of 1100 rows, so a
+        # block's window takes rows of up to three blocks each side
+        n, offs, sym = 3000, (1, 5, 700, -3, -1100), False
     else:
         n, offs, sym = 70_001, (1, 5, 700, -3, -1100, -1500), False
     rng = np.random.default_rng(5)
-    cplx = name == "edges_cplx"
+    cplx = name in ("edges_cplx", "far_cplx")
     diags = [rng.standard_normal(n - abs(o)) * 0.1
              + (1j * rng.standard_normal(n - abs(o)) * 0.1 if cplx else 0)
              for o in offs]
@@ -383,12 +411,12 @@ def test_stream_dia_window_matches_plain(dev, name, nb, staged):
         _assert_dia_close(xk[..., c, :], hk[:, c], xp[..., c, :], hp[:, c])
 
 
-@pytest.mark.parametrize("name", ["m_t1", "wide"])
+@pytest.mark.parametrize("name", ["m_t1", "wide", "far"])
 def test_stream_dia_rhs_bits_do_not_depend_on_the_launch(dev, name):
     """RHS 4 of an 8-RHS launch equals its 1-RHS launch bit for bit: at
     m_t1 both launches stage their window; on the wide band the 8-RHS
     launch reads d from L2 and the 1-RHS launch stages it, the same
-    values."""
+    values; on the far band both run as one cluster of 6 blocks."""
     D, _ = _window_case(name, dev)
     offs, vals = tsd.prepare_dia_rows(D)
     b = _rhs(D.n, 8, False, dev, seed=6)
@@ -421,12 +449,104 @@ def test_stream_dia_layout_is_the_kernels(dev):
             assert lay.tiles <= sms
             grid = ctypes.c_int()
             tsd._build.check(lib.tpcg_stream_dia_grid(
-                planes - 1, nb, n, 3, pad, lay.tile_rows, 1,
+                planes - 1, nb, n, 3, pad, lay.tile_rows, 1, 0,
                 ctypes.byref(grid)), "tpcg_stream_dia_grid")
             assert grid.value == lay.tiles
 
 
-def test_dia_zero_rhs_column_freezes(dev):
+def test_stream_dia_cluster_rule_is_the_kernels(dev):
+    """The cluster rule against the kernel's own limits: at the widest band
+    of n = 20,000 that the rule runs as one cluster, the C side accepts
+    the cluster launch of 8 RHS (the rule's size) and the card holds such
+    a cluster; one row wider the rule takes the cooperative grid; and where
+    the Python mirror puts a block's bytes past the block's shared memory,
+    the C side refuses the cluster launch."""
+    lib = tsd._build.load()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = 20_000
+    with torch.cuda.device(dev):
+        for planes in (1, 2):
+            lo, hi = 1, n        # cluster at lo, not at hi
+            while hi - lo > 1:
+                mid = (lo + hi) // 2
+                lay = tsd.dia_layout(n, (0, mid, -mid), 1, planes, sms)
+                lo, hi = (mid, hi) if lay.cluster else (lo, mid)
+            lay = tsd.dia_layout(n, (0, lo, -lo), 8, planes, sms)
+            assert lay.cluster == lay.tiles <= tsd.MAX_CLUSTER
+            grid = ctypes.c_int()
+            tsd._build.check(lib.tpcg_stream_dia_grid(
+                planes - 1, 8, n, 3, lo, lay.tile_rows, 0, lay.cluster,
+                ctypes.byref(grid)), "tpcg_stream_dia_grid")
+            assert grid.value == lay.cluster
+            wider = tsd.dia_layout(n, (0, lo + 1, -lo - 1), 8, planes, sms)
+            assert not wider.cluster
+            past = lo + 1
+            while tsd.cluster_smem(lay.tile_rows, (0, past, -past), 8,
+                                   planes) <= tsd.SMEM_PER_BLOCK:
+                past += 1
+            assert lib.tpcg_stream_dia_grid(
+                planes - 1, 8, n, 3, past, lay.tile_rows, 0, lay.cluster,
+                ctypes.byref(grid)) != 0
+
+
+@pytest.mark.parametrize("name,nb,cluster", [
+    ("helm_fem", 1, None), ("helm_fem", 2, None), ("helm_fem", 1, 8),
+    ("small", 3, None), ("ragged", 2, None), ("far", 1, None),
+    ("far_cplx", 2, None), ("far", 3, 4)])
+def test_stream_dia_cluster_matches_plain(dev, name, nb, cluster):
+    """Cluster mode against the plain version over 100 iterations, twice
+    bit-equal, with the counter ``cluster.*`` moving on each launch and
+    ``staged.*`` on none: helm_fe(128) (1 plane wave, and 2 RHS, the second
+    the first times 1 + 0.1j r) as one cluster of 16 blocks (the rule) and
+    of 8; a small real band (2 blocks); 10 tiles, the last ragged; a halo
+    of 1100 rows past the tiles of 512, real and complex, and as 4 blocks
+    of 768."""
+    if name == "helm_fem":
+        D, cplx = _main_path_case("helm_fem", dev)
+        w = plane_wave_rhs(128, 12.0).reshape(-1)
+        r = np.random.default_rng(9).standard_normal(w.shape)
+        w = np.stack([w, w * (1 + 0.1j * r)][:nb])
+        b = torch.from_numpy(np.stack([w.real, w.imag]).astype(
+            np.float32)).to(dev)
+        x0 = torch.zeros_like(b)
+    else:
+        if name == "small":
+            D, cplx = _dia(_small_band(False), np.float32, dev), False
+        else:
+            D, cplx = _window_case(name, dev)
+        b = _rhs(D.n, nb, cplx, dev, seed=3)
+        x0 = 0.1 * _rhs(D.n, nb, cplx, dev, seed=4)
+    if cplx:
+        offs, vals = tsd.prepare_dia_rows_cplx(D)
+        wrap, plain = tsd.stream_cg_dia_rows_cplx, \
+            tsd.stream_cg_dia_rows_cplx_plain
+    else:
+        offs, vals = tsd.prepare_dia_rows(D)
+        wrap, plain = tsd.stream_cg_dia_rows, tsd.stream_cg_dia_rows_plain
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lay = tsd.dia_layout(D.n, offs, nb, 2 if cplx else 1, sms,
+                         cluster=cluster)
+    assert lay.cluster and not lay.staged
+    assert cluster is None or lay.cluster == cluster
+    kernel = "stream_dia_cplx" if cplx else "stream_dia"
+    keys = [k + kernel for k in ("launch.", "cluster.", "staged.")]
+    before = [_counted(k) for k in keys]
+    with _dia_layout(cluster):
+        xk, hk = _run_twice(wrap, offs, vals, b, x0, 100)
+    assert [_counted(k) for k in keys] == [before[0] + 2, before[1] + 2,
+                                           before[2]]
+    xp, hp = plain(offs, vals, b, x0, 100)
+    for c in range(nb):
+        _assert_dia_close(xk[..., c, :], hk[:, c], xp[..., c, :], hp[:, c])
+
+
+@pytest.mark.parametrize("cluster,mode", DIA_MODES)
+def test_dia_zero_rhs_column_freezes(dev, cluster, mode):
+    """A zero RHS column stays x = 0 with a zero history beside a live one
+    over 300 iterations, in kernel A's cluster mode (the rule on this band)
+    and its cooperative grid, and in kernel B."""
+    moved = _counted("cluster.stream_dia") + _counted(
+        "cluster.stream_dia_cplx")
     for cplx in (False, True):
         D = _dia(_small_band(cplx), np.complex64 if cplx else np.float32,
                  dev)
@@ -441,16 +561,23 @@ def test_dia_zero_rhs_column_freezes(dev):
             runs.append((tfd.fused_cg_dia_rows_cplx,
                          tsd.prepare_dia_rows_cplx(D)))
         for wrap, (offs, vals) in runs:
-            xk, hk = wrap(offs, vals, b, x0, 300)
+            with _dia_layout(cluster):
+                xk, hk = wrap(offs, vals, b, x0, 300)
             assert torch.isfinite(xk).all() and torch.isfinite(hk).all()
             assert (xk[..., 1, :] == 0).all() and (hk[:, 1] == 0).all()
+    moved = _counted("cluster.stream_dia") + _counted(
+        "cluster.stream_dia_cplx") - moved
+    assert moved == (2 if mode == "cluster" else 0)
 
 
-def test_dia_kernels_denormal_and_identity_freeze(dev):
+@pytest.mark.parametrize("cluster,mode", DIA_MODES)
+def test_dia_kernels_denormal_and_identity_freeze(dev, cluster, mode):
     """tests/test_fused_cg_dia.py's two freeze systems on the card: the
     weakly dominant band run 400 iterations past convergence stays finite
     and, once its history reads 0, stays 0 (both complex kernels); 2 I
-    freezes after one iteration with x = b / 2."""
+    freezes after one iteration with x = b / 2.  Kernel A in cluster mode
+    (the rule on both systems) and as a cooperative grid."""
+    moved = _counted("cluster.stream_dia_cplx")
     import scipy.sparse as sp
     from tpcg_torch.problems import banded_complex
     n = 1280
@@ -464,7 +591,8 @@ def test_dia_kernels_denormal_and_identity_freeze(dev):
                          .astype(np.float32)).to(dev)
     x0 = torch.zeros_like(b)
     for wrap in (tfd.fused_cg_dia_rows_cplx, tsd.stream_cg_dia_rows_cplx):
-        xk, hk = wrap(offs, vals, b, x0, 400)
+        with _dia_layout(cluster):
+            xk, hk = wrap(offs, vals, b, x0, 400)
         h = hk[:, 0].cpu().numpy()
         assert np.isfinite(h).all() and torch.isfinite(xk).all()
         z = np.where(h == 0)[0]
@@ -474,10 +602,13 @@ def test_dia_kernels_denormal_and_identity_freeze(dev):
     b = torch.zeros((2, 1, 256), device=dev)
     b[0] = 1.0
     for wrap in (tfd.fused_cg_dia_rows_cplx, tsd.stream_cg_dia_rows_cplx):
-        xk, hk = wrap(offs, vals, b, torch.zeros_like(b), 8)
+        with _dia_layout(cluster):
+            xk, hk = wrap(offs, vals, b, torch.zeros_like(b), 8)
         h = hk[:, 0].cpu().numpy()
         assert h[1] < 1e-5 * h[0] and np.all(h[1:] == h[1])
         assert torch.allclose(xk, b / 2.0, atol=1e-6)
+    moved = _counted("cluster.stream_dia_cplx") - moved
+    assert moved == (2 if mode == "cluster" else 0)
 
 
 def test_api_cg_launches_each_dia_kernel(dev):
@@ -577,7 +708,9 @@ def test_api_cg_copies_and_launches_of_one_csr_call(dev):
     assert c["h2d_bytes"] == ndiag * n * 8 + n * 8 + ndiag * 4
     assert c["d2h_bytes"] == n * 8 + (iters + 1) * 4
     assert _launched(c) == {"launch.stream_dia_cplx": 1}
-    assert c["staged.stream_dia_cplx"] == 1
+    # helm_fem's band runs as one cluster, which stages nothing
+    assert c["cluster.stream_dia_cplx"] == 1
+    assert "staged.stream_dia_cplx" not in c
     assert [r.name for r in recs] == [
         "tpcg.cg", "tpcg.convert", "tpcg.convert.dia", "tpcg.wait",
         "tpcg.upload", "tpcg.pack", "tpcg.prepare", "tpcg.wait",
@@ -604,6 +737,8 @@ def test_api_cg_matrix_copies_and_launches_of_one_block_call(dev):
     assert c["d2h_bytes"] == nrhs * n * 4 + (iters + 1) * nrhs * 4
     assert _launched(c) == {"launch.stream_dia": 2}
     assert c["staged.stream_dia"] == 2
+    # the m_t1 shape keeps the cooperative grid
+    assert not [k for k in c if k.startswith("cluster.")]
     launch = ["tpcg.launch.stream_dia", "tpcg.wait", "tpcg.upload"]
     assert [r.name for r in recs] == [
         "tpcg.cg_matrix", "tpcg.pack", "tpcg.prepare", "tpcg.wait",
@@ -881,18 +1016,25 @@ def test_stream_batched_kernel_freezes(dev):
     assert torch.equal(xk, xp) and torch.equal(xk[0], bp[0] / 2)
 
 
-def test_stream_dia_latch_resumes_as_jax(dev):
+@pytest.mark.parametrize("cluster,mode", DIA_MODES)
+def test_stream_dia_latch_resumes_as_jax(dev, cluster, mode):
     """Kernel A on the exact latch system of tests/test_torch_dia_cg.py
     (JAX's 256-iteration latch): frozen at iteration 2, restarted at 256,
     r = 0 exactly at 260; x = (0, 1, -2, 4) and the history of the plain
-    version, real and complex."""
+    version, real and complex, in cluster mode (one block, the rule) and as
+    a cooperative grid."""
     import scipy.sparse as sp
     A = sp.diags([[1.0, -1.0, 1.0], [-1.0, -1.0, 1.0, 1.0],
                   [1.0, -1.0, 1.0]], [-1, 0, 1], format="csr")
-    for dtype, solve in ((np.float32, tsd.stream_cg_dia),
-                         (np.complex64, tsd.stream_cg_dia_cplx)):
+    for dtype, solve, kernel in (
+            (np.float32, tsd.stream_cg_dia, "cluster.stream_dia"),
+            (np.complex64, tsd.stream_cg_dia_cplx,
+             "cluster.stream_dia_cplx")):
         b = np.array([1.0, 1.0, 1.0, 2.0], dtype)
-        xk, hk = solve(_dia(A, dtype, dev), b, n_iterations=600)
+        before = _counted(kernel)
+        with _dia_layout(cluster):
+            xk, hk = solve(_dia(A, dtype, dev), b, n_iterations=600)
+        assert _counted(kernel) == before + (mode == "cluster")
         xp, hp = solve(_dia(A, dtype, "cpu"), b, n_iterations=600)
         assert torch.equal(xk.cpu(), xp) and torch.equal(hk.cpu(), hp)
         np.testing.assert_array_equal(xp.numpy(), [0.0, 1.0, -2.0, 4.0])

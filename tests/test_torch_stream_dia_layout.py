@@ -5,13 +5,19 @@ Each block of a launch owns one tile of consecutive rows
 at least 512) and, where its window of the direction (the tile's rows and
 ``max|off|`` rows each side, every RHS and plane) fits the block's shared
 memory beside the tap list, stages it there once an iteration
-(``dia_layout``).  These tests hold the tiles to that rule at the Fig. 5
-shapes and at sizes around its corners, hold the tiles to one an SM and to
-the RHS count not moving them (a RHS's bits rest on it), and hold the
-window's bytes and the staged-or-direct choice to the kernel's note.  The
-card tests (tests/test_torch_cuda.py) hold the rule to the kernel's own
-answer.
+(``dia_layout``).  A band whose tiles of n over 16 blocks, with their
+values and their windows sized for 8 RHS, fit a block's shared memory runs
+as one thread-block cluster instead (cluster mode).  These tests hold the
+tiles to that rule at the Fig. 5 shapes and at sizes around its corners,
+hold the tiles to one an SM and to the RHS count not moving them (a RHS's
+bits rest on it), hold the window's bytes and the staged-or-direct choice
+to the kernel's note, and hold the Python mirror of the shared-memory
+arithmetic to the constants of the kernel's source.  The card tests
+(tests/test_torch_cuda.py) hold the rule to the kernel's own answer.
 """
+import pathlib
+import re
+
 import pytest
 
 from tpcg_torch.ops import stream_cg_dia as tsd
@@ -23,24 +29,27 @@ PARABOLIC = (0, 1, -1, 725, -725, 726, -726)
 BUDGET = tsd.SMEM_PER_BLOCK - tsd._STATIC_SMEM
 
 
-@pytest.mark.parametrize("n,offsets,rows,tiles", [
-    (97_578, M_T1, 768, 128),        # m_t1: 127 tiles of 768, one of 42
-    (16_384, HELM_FEM, 512, 32),     # helm_fem: the parent's 32 blocks
-    (525_625, PARABOLIC, 4000, 132),
-    (1280, tuple(range(-8, 9)), 512, 3),
+@pytest.mark.parametrize("n,offsets,rows,tiles,cluster", [
+    (97_578, M_T1, 768, 128, 0),       # m_t1: 127 tiles of 768, one of 42
+    (16_384, HELM_FEM, 1024, 16, 16),  # helm_fem: one cluster of 16 blocks
+    (525_625, PARABOLIC, 4000, 132, 0),
+    (1280, tuple(range(-8, 9)), 512, 3, 3),
 ])
-def test_tiles_at_the_fig5_shapes(n, offsets, rows, tiles):
-    for nb in (1, 8):
-        lay = tsd.dia_layout(n, offsets, nb, 1, H100_SMS)
-        assert (lay.tile_rows, lay.tiles) == (rows, tiles)
+def test_tiles_at_the_fig5_shapes(n, offsets, rows, tiles, cluster):
+    for planes in (1, 2):
+        for nb in (1, 8):
+            lay = tsd.dia_layout(n, offsets, nb, planes, H100_SMS)
+            assert (lay.tile_rows, lay.tiles, lay.cluster) == (
+                rows, tiles, cluster)
 
 
 @pytest.mark.parametrize("sms", [1, 114, 132])
 @pytest.mark.parametrize("n", [1, 31, 512, 513, 67_584, 67_585, 97_578,
                                525_625, 2**31 - 3001])
 def test_tiles_cover_the_rows_at_most_one_an_sm(n, sms):
+    """The cooperative grid's tiles (cluster mode has its own test)."""
     rows = tsd.tile_rows(n, sms)
-    tiles = tsd.dia_layout(n, (0, 1, -1), 1, 1, sms).tiles
+    tiles = tsd.dia_layout(n, (0, 1, -1), 1, 1, sms, cluster=0).tiles
     assert rows % 32 == 0 and rows >= tsd.TILE_ROWS_MIN
     assert (tiles - 1) * rows < n <= tiles * rows
     assert tiles <= sms
@@ -55,7 +64,8 @@ def test_tiles_cover_the_rows_at_most_one_an_sm(n, sms):
 def test_tiles_do_not_depend_on_the_rhs_count(n, offsets, planes):
     lays = [tsd.dia_layout(n, offsets, nb, planes, H100_SMS)
             for nb in range(1, 9)]
-    assert len({(lay.tile_rows, lay.tiles) for lay in lays}) == 1
+    assert len({(lay.tile_rows, lay.tiles, lay.cluster)
+                for lay in lays}) == 1
 
 
 def test_window_bytes_and_the_staged_rule():
@@ -68,9 +78,10 @@ def test_window_bytes_and_the_staged_rule():
     assert lay.staged and lay.smem == 143_104 + ring + 4 * 101
     assert tsd.dia_layout(97_578, M_T1, 1, 1, H100_SMS).smem == \
         17_888 + ring + 404
-    # helm_fem, complex, 1 RHS: (512 + 258 + 3 -> 776) rows x 2 planes x 4 B
-    assert tsd.dia_layout(16_384, HELM_FEM, 1, 2, H100_SMS).smem == \
-        6208 + ring + 28
+    # helm_fem as a cooperative grid, complex, 1 RHS: (512 + 258 + 3 ->
+    # 776) rows x 2 planes x 4 B
+    assert tsd.dia_layout(16_384, HELM_FEM, 1, 2, H100_SMS,
+                          cluster=0).smem == 6208 + ring + 28
     # half-width 6000 at n = 20,000: 400 KB at 8 RHS reads from L2, 50 KB
     # at 1 RHS stages
     wide = (0, 6000, -6000)
@@ -95,3 +106,87 @@ def test_staged_up_to_the_block_budget(planes, nb):
         lo, hi = (mid, hi) if staged(mid) else (lo, mid)
     smem = tsd.dia_layout(n, (0, lo, -lo), nb, planes, H100_SMS).smem
     assert smem <= BUDGET < smem + 4 * per_row
+
+
+# ---- cluster mode
+
+def _source_constant(name):
+    src = (pathlib.Path(tsd.__file__).parent.parent / "csrc"
+           / "stream_cg_dia.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_cluster_mirror_agrees_with_the_kernel_source():
+    """The Python side's limits and shared-memory arithmetic are the
+    kernel's: at most 16 blocks a cluster and 8 RHS a launch, 384 threads
+    of 3 rows each keeping a tile of up to 1152 rows in registers, and a
+    block's bytes (the slots of C x 8 B a RHS for two partials, 4
+    mbarriers, the window, the values, the taps)."""
+    assert _source_constant("kMaxCluster") == tsd.MAX_CLUSTER == 16
+    assert _source_constant("kMaxRhs") == tsd._MAX_RHS
+    assert _source_constant("kMaxDiags") == tsd._MAX_DIAGS
+    assert _source_constant("kThreads") * _source_constant("kRows") * 4 \
+        * _source_constant("kDepth") == tsd.RING_BYTES
+    # helm_fem, complex, 1 RHS, tiles of 1024 rows: slots 256 B, mbarriers
+    # 32 B, window (1024 + 258 + 3 -> 1288) x 2 x 4 B, values 2 x 7 x 1024
+    # x 4 B, taps 7 x 4 B
+    assert tsd.cluster_smem(1024, HELM_FEM, 1, 2) == \
+        256 + 32 + 10_304 + 57_344 + 28
+    assert tsd.dia_layout(16_384, HELM_FEM, 1, 2, H100_SMS).smem == 67_964
+    assert tsd.dia_layout(16_384, HELM_FEM, 8, 2, H100_SMS).smem == \
+        2048 + 32 + 8 * 10_304 + 57_344 + 28
+
+
+@pytest.mark.parametrize("n,offsets,planes,cluster", [
+    (16_384, HELM_FEM, 2, True),       # helm_fem
+    (16_384, HELM_FEM, 1, True),
+    (28_000, HELM_FEM, 2, True),
+    (30_000, HELM_FEM, 2, False),      # complex: 2 x 8 RHS windows too big
+    (57_000, HELM_FEM, 1, True),       # real holds about twice the rows
+    (60_000, HELM_FEM, 1, False),
+    (97_578, M_T1, 1, False),          # m_t1: the 39 MB band
+    (4000, tuple(range(-1850, 1851, 37)), 1, False),
+    (525_625, PARABOLIC, 1, False),    # parabolic_fem as DIA
+    (777, (0, 1, 3, 40), 1, True),
+    (4, (0, 1, -1), 2, True),
+])
+def test_cluster_rule(n, offsets, planes, cluster):
+    """Cluster mode exactly where the cluster's tiles, their values and
+    their windows sized for 8 RHS fit a block's shared memory, at 1 RHS and
+    8 alike; m_t1's shape and parabolic_fem as DIA keep the cooperative
+    grid."""
+    budget = tsd.SMEM_PER_BLOCK - tsd._STATIC_SMEM
+    rows = tsd.cluster_tile_rows(n, H100_SMS)
+    assert (tsd.cluster_smem(rows, offsets, 8, planes) <= budget) == cluster
+    for nb in (1, 8):
+        lay = tsd.dia_layout(n, offsets, nb, planes, H100_SMS)
+        assert bool(lay.cluster) == cluster and not (lay.cluster and
+                                                     lay.staged)
+        if cluster:
+            assert lay.smem == tsd.cluster_smem(rows, offsets, nb, planes)
+
+
+@pytest.mark.parametrize("n", [1, 31, 512, 513, 8192, 8193, 16_384,
+                               16_385, 20_000, 28_000])
+def test_cluster_tiles_cover_the_rows(n):
+    """One cluster of at most 16 blocks, each a tile of a multiple of 32
+    rows (at least the cooperative tile), every block holding rows."""
+    lay = tsd.dia_layout(n, HELM_FEM, 1, 2, H100_SMS)
+    assert lay.cluster == lay.tiles and 1 <= lay.tiles <= tsd.MAX_CLUSTER
+    rows = lay.tile_rows
+    assert rows % 32 == 0 and rows >= tsd.tile_rows(n, H100_SMS)
+    assert (lay.tiles - 1) * rows < n <= lay.tiles * rows
+    if rows > tsd.TILE_ROWS_MIN:
+        # no smaller multiple of 32 keeps the cluster within 16 blocks
+        assert -(-n // (rows - 32)) > tsd.MAX_CLUSTER
+
+
+def test_cluster_size_override():
+    """dia_layout(cluster=C), for probes and tests: C blocks of n over C
+    rows (rounded up to 32); cluster=0 the cooperative grid."""
+    lay = tsd.dia_layout(16_384, HELM_FEM, 1, 2, H100_SMS, cluster=8)
+    assert (lay.tile_rows, lay.tiles, lay.cluster) == (2048, 8, 8)
+    assert lay.smem == tsd.cluster_smem(2048, HELM_FEM, 1, 2)
+    lay = tsd.dia_layout(16_384, HELM_FEM, 1, 2, H100_SMS, cluster=0)
+    assert (lay.tile_rows, lay.tiles, lay.cluster) == (512, 32, 0)
+    assert lay.staged

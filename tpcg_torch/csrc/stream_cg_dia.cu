@@ -35,6 +35,9 @@
 // and the <d,q> partials; after the x, r update and the <r,r> partials;
 // after the d update, which other rows read) add a fixed latency of a few
 // microseconds, which is what bounds small bands (helm_fem: 7 diagonals).
+// On the H100 one grid barrier and the read of the blocks' partials through
+// L2 cost 1.62-1.69 us however few the blocks (probes/stream_dia_window.py
+// floor): helm_fem's phases took 3.38, 2.05 and 1.81 us.
 //
 // What the design does about it:
 //   * a block owns one tile of consecutive rows (ops/stream_cg_dia.py::
@@ -80,6 +83,46 @@
 //     and reruns agree bit for bit.
 // The direction, which other blocks write, is read through L2 alone
 // (cp.async.cg, __ldcg) after a grid barrier; values, b and x0 may pass L1.
+//
+// Cluster mode (template argument CLUSTER).  Where a band is small enough
+// that its tiles, their values and their windows fit the shared memory of
+// at most kMaxCluster = 16 blocks, the launch is one thread-block cluster of
+// C blocks on neighbouring SMs, and no grid barrier is left:
+//   * what bounds it: three exchanges an iteration, each a one-way trip
+//     over distributed shared memory (DSMEM) and an mbarrier wait.  A
+//     cluster barrier with its release fence costs 0.75-0.82 us, and 1.24-
+//     1.32 us with a read of the partials over DSMEM after it; a partial
+//     pushed by st.async into a slot of every block, completing its bytes
+//     on that block's mbarrier, costs 0.60-0.66 us with the block's own
+//     reduction (the floor probe, C = 2..16);
+//   * the exchanges, which replace the three grid barriers: after q = A d,
+//     warp b of every block pushes its <d,q> partial of RHS b into slot
+//     [b][block] of every block; after the x, r update the same for
+//     <r,r>; after the d update, each thread pushes each of its rows of d
+//     into the window of every other block whose window holds that row (a
+//     tile's first and last max|off| rows, to one neighbour each where
+//     max|off| <= the tile).  Each block waits on its own mbarrier of the
+//     exchange for the bytes it expects (C x NB partials; its window's halo
+//     rows inside the matrix), then reads locally.  Every push of a kind
+//     lands before any block can send the next one of that kind (each
+//     block sends it only after it has all of the exchange that follows),
+//     so one slot and one mbarrier per kind suffice;
+//   * the reduction order: each block sums the C partials of a RHS from
+//     its slots in block order, by one warp (lane g holds block g's, then
+//     the butterfly), the same in every block, so every block derives
+//     bit-identical scalars and reruns agree bit for bit;
+//   * the values stay in each block's shared memory for the whole solve,
+//     loaded once before r0, and the window of the direction too: a
+//     block's own rows are written there by the d update, the halo by the
+//     other blocks' pushes; rows outside the matrix stay zero.  Tiles of
+//     up to kClusterRows x kThreads rows keep x, r and q in registers;
+//   * the fit rule (ops/stream_cg_dia.py::dia_layout): tiles of n over 16
+//     blocks rounded up to 32 rows (at least the cooperative tile), with
+//     their resident values and windows sized for kMaxRhs = 8 RHS, in a
+//     block's shared memory; it never reads the launch's RHS count, so a
+//     RHS's bits do not depend on the launch.  The host checks that the
+//     card can hold such a cluster (cudaOccupancyMaxActiveClusters), and
+//     else runs the cooperative launch.
 // wgmma has no place here: there is no matrix product.  TMA bulk copies
 // of the values, issued by one thread into a ring the block shares, were
 // slower than the threads' own rings (the block waits at a barrier every
@@ -93,6 +136,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace cg = cooperative_groups;
 
@@ -108,6 +152,13 @@ constexpr int kRingFloats = kDepth * kRows * kThreads;
 constexpr int kMaxRhs = 8;
 constexpr int kMaxDiags = 4096;
 constexpr int kLatchIters = 256;  // tpcg/ops/stream_cg_dia.py::_CHUNK
+// cluster mode: blocks of the one cluster, and rows a thread takes at once
+constexpr int kMaxCluster = 16;
+constexpr int kClusterRows = 3;
+// cluster mode, ahead of the window: the slots of the partials pushed to a
+// block (<d,q> and <r,r>, kMaxRhs RHS x kMaxCluster blocks at most) and its
+// mbarriers (the window's halo, <d,q>, <r,r>, and one for alignment)
+enum { kHaloBar, kDqBar, kRrBar, kBars = 4 };
 
 struct Params {
   const float* vals;  // (P, ndiag, n)                      read-only
@@ -119,8 +170,8 @@ struct Params {
   float* r;           // (P, nb, n)                         scratch
   float* q;           // (P, nb, n)                         scratch
   float* dpad;        // (P, nb, n + 2 pad)                 scratch
-  float2* part_dq;    // (nb, gridDim.x) partials <d,q>     scratch
-  float2* part_rr;    // (nb, gridDim.x) partials <r,r>     scratch
+  float2* part_dq;    // (nb, gridDim.x) partials <d,q>     scratch (not in
+  float2* part_rr;    // (nb, gridDim.x) partials <r,r>     cluster mode)
   int n, ndiag, pad, n_iterations;
   int tile_rows;      // rows of a block's tile (the last tile may be shorter)
 };
@@ -133,12 +184,17 @@ __host__ __device__ __forceinline__ int window_stride(int tile_rows, int pad) {
 }
 
 // Dynamic shared memory of a launch: the window (staged launches), the
-// rings of values, then the tap list.
+// rings of values, then the tap list; in cluster mode the slots and
+// mbarriers, the window, the tile's values, then the tap list.
 size_t smem_bytes(int planes, int nb, int tile_rows, int pad, int ndiag,
-                  bool staged) {
+                  bool staged, bool cluster) {
   const size_t win =
-      staged ? static_cast<size_t>(planes) * nb * window_stride(tile_rows, pad)
-             : 0;
+      staged || cluster
+          ? static_cast<size_t>(planes) * nb * window_stride(tile_rows, pad)
+          : 0;
+  if (cluster)
+    return 2 * nb * kMaxCluster * sizeof(float2) + kBars * sizeof(uint64_t) +
+           (win + static_cast<size_t>(planes) * ndiag * tile_rows + ndiag) * 4;
   return (win + kRingFloats + ndiag) * 4;
 }
 
@@ -151,12 +207,88 @@ __device__ __forceinline__ float2 warp_sum(float2 v) {
   return v;
 }
 
-// Block-wide sums of acc[0..NB); block partial of RHS b goes to
-// part[b * gridDim.x + blockIdx.x], so that one RHS's partials are
-// contiguous.
-template <int NB>
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The address in block `rank` of the cluster of a shared-memory address of
+// this block (the same variable there).
+__device__ __forceinline__ uint32_t peer(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Stores into another block's shared memory (addresses from peer()), each
+// completing its bytes on that block's mbarrier `bar`.
+__device__ __forceinline__ void push(uint32_t dst, float v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];" ::"r"(dst),
+      "f"(v), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void push(uint32_t dst, float2 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];" ::"r"(dst),
+      "f"(v.x), "f"(v.y), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ bool bar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+      "%2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// Cluster mode: the end of an exchange.  Thread 0 arrives on the block's
+// mbarrier of the exchange with the bytes the block expects from the
+// pushes; every thread waits for the phase of the given parity to complete
+// (trap after ~20 s: a push that never lands is a fault, not a hang), and,
+// where block_sync, for the block's own stores too.  Cooperative mode: a
+// grid barrier.
+template <bool CLUSTER>
+__device__ __forceinline__ void exchange(cg::grid_group& grid, uint64_t* bar,
+                                         uint32_t bytes, uint32_t parity,
+                                         bool block_sync) {
+  if constexpr (CLUSTER) {
+    const uint32_t a = smem_addr(bar);
+    if (threadIdx.x == 0)
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(a),
+          "r"(bytes)
+          : "memory");
+    if (!bar_try(a, parity)) {
+      const long long t0 = clock64();
+      while (!bar_try(a, parity))
+        if (clock64() - t0 > (1ll << 35)) __trap();
+    }
+    if (block_sync) __syncthreads();
+  } else {
+    grid.sync();
+  }
+}
+
+// Block-wide sums of acc[0..NB).  Cooperative: block partial of RHS b goes
+// to part[b * gridDim.x + blockIdx.x], so that one RHS's partials are
+// contiguous.  Cluster: warp b pushes it into slot part[b * kMaxCluster +
+// blockIdx.x] of every block of the cluster, completing on its mbarrier
+// `bar` (NB x gridDim.x x 8 bytes a block).
+template <int NB, bool CLUSTER>
 __device__ void block_partials(const float2 (&acc)[NB],
-                               float2 (*red)[kMaxRhs], float2* part) {
+                               float2 (*red)[kMaxRhs], float2* part,
+                               uint64_t* bar) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float2 v[NB];
 #pragma unroll
@@ -169,10 +301,17 @@ __device__ void block_partials(const float2 (&acc)[NB],
   if (warp < NB) {
     float2 w = lane < kWarps ? red[lane][warp] : make_float2(0.f, 0.f);
     w = warp_sum(w);
-    if (lane == 0)
+    if constexpr (CLUSTER) {
+      if (lane < static_cast<int>(gridDim.x))
+        push(peer(smem_addr(part + warp * kMaxCluster + blockIdx.x), lane), w,
+             peer(smem_addr(bar), lane));
+    } else if (lane == 0) {
       part[static_cast<size_t>(warp) * gridDim.x + blockIdx.x] = w;
+    }
   }
-  __syncthreads();
+  // (cluster mode: red is next written after a __syncthreads of the phase
+  // that follows)
+  if constexpr (!CLUSTER) __syncthreads();
 }
 
 // Sum over blocks of the partials of RHS rhs, by one warp, in a fixed
@@ -188,6 +327,16 @@ __device__ float2 grid_total(const float2* part, int nblocks, int rhs) {
     v.y += u.y;
   }
   return warp_sum(v);
+}
+
+// Cluster mode: the sum of the partials of RHS rhs pushed into the block's
+// slots, by one warp in block order (lane g holds block g's, then the
+// butterfly), the same in every block.
+__device__ __forceinline__ float2 cluster_total(const float2* part,
+                                                int nblocks, int rhs) {
+  const int lane = threadIdx.x & 31;
+  return warp_sum(lane < nblocks ? part[rhs * kMaxCluster + lane]
+                                 : make_float2(0.f, 0.f));
 }
 
 // Smith-scaled complex division a / b (tpcg/ops/stream_cg.py::_smith_cdiv).
@@ -254,15 +403,45 @@ __device__ __forceinline__ void copy_wait() {
 // [cb pn + t0 - s, cb pn + t1 + 2 pad) of each (plane, RHS) cb from float
 // cb ws of the window, s = (cb pn + t0) mod 4 floats early so that its copy
 // starts on 16 bytes.  win_base(cb) + i is row i's index in the window.
+//
+// Cluster mode: no shift (nothing is copied), so row i of (plane, RHS) cb
+// sits at float cb ws + pad + i - t0 in every block's window of row i.
 struct Tile {
   int t0, t1;  // the block's rows [t0, t1)
   int ws;      // window_stride
   size_t pn;   // n + 2 pad
   int pad;
+  bool shift;  // false in cluster mode
   __device__ __forceinline__ int win_base(int cb) const {
-    return cb * ws + static_cast<int>((cb * pn + t0) & 3) - t0 + pad;
+    return cb * ws + (shift ? static_cast<int>((cb * pn + t0) & 3) : 0) - t0 +
+           pad;
   }
 };
+
+// Cluster mode: push row i of the block's tile, v[c][b] of each plane c and
+// RHS b, into the window of every other block whose window holds row i
+// (blocks lo..hi, tiles of T rows), completing on each one's halo mbarrier.
+template <int P, int NB>
+__device__ __forceinline__ void publish_row(const float* win, const Tile& t,
+                                            int T, int nblocks, int i,
+                                            const float (&v)[P][NB],
+                                            uint64_t* bar) {
+  const int lo = i >= t.pad ? (i - t.pad) / T : 0;
+  const int hi = min(nblocks - 1, (i + t.pad) / T);
+  if (lo == hi) return;  // no other block's window
+  const uint32_t w = smem_addr(win), b = smem_addr(bar);
+  for (int c = lo; c <= hi; ++c) {
+    if (c == static_cast<int>(blockIdx.x)) continue;
+    const uint32_t row = peer(w, c) + 4u * (i - c * T + t.pad);
+    const uint32_t cbar = peer(b, c);
+#pragma unroll
+    for (int pc = 0; pc < P; ++pc) {
+#pragma unroll
+      for (int r = 0; r < NB; ++r)
+        push(row + 4u * (pc * NB + r) * t.ws, v[pc][r], cbar);
+    }
+  }
+}
 
 // Issue the copies of the block's window of the direction, every RHS and
 // plane: rows [t0 - pad, t1 + pad), padded-buffer indices [t0, t1 + 2 pad)
@@ -305,100 +484,113 @@ __device__ __forceinline__ void issue_values(const Params& p, float* ring,
   copy_commit();
 }
 
-// (A d) of rows i0 + j kThreads, j < nr <= kRows, for the NB RHS, each
-// row's sum over the taps in ascending order.  w[cb] points at row i0 of
-// (plane, RHS) cb of the direction, in the window (STAGED) or in the padded
-// buffer.  The values reach the thread's ring in shared memory D - 1
-// diagonals ahead of their use, by cp.async, so the loop waits on nothing
-// but the oldest copy; primed: the first D - 1 diagonals were issued
-// already.
-template <bool CPLX, int NB, bool STAGED>
+// (A d) of rows i0 + j kThreads, j < nr <= R, for the NB RHS, each row's
+// sum over the taps in ascending order.  w[cb] points at row i0 of (plane,
+// RHS) cb of the direction, in the window (STAGED, CLUSTER) or in the
+// padded buffer.  Cooperative: the values reach the thread's ring in
+// shared memory D - 1 diagonals ahead of their use, by cp.async, so the
+// loop waits on nothing but the oldest copy; primed: the first D - 1
+// diagonals were issued already.  Cluster: vals points at row i0 of the
+// tile's resident values (diagonal k of plane c T (c ndiag + k) floats on).
+template <bool CPLX, int NB, bool STAGED, bool CLUSTER, int R>
 __device__ __forceinline__ void apply_rows(const Params& p, const int* s_off,
                                            int i0, int nr, bool primed,
                                            const float* (&w)[NB * 2],
-                                           float* ring,
-                                           float (&qr)[kRows][NB],
-                                           float (&qi)[kRows][NB]) {
+                                           float* ring, const float* vals,
+                                           float (&qr)[R][NB],
+                                           float (&qi)[R][NB]) {
   constexpr int P = CPLX ? 2 : 1;
   constexpr int D = kDepth / P;
   const int ndiag = p.ndiag;
+  const int T = p.tile_rows;
 #pragma unroll
-  for (int j = 0; j < kRows; ++j) {
+  for (int j = 0; j < R; ++j) {
 #pragma unroll
     for (int b = 0; b < NB; ++b) qr[j][b] = qi[j][b] = 0.f;
   }
-  if (!primed) {
+  if (!CLUSTER && !primed) {
 #pragma unroll 1
     for (int k = 0; k < D - 1; ++k) issue_values<CPLX>(p, ring, i0, nr, k);
   }
   const float* mine = ring + threadIdx.x;
 #pragma unroll 2
   for (int k = 0; k < ndiag; ++k) {
-    issue_values<CPLX>(p, ring, i0, nr, k + D - 1);
-    copy_wait<D - 1>();
+    if constexpr (!CLUSTER) {
+      issue_values<CPLX>(p, ring, i0, nr, k + D - 1);
+      copy_wait<D - 1>();
+    }
     const int off = s_off[k];
-    const float* slot = mine + (k % D) * P * kRows * kThreads;
+    const float* slot = CLUSTER ? vals + static_cast<size_t>(k) * T
+                                : mine + (k % D) * P * kRows * kThreads;
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) {
+    for (int j = 0; j < R; ++j) {
       if (j < nr) {
         const int o = j * kThreads + off;
         const float vr = slot[j * kThreads];
         if (CPLX) {
-          const float vi = slot[(kRows + j) * kThreads];
+          const float vi =
+              CLUSTER ? slot[static_cast<size_t>(ndiag) * T + j * kThreads]
+                      : slot[(kRows + j) * kThreads];
 #pragma unroll
           for (int b = 0; b < NB; ++b) {
-            const float wr = dir<STAGED>(w[b] + o);
-            const float wi = dir<STAGED>(w[NB + b] + o);
+            const float wr = dir<STAGED || CLUSTER>(w[b] + o);
+            const float wi = dir<STAGED || CLUSTER>(w[NB + b] + o);
             qr[j][b] = qr[j][b] + vr * wr - vi * wi;
             qi[j][b] = qi[j][b] + vr * wi + vi * wr;
           }
         } else {
 #pragma unroll
           for (int b = 0; b < NB; ++b)
-            qr[j][b] = qr[j][b] + vr * dir<STAGED>(w[b] + o);
+            qr[j][b] = qr[j][b] + vr * dir<STAGED || CLUSTER>(w[b] + o);
         }
       }
     }
   }
-  copy_wait<0>();
+  if constexpr (!CLUSTER) copy_wait<0>();
 }
 
 // q = A d over the block's tile and the partials of <d, q> (STORE_Q) or
 // r = b - A d and the partials of <r, r>; the direction in dpad, staged
 // into the window first where STAGED, its copies in flight beside the
-// first diagonals' values.
-template <bool CPLX, int NB, bool STAGED, bool STORE_Q>
+// first diagonals' values; in cluster mode already whole in the window.
+template <bool CPLX, int NB, bool STAGED, bool CLUSTER, int R, bool STORE_Q>
 __device__ __forceinline__ void apply_tile(
-    const Params& p, const int* s_off, float* win, float* ring, const Tile& t,
-    bool resident, float (&rs)[kRows][CPLX ? 2 : 1][NB],
-    float (&qs)[kRows][CPLX ? 2 : 1][NB], float2 (&acc)[NB]) {
+    const Params& p, const int* s_off, float* win, float* ring,
+    const float* vals, const Tile& t, bool resident,
+    float (&rs)[R][CPLX ? 2 : 1][NB], float (&qs)[R][CPLX ? 2 : 1][NB],
+    float2 (&acc)[NB]) {
   constexpr int P = CPLX ? 2 : 1;
   constexpr int D = kDepth / P;
   const int n = p.n;
   const int first = t.t0 + threadIdx.x;
-  const int nr0 =
-      first < t.t1 ? min(kRows, (t.t1 - first + kThreads - 1) / kThreads) : 0;
-  if (STAGED) issue_window<P * NB>(p.dpad, t, win);
-  copy_commit();
+  if constexpr (!CLUSTER) {
+    const int nr0 =
+        first < t.t1 ? min(kRows, (t.t1 - first + kThreads - 1) / kThreads)
+                     : 0;
+    if (STAGED) issue_window<P * NB>(p.dpad, t, win);
+    copy_commit();
 #pragma unroll 1
-  for (int k = 0; k < D - 1; ++k) issue_values<CPLX>(p, ring, first, nr0, k);
-  copy_wait<D - 1>();  // the window's group, the oldest
-  __syncthreads();
+    for (int k = 0; k < D - 1; ++k)
+      issue_values<CPLX>(p, ring, first, nr0, k);
+    copy_wait<D - 1>();  // the window's group, the oldest
+    __syncthreads();
+  }
 #pragma unroll
   for (int b = 0; b < NB; ++b) acc[b] = make_float2(0.f, 0.f);
-  for (int i0 = first; i0 < t.t1; i0 += kRows * kThreads) {
-    const int nr = min(kRows, (t.t1 - i0 + kThreads - 1) / kThreads);
+  for (int i0 = first; i0 < t.t1; i0 += R * kThreads) {
+    const int nr = min(R, (t.t1 - i0 + kThreads - 1) / kThreads);
     const float* w[NB * 2];
 #pragma unroll
     for (int cb = 0; cb < NB * 2; ++cb)
-      w[cb] = cb >= P * NB ? nullptr
-              : STAGED     ? win + t.win_base(cb) + i0
-                           : p.dpad + cb * t.pn + t.pad + i0;
-    float qr[kRows][NB], qi[kRows][NB];
-    apply_rows<CPLX, NB, STAGED>(p, s_off, i0, nr, i0 == first, w, ring, qr,
-                                 qi);
+      w[cb] = cb >= P * NB        ? nullptr
+              : STAGED || CLUSTER ? win + t.win_base(cb) + i0
+                                  : p.dpad + cb * t.pn + t.pad + i0;
+    float qr[R][NB], qi[R][NB];
+    apply_rows<CPLX, NB, STAGED, CLUSTER, R>(p, s_off, i0, nr, i0 == first, w,
+                                             ring, vals + (i0 - t.t0), qr,
+                                             qi);
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) {
+    for (int j = 0; j < R; ++j) {
       if (j < nr) {
         const int i = i0 + j * kThreads;
         const int o = j * kThreads;
@@ -407,11 +599,11 @@ __device__ __forceinline__ void apply_tile(
           const size_t ir = static_cast<size_t>(b) * n + i;
           const size_t ii = static_cast<size_t>(NB + b) * n + i;
           if (STORE_Q) {
-            const float dr = dir<STAGED>(w[b] + o);
+            const float dr = dir<STAGED || CLUSTER>(w[b] + o);
             qs[j][0][b] = qr[j][b];
             if (!resident) p.q[ir] = qr[j][b];
             if (CPLX) {
-              const float di = dir<STAGED>(w[NB + b] + o);
+              const float di = dir<STAGED || CLUSTER>(w[NB + b] + o);
               qs[j][P - 1][b] = qi[j][b];
               if (!resident) p.q[ii] = qi[j][b];
               acc[b].x += dr * qr[j][b] - di * qi[j][b];
@@ -439,14 +631,18 @@ __device__ __forceinline__ void apply_tile(
   }
 }
 
-template <bool CPLX, int NB, bool STAGED>
+template <bool CPLX, int NB, bool STAGED, bool CLUSTER>
 __global__ void __launch_bounds__(kThreads, 1) stream_dia_kernel(Params p) {
   constexpr int P = CPLX ? 2 : 1;
-  // rows a thread loads at once in the x, r and d passes: its kRows rows
-  // of q = A d, where their state fits the registers
-  constexpr int G = P * NB <= 8 ? kRows : 1;
-  cg::grid_group grid = cg::this_grid();
-  // the window (STAGED), the rings of values, the ndiag tap offsets
+  // rows a thread takes through one pass of the taps
+  constexpr int R = CLUSTER ? kClusterRows : kRows;
+  // rows a thread loads at once in the x, r and d passes: its R rows of
+  // q = A d, where their state fits the registers
+  constexpr int G = P * NB * R <= 8 * kRows ? R : 1;
+  cg::grid_group grid = cg::this_grid();  // (synced only when cooperative)
+  // cooperative: the window (STAGED), the rings of values, the ndiag tap
+  // offsets; cluster: the slots of the partials, the mbarriers, the
+  // window, the tile's values, the tap offsets
   extern __shared__ __align__(16) float smem[];
   __shared__ float2 red[kWarps][kMaxRhs];
   __shared__ float2 s_delta[NB];
@@ -465,10 +661,22 @@ __global__ void __launch_bounds__(kThreads, 1) stream_dia_kernel(Params p) {
   tile.ws = window_stride(p.tile_rows, pad);
   tile.pn = pn;
   tile.pad = pad;
+  tile.shift = !CLUSTER;
   const int t0 = tile.t0, t1 = tile.t1;
-  float* win = smem;
+  float2* slot_dq = reinterpret_cast<float2*>(smem);
+  float2* slot_rr = slot_dq + NB * kMaxCluster;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(slot_rr + NB * kMaxCluster);
+  float* win = CLUSTER ? reinterpret_cast<float*>(bars + kBars) : smem;
   float* ring = smem + (STAGED ? P * NB * tile.ws : 0);
-  int* s_off = reinterpret_cast<int*>(ring + kRingFloats);
+  float* vals = win + P * NB * tile.ws;
+  int* s_off = reinterpret_cast<int*>(
+      CLUSTER ? vals + static_cast<size_t>(P) * p.ndiag * p.tile_rows
+              : ring + kRingFloats);
+  // cluster mode: bytes each block expects from an exchange of partials and
+  // of its window's halo rows inside the matrix
+  const uint32_t part_bytes = NB * nblocks * sizeof(float2);
+  const uint32_t halo_bytes =
+      (min(pad, t0) + min(pad, n - t1)) * P * NB * sizeof(float);
   // element i of RHS b, plane c: in (P, NB, n) and in dpad
   auto at = [&](int c, int b, int i) {
     return static_cast<size_t>(c * NB + b) * n + i;
@@ -479,31 +687,77 @@ __global__ void __launch_bounds__(kThreads, 1) stream_dia_kernel(Params p) {
   // d of one of the block's rows: from the window (filled this iteration)
   // or from L2
   auto d_at = [&](int c, int b, int i) {
-    return STAGED ? win[tile.win_base(c * NB + b) + i]
-                  : __ldcg(p.dpad + pad_at(c, b, i));
+    return STAGED || CLUSTER ? win[tile.win_base(c * NB + b) + i]
+                             : __ldcg(p.dpad + pad_at(c, b, i));
   };
-  // Resident: the tile is one pass of the threads' G = kRows rows, so each
+  // a new direction (or x0) of one of the block's rows: to the padded
+  // buffer, or (cluster mode) to the window, whence publish() pushes the
+  // thread's rows into the other blocks' windows
+  auto store_d = [&](int c, int b, int i, float v) {
+    if (CLUSTER)
+      win[tile.win_base(c * NB + b) + i] = v;
+    else
+      p.dpad[pad_at(c, b, i)] = v;
+  };
+  auto publish = [&](int i0, int nr) {
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if (j < nr) {
+        const int i = i0 + j * kThreads;
+        float v[P][NB];
+#pragma unroll
+        for (int c = 0; c < P; ++c) {
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+            v[c][b] = win[tile.win_base(c * NB + b) + i];
+        }
+        publish_row<P, NB>(win, tile, p.tile_rows, nblocks, i, v,
+                           bars + kHaloBar);
+      }
+    }
+  };
+  // Resident: the tile is one pass of the threads' G = R rows, so each
   // thread keeps x, r and q of its rows in registers for the whole solve
   // (xs, rs, qs) and writes x once at the end; else they are the
   // registers of one pass, loaded and stored every phase.
-  const bool resident = G == kRows && p.tile_rows <= kRows * kThreads;
-  float xs[kRows][P][NB], rs[kRows][P][NB], qs[kRows][P][NB];
+  const bool resident = G == R && p.tile_rows <= R * kThreads;
+  float xs[R][P][NB], rs[R][P][NB], qs[R][P][NB];
   const int first = t0 + threadIdx.x;
   auto rows_at = [&](int i0) {
     return min(G, (t1 - i0 + kThreads - 1) / kThreads);
   };
 
   // 1. taps to shared memory; zero the padded direction buffer, whose
-  //    border stays zero for the whole solve.
+  //    border stays zero for the whole solve.  Cluster: zero the window
+  //    (its rows outside the matrix stay zero), load the tile's values and
+  //    set up the mbarriers before any block pushes.
   for (int k = threadIdx.x; k < p.ndiag; k += kThreads) s_off[k] = p.offs[k];
   if (threadIdx.x < NB) s_done[threadIdx.x] = 0;
-  for (size_t e = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-       e < static_cast<size_t>(P) * NB * pn;
-       e += static_cast<size_t>(nblocks) * kThreads)
-    p.dpad[e] = 0.f;
-  grid.sync();
+  if constexpr (CLUSTER) {
+    const int T = p.tile_rows;
+    for (int e = threadIdx.x; e < P * NB * tile.ws; e += kThreads)
+      win[e] = 0.f;
+    for (int e = threadIdx.x; e < P * p.ndiag * T; e += kThreads) {
+      const int ck = e / T, i = t0 + e - ck * T;
+      vals[e] = i < n ? __ldg(p.vals + static_cast<size_t>(ck) * n + i) : 0.f;
+    }
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < kBars; ++k)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                         smem_addr(bars + k))
+                     : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    cg::this_cluster().sync();
+  } else {
+    for (size_t e = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+         e < static_cast<size_t>(P) * NB * pn;
+         e += static_cast<size_t>(nblocks) * kThreads)
+      p.dpad[e] = 0.f;
+    cg::this_grid().sync();
+  }
 
-  // 2. x = x0, staged through the padded buffer for A x0.
+  // 2. x = x0, staged through the padded buffer (the windows) for A x0.
   for (int i0 = first; i0 < t1; i0 += G * kThreads) {
     const int nr = rows_at(i0);
 #pragma unroll
@@ -517,26 +771,29 @@ __global__ void __launch_bounds__(kThreads, 1) stream_dia_kernel(Params p) {
             const float v = __ldg(p.x0 + at(c, b, i));
             xs[j][c][b] = v;
             if (!resident) p.x[at(c, b, i)] = v;
-            p.dpad[pad_at(c, b, i)] = v;
+            store_d(c, b, i, v);
           }
         }
       }
     }
+    if constexpr (CLUSTER) publish(i0, nr);
   }
-  grid.sync();
+  exchange<CLUSTER>(grid, bars + kHaloBar, halo_bytes, 0, true);
 
   // 3. r0 = b - A x0 and the partials of <r0, r0>.
   {
     float2 acc[NB];
-    apply_tile<CPLX, NB, STAGED, false>(p, s_off, win, ring, tile, resident,
-                                        rs, qs, acc);
-    block_partials<NB>(acc, red, p.part_rr);
+    apply_tile<CPLX, NB, STAGED, CLUSTER, R, false>(
+        p, s_off, win, ring, vals, tile, resident, rs, qs, acc);
+    block_partials<NB, CLUSTER>(acc, red, CLUSTER ? slot_rr : p.part_rr,
+                                bars + kRrBar);
   }
-  grid.sync();
+  exchange<CLUSTER>(grid, bars + kRrBar, part_bytes, 0, false);
 
   // 4. delta0 and hist[0]; d0 = r0 (every block is past its reads of x0).
   if (warp < NB) {
-    const float2 t = grid_total(p.part_rr, nblocks, warp);
+    const float2 t = CLUSTER ? cluster_total(slot_rr, nblocks, warp)
+                             : grid_total(p.part_rr, nblocks, warp);
     if (lane == 0) {
       const float2 dl = make_float2(t.x, CPLX ? 2.f * t.y : 0.f);
       s_delta[warp] = dl;
@@ -553,28 +810,30 @@ __global__ void __launch_bounds__(kThreads, 1) stream_dia_kernel(Params p) {
         for (int c = 0; c < P; ++c) {
 #pragma unroll
           for (int b = 0; b < NB; ++b)
-            p.dpad[pad_at(c, b, i)] =
-                resident ? rs[j][c][b] : p.r[at(c, b, i)];
+            store_d(c, b, i, resident ? rs[j][c][b] : p.r[at(c, b, i)]);
         }
       }
     }
+    if constexpr (CLUSTER) publish(i0, nr);
   }
-  grid.sync();
+  exchange<CLUSTER>(grid, bars + kHaloBar, halo_bytes, 1, true);
 
   for (int it = 0; it < p.n_iterations; ++it) {
     // phase 1: the window of d, q = A d and the partials of <d, q>.
     {
       float2 acc[NB];
-      apply_tile<CPLX, NB, STAGED, true>(p, s_off, win, ring, tile, resident,
-                                         rs, qs, acc);
-      block_partials<NB>(acc, red, p.part_dq);
+      apply_tile<CPLX, NB, STAGED, CLUSTER, R, true>(
+          p, s_off, win, ring, vals, tile, resident, rs, qs, acc);
+      block_partials<NB, CLUSTER>(acc, red, CLUSTER ? slot_dq : p.part_dq,
+                                  bars + kDqBar);
     }
-    grid.sync();
+    exchange<CLUSTER>(grid, bars + kDqBar, part_bytes, it & 1, false);
 
     // phase 2: alpha (bit-identical in every block), x += alpha d,
     // r -= alpha q, and the partials of <r, r>.
     if (warp < NB) {
-      const float2 dq = grid_total(p.part_dq, nblocks, warp);
+      const float2 dq = CLUSTER ? cluster_total(slot_dq, nblocks, warp)
+                                : grid_total(p.part_dq, nblocks, warp);
       if (lane == 0) {
         const float2 dl = s_delta[warp];
         const int done = (s_done[warp] && it % kLatchIters != 0) ||
@@ -650,13 +909,15 @@ __global__ void __launch_bounds__(kThreads, 1) stream_dia_kernel(Params p) {
           }
         }
       }
-      block_partials<NB>(acc, red, p.part_rr);
+      block_partials<NB, CLUSTER>(acc, red, CLUSTER ? slot_rr : p.part_rr,
+                                  bars + kRrBar);
     }
-    grid.sync();
+    exchange<CLUSTER>(grid, bars + kRrBar, part_bytes, (it + 1) & 1, false);
 
     // phase 3: beta, delta (held while frozen), hist[it+1], d = r + beta d.
     if (warp < NB) {
-      const float2 t = grid_total(p.part_rr, nblocks, warp);
+      const float2 t = CLUSTER ? cluster_total(slot_rr, nblocks, warp)
+                               : grid_total(p.part_rr, nblocks, warp);
       if (lane == 0) {
         const float2 dn = make_float2(t.x, CPLX ? 2.f * t.y : 0.f);
         const float2 dl = s_delta[warp];
@@ -696,17 +957,17 @@ __global__ void __launch_bounds__(kThreads, 1) stream_dia_kernel(Params p) {
             const float dr = dv[j][0][b];
             if (CPLX) {
               const float di = dv[j][P - 1][b];
-              p.dpad[pad_at(0, b, i)] = rs[j][0][b] + be.x * dr - be.y * di;
-              p.dpad[pad_at(P - 1, b, i)] =
-                  rs[j][P - 1][b] + be.x * di + be.y * dr;
+              store_d(0, b, i, rs[j][0][b] + be.x * dr - be.y * di);
+              store_d(P - 1, b, i, rs[j][P - 1][b] + be.x * di + be.y * dr);
             } else {
-              p.dpad[pad_at(0, b, i)] = rs[j][0][b] + be.x * dr;
+              store_d(0, b, i, rs[j][0][b] + be.x * dr);
             }
           }
         }
       }
+      if constexpr (CLUSTER) publish(i0, nr);
     }
-    grid.sync();
+    exchange<CLUSTER>(grid, bars + kHaloBar, halo_bytes, it & 1, true);
   }
 
   // 5. x out, where it stayed in registers.
@@ -724,39 +985,49 @@ __global__ void __launch_bounds__(kThreads, 1) stream_dia_kernel(Params p) {
       }
     }
   }
+  // cluster mode: no block leaves while another may still push to it
+  if constexpr (CLUSTER) cg::this_cluster().sync();
 }
 
 using KernelFn = void (*)(Params);
 
-template <bool CPLX, bool STAGED>
+template <bool CPLX, bool STAGED, bool CLUSTER>
 KernelFn pick(int nb) {
   switch (nb) {
-    case 1: return stream_dia_kernel<CPLX, 1, STAGED>;
-    case 2: return stream_dia_kernel<CPLX, 2, STAGED>;
-    case 3: return stream_dia_kernel<CPLX, 3, STAGED>;
-    case 4: return stream_dia_kernel<CPLX, 4, STAGED>;
-    case 5: return stream_dia_kernel<CPLX, 5, STAGED>;
-    case 6: return stream_dia_kernel<CPLX, 6, STAGED>;
-    case 7: return stream_dia_kernel<CPLX, 7, STAGED>;
-    case 8: return stream_dia_kernel<CPLX, 8, STAGED>;
+    case 1: return stream_dia_kernel<CPLX, 1, STAGED, CLUSTER>;
+    case 2: return stream_dia_kernel<CPLX, 2, STAGED, CLUSTER>;
+    case 3: return stream_dia_kernel<CPLX, 3, STAGED, CLUSTER>;
+    case 4: return stream_dia_kernel<CPLX, 4, STAGED, CLUSTER>;
+    case 5: return stream_dia_kernel<CPLX, 5, STAGED, CLUSTER>;
+    case 6: return stream_dia_kernel<CPLX, 6, STAGED, CLUSTER>;
+    case 7: return stream_dia_kernel<CPLX, 7, STAGED, CLUSTER>;
+    case 8: return stream_dia_kernel<CPLX, 8, STAGED, CLUSTER>;
     default: return nullptr;
   }
 }
 
-KernelFn kernel_for(int cplx, int nb, int staged) {
-  if (cplx) return staged ? pick<true, true>(nb) : pick<true, false>(nb);
-  return staged ? pick<false, true>(nb) : pick<false, false>(nb);
+// cluster mode has its window in shared memory always (no STAGED choice)
+KernelFn kernel_for(int cplx, int nb, int staged, int cluster) {
+  if (cluster)
+    return cplx ? pick<true, false, true>(nb) : pick<false, false, true>(nb);
+  if (cplx)
+    return staged ? pick<true, true, false>(nb) : pick<true, false, false>(nb);
+  return staged ? pick<false, true, false>(nb) : pick<false, false, false>(nb);
 }
 
 // The instance of a launch, with its dynamic shared memory allowed: null
 // where the arguments are out of range or the memory passes the block's.
+// cluster: blocks of the one cluster (the launch's tiles), or 0.
 cudaError_t instance(int cplx, int nb, int n, int ndiag, int pad,
-                     int tile_rows, int staged, KernelFn* fn, size_t* smem) {
-  *fn = kernel_for(cplx, nb, staged);
+                     int tile_rows, int staged, int cluster, KernelFn* fn,
+                     size_t* smem) {
+  *fn = kernel_for(cplx, nb, staged, cluster);
   if (*fn == nullptr || n < 1 || ndiag < 1 || ndiag > kMaxDiags || pad < 0 ||
-      tile_rows < 1)
+      tile_rows < 1 || cluster < 0 || cluster > kMaxCluster ||
+      (cluster && (staged || cluster != (n + tile_rows - 1) / tile_rows)))
     return cudaErrorInvalidValue;
-  *smem = smem_bytes(cplx ? 2 : 1, nb, tile_rows, pad, ndiag, staged != 0);
+  *smem = smem_bytes(cplx ? 2 : 1, nb, tile_rows, pad, ndiag, staged != 0,
+                     cluster != 0);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -768,9 +1039,32 @@ cudaError_t instance(int cplx, int nb, int n, int ndiag, int pad,
   if (err != cudaSuccess) return err;
   if (*smem + attr.sharedSizeBytes > static_cast<size_t>(optin))
     return cudaErrorInvalidValue;
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(*fn),
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (err != cudaSuccess) return err;
+  }
   return cudaFuncSetAttribute(reinterpret_cast<const void*>(*fn),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*smem));
+}
+
+// A cluster launch of `cluster` blocks, one cluster.
+cudaLaunchConfig_t cluster_config(int cluster, size_t smem, void* stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
@@ -787,17 +1081,37 @@ int tpcg_stream_dia_limits(int* max_rhs, int* max_diags) {
 // Grid of a launch on the current device: one block per tile of tile_rows
 // rows, every block co-resident (a larger cooperative launch is refused).
 // staged: the window's shared memory must fit the block's, or the call
-// returns cudaErrorInvalidValue.
+// returns cudaErrorInvalidValue.  cluster (the tiles' count, at most 16):
+// the launch as one cluster, whose shared memory must fit the same way;
+// grid 0 where the card cannot hold such a cluster, and the caller takes
+// the cooperative layout.
 int tpcg_stream_dia_grid(int cplx, int nb, int n, int ndiag, int pad,
-                         int tile_rows, int staged, int* grid_out) {
+                         int tile_rows, int staged, int cluster,
+                         int* grid_out) {
   KernelFn fn = nullptr;
   size_t smem = 0;
-  cudaError_t err =
-      instance(cplx, nb, n, ndiag, pad, tile_rows, staged, &fn, &smem);
+  cudaError_t err = instance(cplx, nb, n, ndiag, pad, tile_rows, staged,
+                             cluster, &fn, &smem);
   if (err != cudaSuccess) return err;
   int dev = 0;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  const int g = (n + tile_rows - 1) / tile_rows;
+  if (cluster) {
+    int launch = 0, active = 0;
+    err = cudaDeviceGetAttribute(&launch, cudaDevAttrClusterLaunch, dev);
+    if (err != cudaSuccess) return err;
+    if (launch) {
+      cudaLaunchAttribute attr;
+      const cudaLaunchConfig_t cfg = cluster_config(cluster, smem, nullptr,
+                                                    &attr);
+      err = cudaOccupancyMaxActiveClusters(
+          &active, reinterpret_cast<const void*>(fn), &cfg);
+      if (err != cudaSuccess) return err;
+    }
+    *grid_out = active >= 1 ? g : 0;
+    return 0;
+  }
   int sms = 0, coop = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
@@ -807,7 +1121,6 @@ int tpcg_stream_dia_grid(int cplx, int nb, int n, int ndiag, int pad,
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
                                                       smem);
   if (err != cudaSuccess) return err;
-  const int g = (n + tile_rows - 1) / tile_rows;
   if (per_sm < 1 || g > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
   *grid_out = g;
   return 0;
@@ -817,19 +1130,20 @@ int tpcg_stream_dia_grid(int cplx, int nb, int n, int ndiag, int pad,
 // |offs[k]| <= pad; b, x0, x, r, q: (cplx ? 2 : 1, nb, n); dpad:
 // (cplx ? 2 : 1, nb, n + 2 pad) and 4 floats of slack; hist:
 // (n_iterations + 1, nb); part_dq and part_rr: grid * nb * 2 floats each,
-// 8-byte aligned.  tile_rows, staged: the layout of
+// 8-byte aligned (dpad, part_dq and part_rr unused, and may be null, in
+// cluster mode).  tile_rows, staged, cluster: the layout of
 // ops/stream_cg_dia.py::dia_layout; grid: from tpcg_stream_dia_grid with
 // the same layout.
 int tpcg_stream_dia(int cplx, const float* vals, const int* offs,
                     const float* b, const float* x0, float* x, float* hist,
                     float* r, float* q, float* dpad, float* part_dq,
                     float* part_rr, int n, int ndiag, int nb, int pad,
-                    int n_iterations, int tile_rows, int staged, int grid,
-                    void* stream) {
+                    int n_iterations, int tile_rows, int staged, int cluster,
+                    int grid, void* stream) {
   KernelFn fn = nullptr;
   size_t smem = 0;
-  cudaError_t err =
-      instance(cplx, nb, n, ndiag, pad, tile_rows, staged, &fn, &smem);
+  cudaError_t err = instance(cplx, nb, n, ndiag, pad, tile_rows, staged,
+                             cluster, &fn, &smem);
   if (err != cudaSuccess) return err;
   if (n_iterations < 0 || grid != (n + tile_rows - 1) / tile_rows)
     return cudaErrorInvalidValue;
@@ -851,9 +1165,16 @@ int tpcg_stream_dia(int cplx, const float* vals, const int* offs,
   p.n_iterations = n_iterations;
   p.tile_rows = tile_rows;
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
-                                    dim3(grid), dim3(kThreads), args, smem,
-                                    static_cast<cudaStream_t>(stream));
+  if (cluster) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(cluster, smem, stream,
+                                                  &attr);
+    err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(fn), args);
+  } else {
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
+                                      dim3(grid), dim3(kThreads), args, smem,
+                                      static_cast<cudaStream_t>(stream));
+  }
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

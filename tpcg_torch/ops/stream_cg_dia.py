@@ -15,7 +15,11 @@ Layout: the matrix stays in its own row-DIA layout,
 direction sits in a zero-bordered buffer of length ``n + 2 max|offset|``.
 Each block of the launch owns one tile of consecutive rows and, where it
 fits the block's shared memory, stages its window of the direction there
-once an iteration (:func:`dia_layout`).
+once an iteration (:func:`dia_layout`).  A band whose tiles, values and
+windows fit the shared memory of at most 16 blocks runs as one
+thread-block cluster instead (cluster mode): its blocks exchange partials
+and the direction's halo over distributed shared memory, and no grid
+barrier is left.
 The JAX kernel's column-major ``(nv, 128)`` regrid, its wrap-filled halo,
 its ``_CHUNK = 256`` call splitting with the tail update in XLA, and its
 deferred update exist because of TPU lanes and VMEM; they are not ported.
@@ -62,6 +66,12 @@ TILE_ROWS_MIN = 512
 SMEM_PER_BLOCK = 232_448
 _STATIC_SMEM = 1280
 RING_BYTES = 4 * 8 * 2 * 384
+# cluster mode: at most this many blocks, ahead of each one's window the
+# slots of the partials pushed to it (<d,q> and <r,r>, 8 bytes a RHS and
+# block) and its mbarriers
+MAX_CLUSTER = 16
+_CLUSTER_SLOT_BYTES = 2 * MAX_CLUSTER * 8
+_CLUSTER_BAR_BYTES = 4 * 8
 
 
 def _pad_for(offsets) -> int:
@@ -89,11 +99,14 @@ def dia_stream_cplx_fits(dia) -> bool:
 class DiaLayout(NamedTuple):
     """A launch's geometry: ``tile_rows`` rows a block, ``tiles`` blocks,
     whether each block stages its window of the direction in shared memory
-    (``staged``), and the dynamic shared memory a block takes."""
+    (``staged``), the dynamic shared memory a block takes, and ``cluster``:
+    the blocks of the one thread-block cluster that runs the launch
+    (``tiles``), or 0 for a cooperative grid."""
     tile_rows: int
     tiles: int
     staged: bool
     smem: int
+    cluster: int = 0
 
 
 def tile_rows(n: int, sms: int) -> int:
@@ -105,24 +118,74 @@ def tile_rows(n: int, sms: int) -> int:
     return max(TILE_ROWS_MIN, -(-per_sm // 32) * 32)
 
 
-def window_bytes(n: int, offsets, nb: int, planes: int, sms: int) -> int:
-    """Shared memory of one block's window: its tile's rows and ``max|off|``
-    rows each side, for every RHS and plane, in float32, each (plane, RHS)
-    row with up to 3 floats before it and rounded up to 16 bytes (its copy
-    moves aligned 16-byte pieces)."""
-    rows = tile_rows(n, sms) + 2 * _pad_for(offsets) + 3
+def _window(rows: int, offsets, nb: int, planes: int) -> int:
+    """Bytes of a block's window for tiles of ``rows`` rows: the tile and
+    ``max|off|`` rows each side, for every RHS and plane, in float32, each
+    (plane, RHS) row with up to 3 floats before it and rounded up to 16
+    bytes (the cooperative copy moves aligned 16-byte pieces)."""
+    rows = rows + 2 * _pad_for(offsets) + 3
     return 4 * planes * nb * (-(-rows // 4) * 4)
 
 
-def dia_layout(n: int, offsets, nb: int, planes: int, sms: int) -> DiaLayout:
+def window_bytes(n: int, offsets, nb: int, planes: int, sms: int) -> int:
+    """Shared memory of one block's window in a cooperative launch: its
+    tile's rows (:func:`tile_rows`) and ``max|off|`` rows each side, for
+    every RHS and plane (:func:`_window`)."""
+    return _window(tile_rows(n, sms), offsets, nb, planes)
+
+
+def cluster_smem(rows: int, offsets, nb: int, planes: int) -> int:
+    """Dynamic shared memory of a block in cluster mode, tiles of ``rows``
+    rows: the slots of the partials pushed to it and its mbarriers, its
+    window, its tile's values (every diagonal and plane) and the tap
+    list."""
+    return (_CLUSTER_SLOT_BYTES * nb + _CLUSTER_BAR_BYTES
+            + _window(rows, offsets, nb, planes)
+            + 4 * planes * len(offsets) * rows + 4 * len(offsets))
+
+
+def _rows_of(n: int, blocks: int) -> int:
+    """n over ``blocks`` rows, rounded up to a warp's 32."""
+    return -(-n // (32 * blocks)) * 32
+
+
+def cluster_tile_rows(n: int, sms: int) -> int:
+    """Rows of a tile in cluster mode: n over ``MAX_CLUSTER`` blocks rounded
+    up to 32 rows, and at least the cooperative tile (:func:`tile_rows`), so
+    that a small band takes few blocks."""
+    return max(tile_rows(n, sms), _rows_of(n, MAX_CLUSTER))
+
+
+def dia_layout(n: int, offsets, nb: int, planes: int, sms: int,
+               cluster=None) -> DiaLayout:
     """The layout of a launch of ``csrc/stream_cg_dia.cu`` on a card with
-    ``sms`` SMs: the tiles of :func:`tile_rows`, staged wherever the window,
-    the rings of values and the tap list fit the block's shared memory, else
-    read from L2 (the same values, so the choice changes no bits)."""
+    ``sms`` SMs.  Cluster mode wherever the tiles of
+    :func:`cluster_tile_rows`, with their resident values and their windows
+    sized for 8 RHS (the kernel's limit, so the rule does not read ``nb``
+    and a RHS's bits do not depend on the launch), fit a block's shared
+    memory.  Else a cooperative grid of the tiles of :func:`tile_rows`,
+    staged wherever the window, the rings of values and the tap list fit
+    the block's shared memory, else read from L2 (the same values, so the
+    choice changes no bits).
+
+    ``cluster``, for probes and tests: 0 takes the cooperative layout, C a
+    cluster of n over C rows rounded up to 32 a block (whether or not it
+    fits; the kernel refuses what does not)."""
+    budget = SMEM_PER_BLOCK - _STATIC_SMEM
+    if cluster is None:
+        rows = cluster_tile_rows(n, sms)
+        if cluster_smem(rows, offsets, _MAX_RHS, planes) <= budget:
+            cluster = -(-n // rows)
+    elif cluster:
+        rows = _rows_of(n, cluster)
+        cluster = -(-n // rows)
+    if cluster:
+        return DiaLayout(rows, cluster, False,
+                         cluster_smem(rows, offsets, nb, planes), cluster)
     rows = tile_rows(n, sms)
     fixed = RING_BYTES + 4 * len(offsets)
     win = window_bytes(n, offsets, nb, planes, sms)
-    staged = win + fixed <= SMEM_PER_BLOCK - _STATIC_SMEM
+    staged = win + fixed <= budget
     return DiaLayout(rows, -(-n // rows), staged,
                      fixed + (win if staged else 0))
 
@@ -282,14 +345,19 @@ def _launch(offsets, values, b, x0, n_iterations):
     cplx = int(planes == 2)
     kernel = "stream_dia_cplx" if cplx else "stream_dia"
     with torch.cuda.device(dev), trace.span("launch." + kernel):
-        lay = dia_layout(n, offsets, nb, planes,
-                         torch.cuda.get_device_properties(dev)
-                         .multi_processor_count)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        lay = dia_layout(n, offsets, nb, planes, sms)
         grid = ctypes.c_int()
-        _build.check(lib.tpcg_stream_dia_grid(cplx, nb, n, ndiag, P,
-                                              lay.tile_rows, int(lay.staged),
-                                              ctypes.byref(grid)),
-                     "tpcg_stream_dia_grid")
+
+        def query():
+            _build.check(lib.tpcg_stream_dia_grid(
+                cplx, nb, n, ndiag, P, lay.tile_rows, int(lay.staged),
+                lay.cluster, ctypes.byref(grid)), "tpcg_stream_dia_grid")
+        query()
+        if lay.cluster and not grid.value:
+            # the card cannot hold the cluster: the cooperative layout
+            lay = dia_layout(n, offsets, nb, planes, sms, cluster=0)
+            query()
         f32 = dict(dtype=torch.float32, device=dev)
         offs = upload(torch.tensor([int(o) for o in offsets],
                                    dtype=torch.int32), dev)
@@ -297,20 +365,27 @@ def _launch(offsets, values, b, x0, n_iterations):
         hist = torch.empty((n_iterations + 1, nb), **f32)
         r = torch.empty_like(b)
         q = torch.empty_like(b)
-        # the window's aligned copies may read 3 floats past the end
-        dpad = torch.empty(planes * nb * (n + 2 * P) + 4, **f32)
-        part = torch.empty((2, grid.value, nb, 2), **f32)
+        # the padded direction (the window's aligned copies may read 3
+        # floats past its end) and the partials; in cluster mode both stay
+        # in shared memory
+        dpad = part = None
+        if not lay.cluster:
+            dpad = torch.empty(planes * nb * (n + 2 * P) + 4, **f32)
+            part = torch.empty((2, grid.value, nb, 2), **f32)
         err = lib.tpcg_stream_dia(
             cplx, values.data_ptr(), offs.data_ptr(), b.data_ptr(),
             x0.data_ptr(), x.data_ptr(), hist.data_ptr(), r.data_ptr(),
-            q.data_ptr(), dpad.data_ptr(), part[0].data_ptr(),
-            part[1].data_ptr(), n, ndiag, nb, P, n_iterations,
-            lay.tile_rows, int(lay.staged), grid.value,
-            torch.cuda.current_stream(dev).cuda_stream)
+            q.data_ptr(), None if dpad is None else dpad.data_ptr(),
+            None if part is None else part[0].data_ptr(),
+            None if part is None else part[1].data_ptr(), n, ndiag, nb, P,
+            n_iterations, lay.tile_rows, int(lay.staged), lay.cluster,
+            grid.value, torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "tpcg_stream_dia")
         trace.count("launch." + kernel)
         if lay.staged:
             trace.count("staged." + kernel)
+        if lay.cluster:
+            trace.count("cluster." + kernel)
     return x, hist
 
 
@@ -355,8 +430,9 @@ def stream_cg_dia_rows(offsets: Sequence[int], values: torch.Tensor,
 
     CUDA tensors launch the kernel, at most 8 RHS (the kernel's limit) per
     launch in balanced chunks; ``tpcg_torch.trace``'s counter
-    ``launch.stream_dia`` counts the launches, and ``staged.stream_dia``
-    those that staged the direction in shared memory.  CPU tensors run
+    ``launch.stream_dia`` counts the launches, ``staged.stream_dia``
+    those that staged the direction in shared memory and
+    ``cluster.stream_dia`` those that ran as one thread-block cluster.  CPU tensors run
     :func:`stream_cg_dia_rows_plain` in the same chunks."""
     _check_args(offsets, values[None], b[None], x0[None], n_iterations, 1)
     x, hist = _solve(offsets, values[None], b[None], x0[None], n_iterations)
@@ -369,9 +445,9 @@ def stream_cg_dia_rows_cplx(offsets: Sequence[int], values: torch.Tensor,
     """Device-resident complex solve: ``values`` (2, ndiag, n), ``b``/``x0``
     (2, B, n) float32 re/im planes.  Returns ``x`` (2, B, n) and the
     history (n_iterations+1, B).  Launches and chunks as
-    :func:`stream_cg_dia_rows`; the counters ``launch.stream_dia_cplx``
-    and ``staged.stream_dia_cplx`` count the launches and the staged
-    ones."""
+    :func:`stream_cg_dia_rows`; the counters ``launch.stream_dia_cplx``,
+    ``staged.stream_dia_cplx`` and ``cluster.stream_dia_cplx`` count the
+    launches, the staged ones and those that ran as one cluster."""
     _check_args(offsets, values, b, x0, n_iterations, 2)
     return _solve(offsets, values, b, x0, n_iterations)
 

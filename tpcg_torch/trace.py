@@ -25,6 +25,10 @@ The counters the program keeps:
 * ``staged.stream_dia``, ``staged.stream_dia_cplx``: launches of kernel A
   (``csrc/stream_cg_dia.cu``) whose blocks staged their window of the
   direction in shared memory (a ``launch.*`` count too; not itself one);
+* ``cluster.stream_dia``, ``cluster.stream_dia_cplx``: launches of kernel A
+  that ran as one thread-block cluster (cluster mode, bands that fit the
+  shared memory of at most 16 blocks; a ``launch.*`` count too; not itself
+  one);
 * ``copy.pad_sym_planes``, ``copy.pad_real_planes``: padded copies of a
   stencil's planes made for the kernels;
 * ``plan.<path>``: plans of the stencil planner (``ops.auto``) by the path
