@@ -2209,7 +2209,8 @@ def phase_coef_compare(dev):
     print("stream_cg_coef blocks of 256 threads at 2048 x 2048, pad 1, by NB "
           "1..8 (per SM): " + ", ".join(
               f"{g} ({g / sms:g})" for g in (
-                  tgc.grid_blocks(nb, 2048, 2048, 1, 7) for nb in range(1, 9))))
+                  tgc.grid_blocks(2048, 2048, 1, nb, 7)
+                  for nb in range(1, 9))))
 
     # 2 I as full planes on the helm_fe offsets: frozen from iteration 1
     A = helm_fe(64, 5.0, eps=5.0, device=dev)
@@ -2463,7 +2464,7 @@ def phase_stream_batched_compare(dev, row6_ms):
     print("stream_cg blocks of 256 threads at 2048 x 2048, pad 1, by NB 1..8 "
           "(per SM): " + ", ".join(
               f"{g} ({g / sms:g})" for g in (
-                  tsc.grid_blocks(nb, 2048, 2048, 1) for nb in range(1, 9))))
+                  tsc.grid_blocks(2048, 2048, 1, nb) for nb in range(1, 9))))
     print(f"row 6 (stream_cg, helm_fe N=4096 x 1000, B=1, NB=1 instance): "
           f"{row6_ms:.3f} ms (phase 9) against {ROW6_MS} ms of the kernel "
           f"before its redesign: {100 * (row6_ms / ROW6_MS - 1):+.2f}%")

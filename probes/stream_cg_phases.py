@@ -86,7 +86,6 @@ of the kernel's own bytes.
 Every mode prints the card's name and power limit first.
 """
 import argparse
-import inspect
 import json
 import pathlib
 import re
@@ -267,8 +266,8 @@ SWEEP_REAL_COEF = [(r, s, c, m) for r in (4, 8, 16, 32) for s in (2, 3)
 def fits(mod, kernel, config):
     """Whether a sweep configuration's ring fits m blocks on an SM (the
     card's shared memory from the package of ``mod``)."""
-    from tpcg_torch.ops._device_limits import (BLOCK_RESERVED, BLOCK_SHARED,
-                                               SM_SHARED, STATIC_SHARED)
+    from tpcg_torch.ops._tiles import (BLOCK_RESERVED, BLOCK_SHARED,
+                                       SM_SHARED, STATIC_SHARED)
     if kernel == "const":
         rows, stages, m = config
         smem = mod.stream_layout(2048, 2048, 1, rows, stages).smem_bytes
@@ -401,6 +400,10 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
         h = (rows + 2) * (128 + 2) / (rows * 128)
         return 16 * h + 16 + 8 * noff / nb, 48.0
 
+    # the tree's grid_blocks take (nv, nh, pad, ...) where it has
+    # ops/_tiles.py; an earlier tree's const and coef ones take nb first
+    nb_first = not (tree / "tpcg_torch" / "ops" / "_tiles.py").exists()
+
     def blocks_of(nb, N, noff):
         if real:
             if hasattr(mod, "grid_blocks"):
@@ -417,9 +420,10 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
             _build.check(lib.tpcg_stream_sym_grid(N, N, 1, ctypes.byref(g)),
                          "tpcg_stream_sym_grid")
             return g.value
-        if len(inspect.signature(mod.grid_blocks).parameters) == 4:
-            return mod.grid_blocks(nb, N, N, 1)
-        return mod.grid_blocks(nb, N, N, 1, noff)
+        own = (nb, noff) if kernel == "coef" else (nb,)
+        if nb_first:
+            return mod.grid_blocks(nb, N, N, 1, *own[1:])
+        return mod.grid_blocks(N, N, 1, *own)
 
     dev = torch.device("cuda:0")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count

@@ -18,6 +18,7 @@ import torch
 import tpcg_torch
 from tpcg_torch.problems import helm_fe, plane_wave_rhs, poisson
 from tpcg_torch import trace
+from tpcg_torch.ops import _tiles
 from tpcg_torch.trace import counters
 
 # the package exports a function named fused_cg that hides the module
@@ -245,7 +246,7 @@ def test_fused_dia_kernel_matches_plain_small(dev):
     # the shared memory a block may use (dynamic part + the static 512 B)
     rows, dyn = tfd.kernel_limits()
     assert rows == tfd._MAX_ROWS
-    assert dyn + tfd._STATIC_SMEM == tfd.SMEM_PER_BLOCK
+    assert dyn + tfd._STATIC_SMEM == _tiles.BLOCK_SHARED
     D = _dia(_small_band(True, n=300, offs=(0, 2, 150)), np.complex64, dev)
     offs, vals = tsd.prepare_dia_rows_cplx(D)
     b = _rhs(D.n, 3, True, dev)
@@ -482,7 +483,7 @@ def test_stream_dia_cluster_rule_is_the_kernels(dev):
             assert not wider.cluster
             past = lo + 1
             while tsd.cluster_smem(lay.tile_rows, (0, past, -past), 8,
-                                   planes) <= tsd.SMEM_PER_BLOCK:
+                                   planes) <= _tiles.BLOCK_SHARED:
                 past += 1
             assert lib.tpcg_stream_dia_grid(
                 planes - 1, 8, n, 3, past, lay.tile_rows, 0, lay.cluster,
@@ -923,7 +924,7 @@ def test_stream_batched_rhs_equal_their_single_launches(dev, nb):
                                             bp[:, c].contiguous(),
                                             x0p[:, c].contiguous(), 40)
         assert torch.equal(xb[:, c], x1) and torch.equal(hb[:, c], h1)
-    assert len({tsc.grid_blocks(k, 1031, 1024, 1) for k in range(1, 9)}) == 1
+    assert len({tsc.grid_blocks(1031, 1024, 1, k) for k in range(1, 9)}) == 1
 
 
 @pytest.mark.parametrize("nb", [3, 8])
@@ -935,7 +936,7 @@ def test_stream_odd_width_uneven_tiles_equal_single_launches(dev, nv, nh, nb):
     gives its NB = 1 launch's bits, and a repeat gives the same bits."""
     S, taps, strips, bp, x0p = _stream_batch(dev, nv, nh, nb, 7)
     lay = tsc.stream_layout(nv, nh, 1)
-    blocks = tsc.grid_blocks(nb, nv, nh, 1)
+    blocks = tsc.grid_blocks(nv, nh, 1, nb)
     assert nh % 4 and lay.pitch % 32 == 0
     assert lay.tiles > blocks and lay.tiles % blocks
     xb, hb = _run_twice(tsc.stream_cg_const_planes_batched, S.offsets,
@@ -1370,7 +1371,7 @@ def test_coef_nb_instance_against_single_rhs_launches(dev):
         S, coefp, bp, x0p = _coef_case(dev, nv, nh, nb, x0_seed=7)
         xb, hb = tgc.stream_cg_coef_planes_batched_fat(S.offsets, coefp, bp,
                                                        x0p, 40)
-        assert len({tgc.grid_blocks(k, nv, nh, 1, len(S.offsets))
+        assert len({tgc.grid_blocks(nv, nh, 1, k, len(S.offsets))
                     for k in range(1, 9)}) == 1
         for c in range(nb):
             x1, h1 = tgc.stream_cg_coef_planes(S.offsets, coefp, bp[:, c],
@@ -1389,7 +1390,7 @@ def test_coef_odd_width_uneven_tiles(dev, nv, nh, nb):
     S, coefp, bp, x0p = _coef_case(dev, nv, nh, nb, x0_seed=11)
     noff = len(S.offsets)
     lay = tgc.coef_layout(nv, nh, 1, nb, noff)
-    blocks = tgc.grid_blocks(nb, nv, nh, 1, noff)
+    blocks = tgc.grid_blocks(nv, nh, 1, nb, noff)
     assert nh % 4 and lay.pitch % 32 == 0
     assert lay.tiles > blocks and lay.tiles % blocks
     xk, hk = _run_twice(tgc.stream_cg_coef_planes_batched_fat, S.offsets,

@@ -20,6 +20,7 @@ import torch
 import tpcg.ops.fused_cg_dia as jfd
 import tpcg.ops.stream_cg_dia as jsd
 from tpcg.sparse import DiaMatrix as JDia
+from tpcg_torch.ops import _tiles
 from tpcg_torch.sparse import DiaMatrix
 
 tfd = importlib.import_module("tpcg_torch.ops.fused_cg_dia")
@@ -152,7 +153,7 @@ def test_fused_dia_fit_rule_this_card():
     need = tfd.fused_dia_smem_bytes(mhd.n, mhd.offsets)
     assert need == 4 * (2 * 17 * 1280 + 4 * 1280 + 2 * (1280 + 16)) \
         + 4 * 17 + 512
-    assert need <= tfd.SMEM_PER_BLOCK == 232_448
+    assert need <= _tiles.BLOCK_SHARED == 232_448
     assert tfd.fused_dia_cplx_fits(mhd)
     assert not tfd.fused_dia_cplx_fits(
         SimpleNamespace(n=1280, offsets=tuple(range(-12, 13))))

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpcg_torch.ops import _tiles
 from tpcg_torch.ops import stream_cg_coef as tgc
 from tpcg_torch.sparse import Stencil2D
 
@@ -82,11 +83,11 @@ def test_ring_fits_its_blocks_an_sm_at_every_pad_and_rhs_count(pad):
         for nb in range(1, 9):
             lay = tgc.coef_layout(4096, 4096, pad, nb, noff)
             assert lay.tile_rows >= 2 and lay.stages >= 2
-            per = lay.smem_bytes + tgc.STATIC_SHARED
-            assert per <= tgc.BLOCK_SHARED
+            per = lay.smem_bytes + _tiles.STATIC_SHARED
+            assert per <= _tiles.BLOCK_SHARED
             assert lay.blocks_per_sm >= 1
-            assert lay.blocks_per_sm * (per + tgc.BLOCK_RESERVED) \
-                <= tgc.SM_SHARED
+            assert lay.blocks_per_sm * (per + _tiles.BLOCK_RESERVED) \
+                <= _tiles.SM_SHARED
 
 
 @pytest.mark.parametrize("pad", range(9))

@@ -20,13 +20,14 @@ import re
 
 import pytest
 
+from tpcg_torch.ops import _tiles
 from tpcg_torch.ops import stream_cg_dia as tsd
 
 H100_SMS = 132
 M_T1 = (0,) + tuple(o for k in range(1, 51) for o in (37 * k, -37 * k))
 HELM_FEM = (0, 1, -1, 128, -128, 129, -129)
 PARABOLIC = (0, 1, -1, 725, -725, 726, -726)
-BUDGET = tsd.SMEM_PER_BLOCK - tsd._STATIC_SMEM
+BUDGET = _tiles.BLOCK_SHARED - tsd._STATIC_SMEM
 
 
 @pytest.mark.parametrize("n,offsets,rows,tiles,cluster", [
@@ -155,7 +156,7 @@ def test_cluster_rule(n, offsets, planes, cluster):
     their windows sized for 8 RHS fit a block's shared memory, at 1 RHS and
     8 alike; m_t1's shape and parabolic_fem as DIA keep the cooperative
     grid."""
-    budget = tsd.SMEM_PER_BLOCK - tsd._STATIC_SMEM
+    budget = _tiles.BLOCK_SHARED - tsd._STATIC_SMEM
     rows = tsd.cluster_tile_rows(n, H100_SMS)
     assert (tsd.cluster_smem(rows, offsets, 8, planes) <= budget) == cluster
     for nb in (1, 8):

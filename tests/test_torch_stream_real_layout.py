@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpcg_torch.ops import _tiles
 from tpcg_torch.ops import stream_cg_real as tsr
 from tpcg_torch.sparse import Stencil2D
 from tpcg_torch.trace import counters
@@ -119,17 +120,18 @@ def test_rings_fit_their_blocks_at_every_pad(pad, noff, coef):
     lay = tsr.real_layout(4096, 4096, pad, noff, coef)
     assert lay.tile_rows >= 1 and lay.stages >= 2
     assert lay.coef_stages >= 1 if coef else lay.coef_stages == 0
-    per = lay.smem_bytes + tsr.STATIC_SHARED
-    assert per <= tsr.BLOCK_SHARED
+    per = lay.smem_bytes + _tiles.STATIC_SHARED
+    assert per <= _tiles.BLOCK_SHARED
     assert lay.blocks_per_sm >= 1
-    assert lay.blocks_per_sm * (per + tsr.BLOCK_RESERVED) <= tsr.SM_SHARED
+    assert (lay.blocks_per_sm * (per + _tiles.BLOCK_RESERVED)
+            <= _tiles.SM_SHARED)
     assert max(lay.box_rows, lay.box_cols, noff) <= 256
     default = tsr.COEF_TILE_ROWS if coef else tsr.TILE_ROWS
     if lay.tile_rows < default:
         # narrowed only because the default tile does not fit
-        assert (tsr.STATIC_SHARED + tsr._ring_bytes(
+        assert (_tiles.STATIC_SHARED + tsr._ring_bytes(
             default, pad, lay.col_halo, noff, coef, lay.stages, 1)
-            > tsr.BLOCK_SHARED)
+            > _tiles.BLOCK_SHARED)
 
 
 @pytest.mark.parametrize("rows,pad,noff,coef,want", [

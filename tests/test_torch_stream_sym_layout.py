@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpcg_torch.ops import _tiles
 from tpcg_torch.ops import stream_cg as tsc
 from tpcg_torch.ops import stream_cg_sym as tss
 from tpcg_torch.sparse import Stencil2D
@@ -105,16 +106,17 @@ def test_rings_fit_their_blocks_at_every_pad(pad, nh1):
     lay = tss.sym_layout(4096, 4096, pad, nh1)
     assert lay.tile_rows >= 1 and lay.stages >= 2 and lay.coef_stages >= 1
     assert lay.tile_cols in (64, 128)
-    per = lay.smem_bytes + tss.STATIC_SHARED
-    assert per <= tss.BLOCK_SHARED
+    per = lay.smem_bytes + _tiles.STATIC_SHARED
+    assert per <= _tiles.BLOCK_SHARED
     assert lay.blocks_per_sm >= 1
-    assert lay.blocks_per_sm * (per + tss.BLOCK_RESERVED) <= tss.SM_SHARED
+    assert (lay.blocks_per_sm * (per + _tiles.BLOCK_RESERVED)
+            <= _tiles.SM_SHARED)
     assert max(lay.box_rows, lay.box_cols, 2 * nh1) <= 256
     if lay.tile_cols == 64 or lay.tile_rows < tss.TILE_ROWS:
         # narrowed only because the default tile does not fit
-        assert (tss.STATIC_SHARED + tss._ring_bytes(
+        assert (_tiles.STATIC_SHARED + tss._ring_bytes(
             tss.TILE_ROWS, 128, pad, lay.col_halo, nh1, lay.stages, 1)
-            > tss.BLOCK_SHARED)
+            > _tiles.BLOCK_SHARED)
 
 
 def test_layout_narrows_to_64_columns_at_the_limits():
@@ -124,6 +126,15 @@ def test_layout_narrows_to_64_columns_at_the_limits():
     lay = tss.sym_layout(4096, 4096, 8, 16)
     assert lay.tile_cols == 64 and lay.box_cols == 80
     assert 2 * 16 * 9 * 144 * 4 == 165888
+
+
+def test_layout_narrows_to_64_columns_before_one_row():
+    """The order of the shrink steps: at pad 7 with 16 half planes the
+    tile takes 2 rows of 64 columns, though 1 row of 128 would fit too."""
+    lay = tss.sym_layout(4096, 4096, 7, 16)
+    assert (lay.tile_rows, lay.tile_cols) == (2, 64)
+    assert (_tiles.STATIC_SHARED + tss._ring_bytes(
+        1, 128, 7, lay.col_halo, 16, lay.stages, 1) <= _tiles.BLOCK_SHARED)
 
 
 @pytest.mark.parametrize("rows,pad,nh1,cols,want", [

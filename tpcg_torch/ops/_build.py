@@ -14,9 +14,16 @@ library in ``.log`` files.
 Flags: ``-O3`` for ``sm_90a`` and no ``--use_fast_math``, which would turn
 on flush-to-zero and approximate division and sqrt, and so move the CG
 freeze guards and the Smith division.
+
+Every call into the library goes through this module: :func:`query` for the
+entry points that return ints through pointers (a kernel's limits, a
+launch's grid), and :func:`launch` for the kernels themselves, which opens
+the span ``tpcg.launch.<kernel>``, passes the current stream, checks the
+returned code and counts ``launch.<kernel>`` of ``tpcg_torch.trace``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -24,6 +31,10 @@ import os
 import pathlib
 import shutil
 import subprocess
+
+import torch
+
+from .. import trace
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -160,3 +171,43 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = load().tpcg_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def ints(values) -> ctypes.Array:
+    """The values as a C ``int`` array (an entry point's ``const int*``)."""
+    values = [int(v) for v in values]
+    return (_I * len(values))(*values)
+
+
+def floats(values) -> ctypes.Array:
+    """The values as a C ``float`` array (an entry point's
+    ``const float*``)."""
+    values = list(values)
+    return (ctypes.c_float * len(values))(*values)
+
+
+def query(entry: str, *args) -> tuple:
+    """Call C entry point ``entry`` with the inputs ``args`` and an int
+    out-parameter for each argument of its signature past them; raise as
+    :func:`check` does; return the out-values."""
+    outs = [ctypes.c_int() for _ in _SIGNATURES[entry][len(args):]]
+    check(getattr(load(), entry)(*args, *map(ctypes.byref, outs)), entry)
+    return tuple(out.value for out in outs)
+
+
+@contextlib.contextmanager
+def launch(kernel: str, device):
+    """Launch a kernel on ``device``: a context, inside the span
+    ``tpcg.launch.<kernel>``, that yields ``run(entry, *args)``.  ``run``
+    calls C entry point ``entry`` with ``args`` and the device's current
+    stream, raises as :func:`check` does, and counts ``launch.<kernel>``
+    once for each call that succeeded.  What the caller does inside the
+    context (its state's allocations, its grid query) falls in the span."""
+    lib = load()
+    with torch.cuda.device(device), trace.span("launch." + kernel):
+        stream = torch.cuda.current_stream(device).cuda_stream
+
+        def run(entry: str, *args) -> None:
+            check(getattr(lib, entry)(*args, stream), entry)
+            trace.count("launch." + kernel)
+        yield run

@@ -20,14 +20,12 @@ wrapper here chunks by the CUDA kernel's own RHS limit.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
-from .. import trace
 
 
 def _pad_for(offsets) -> int:
@@ -158,16 +156,11 @@ def fused_cg_stencil_plain(offsets: Sequence[Tuple[int, int]],
 
 def kernel_limits() -> Tuple[int, int]:
     """(max taps, max RHS per launch) of the CUDA kernel."""
-    taps, rhs = ctypes.c_int(), ctypes.c_int()
-    _build.check(_build.load().tpcg_fused_cg_limits(ctypes.byref(taps),
-                                                     ctypes.byref(rhs)),
-                 "tpcg_fused_cg_limits")
-    return taps.value, rhs.value
+    return _build.query("tpcg_fused_cg_limits")
 
 
 def _launch(offsets, coef3, b, x0, n_iterations):
     """Launch the CUDA kernel on the current stream of b's device."""
-    lib = _build.load()
     _, noff, nv, nh = coef3.shape
     nb = b.shape[1]
     max_taps, max_rhs = kernel_limits()
@@ -178,27 +171,21 @@ def _launch(offsets, coef3, b, x0, n_iterations):
     coef3, b, x0 = coef3.contiguous(), b.contiguous(), x0.contiguous()
     P = _pad_for(offsets)
     dev = b.device
-    with torch.cuda.device(dev), trace.span("launch.fused_cg"):
-        grid = ctypes.c_int()
-        _build.check(lib.tpcg_fused_cg_grid(nv * nh, ctypes.byref(grid)),
-                     "tpcg_fused_cg_grid")
+    with _build.launch("fused_cg", dev) as run:
+        grid, = _build.query("tpcg_fused_cg_grid", nv * nh)
         f32 = dict(dtype=torch.float32, device=dev)
         x = torch.empty_like(b)
         hist = torch.empty((n_iterations + 1, nb), **f32)
         r = torch.empty_like(b)
         q = torch.empty_like(b)
         dpad = torch.empty((2, nb, nv + 2 * P, nh + 2 * P), **f32)
-        part = torch.empty((2, grid.value, nb, 2), **f32)
-        offs = (ctypes.c_int * (2 * noff))(
-            *[int(v) for tap in offsets for v in tap])
-        err = lib.tpcg_fused_cg_stencil(
+        part = torch.empty((2, grid, nb, 2), **f32)
+        offs = _build.ints(v for tap in offsets for v in tap)
+        run("tpcg_fused_cg_stencil",
             coef3.data_ptr(), b.data_ptr(), x0.data_ptr(), x.data_ptr(),
             hist.data_ptr(), r.data_ptr(), q.data_ptr(), dpad.data_ptr(),
             part[0].data_ptr(), part[1].data_ptr(), nv, nh, nb, noff, offs,
-            P, n_iterations, grid.value,
-            torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "tpcg_fused_cg_stencil")
-        trace.count("launch.fused_cg")
+            P, n_iterations, grid)
     return x, hist
 
 

@@ -25,14 +25,12 @@ JAX's form across).
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import numpy as np
 import torch
 
 from . import _build
-from .. import trace
 from .fused_cg import (_pad_for, cocg_padded_plain, kernel_limits,
                        run_chunked)
 
@@ -210,7 +208,6 @@ def fused_cg_const_planes_plain(offsets, grid, cr, ci, strips, b, x0,
 def _launch(offsets, grid, cr, ci, strips, b, x0, n_iterations):
     """Launch the const instance of the CUDA kernel on the current stream
     of b's device."""
-    lib = _build.load()
     nv, nh = grid
     noff, nb = len(offsets), b.shape[1]
     max_taps, max_rhs = kernel_limits()
@@ -222,29 +219,23 @@ def _launch(offsets, grid, cr, ci, strips, b, x0, n_iterations):
     b, x0 = b.contiguous(), x0.contiguous()
     P = _pad_for(offsets)
     dev = b.device
-    with torch.cuda.device(dev), trace.span("launch.fused_const"):
-        grid_size = ctypes.c_int()
-        _build.check(lib.tpcg_fused_cg_grid(nv * nh, ctypes.byref(grid_size)),
-                     "tpcg_fused_cg_grid")
+    with _build.launch("fused_const", dev) as run:
+        grid_size, = _build.query("tpcg_fused_cg_grid", nv * nh)
         f32 = dict(dtype=torch.float32, device=dev)
         x = torch.empty_like(b)
         hist = torch.empty((n_iterations + 1, nb), **f32)
         r = torch.empty_like(b)
         q = torch.empty_like(b)
         dpad = torch.empty((2, nb, nv + 2 * P, nh + 2 * P), **f32)
-        part = torch.empty((2, grid_size.value, nb, 2), **f32)
-        offs = (ctypes.c_int * (2 * noff))(
-            *[int(v) for tap in offsets for v in tap])
-        taps = (ctypes.c_float * (2 * noff))(*cr, *ci)
-        groups = (ctypes.c_int * noff)(*group_of(list(zip(cr, ci))))
-        err = lib.tpcg_fused_cg_const(
+        part = torch.empty((2, grid_size, nb, 2), **f32)
+        offs = _build.ints(v for tap in offsets for v in tap)
+        taps = _build.floats((*cr, *ci))
+        groups = _build.ints(group_of(list(zip(cr, ci))))
+        run("tpcg_fused_cg_const",
             *[s.data_ptr() for s in strips], b.data_ptr(), x0.data_ptr(),
             x.data_ptr(), hist.data_ptr(), r.data_ptr(), q.data_ptr(),
             dpad.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), nv, nh,
-            nb, noff, offs, taps, groups, P, n_iterations, grid_size.value,
-            torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "tpcg_fused_cg_const")
-        trace.count("launch.fused_const")
+            nb, noff, offs, taps, groups, P, n_iterations, grid_size)
     return x, hist
 
 

@@ -17,25 +17,23 @@ division, history ``sqrt|<r,r>|``.  The JAX kernel's column-major
 the matrix in its row-DIA layout against a zero-bordered direction.
 
 ``fused_dia_cplx_fits`` is this card's rule: the kernel's shared memory
-(:func:`fused_dia_smem_bytes`) within the 232,448 bytes an H100 block may
-use, and at most 8 rows per thread of a 1024-thread block.
+(:func:`fused_dia_smem_bytes`) within what an H100 block may use
+(``_tiles.BLOCK_SHARED``), and at most 8 rows per thread of a 1024-thread
+block.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence
 
 import torch
 
-from . import _build
+from . import _build, _tiles
 from .. import trace
 from ..device import upload
 from .cplx import cdiv, udot_planes
 from .stream_cg_dia import (_check_args, _cplx_cols, _pad_for,
                             prepare_dia_rows_cplx)
 
-# H100: shared memory one block may use (cudaDevAttrMaxSharedMemoryPerBlockOptin)
-SMEM_PER_BLOCK = 232_448
 # the kernel's static shared memory (two reductions of 32 float2) and its
 # row limit (1024 threads x 8 rows each, q kept in registers)
 _STATIC_SMEM = 2 * 32 * 8
@@ -53,7 +51,7 @@ def fused_dia_smem_bytes(n: int, offsets) -> int:
 
 def _fits(n: int, offsets) -> bool:
     return (0 < n <= _MAX_ROWS and len(offsets) > 0
-            and fused_dia_smem_bytes(n, offsets) <= SMEM_PER_BLOCK)
+            and fused_dia_smem_bytes(n, offsets) <= _tiles.BLOCK_SHARED)
 
 
 def fused_dia_cplx_fits(dia) -> bool:
@@ -125,31 +123,24 @@ def fused_cg_dia_rows_cplx_plain(offsets: Sequence[int],
 def kernel_limits():
     """(max rows, max dynamic shared memory per block on the current
     device) of the CUDA kernel."""
-    rows, smem = ctypes.c_int(), ctypes.c_int()
-    _build.check(_build.load().tpcg_fused_dia_limits(ctypes.byref(rows),
-                                                      ctypes.byref(smem)),
-                 "tpcg_fused_dia_limits")
-    return rows.value, smem.value
+    return _build.query("tpcg_fused_dia_limits")
 
 
 def _launch(offsets, values, b, x0, n_iterations):
-    lib = _build.load()
     _, ndiag, n = values.shape
     nb = b.shape[1]
     values, b, x0 = values.contiguous(), b.contiguous(), x0.contiguous()
     dev = b.device
-    with torch.cuda.device(dev), trace.span("launch.fused_dia"):
+    with _build.launch("fused_dia", dev) as run:
         offs = upload(torch.tensor([int(o) for o in offsets],
                                    dtype=torch.int32), dev)
         x = torch.empty_like(b)
         hist = torch.empty((n_iterations + 1, nb), dtype=torch.float32,
                            device=dev)
-        err = lib.tpcg_fused_dia(
+        run("tpcg_fused_dia",
             values.data_ptr(), offs.data_ptr(), b.data_ptr(), x0.data_ptr(),
             x.data_ptr(), hist.data_ptr(), n, ndiag, nb, _pad_for(offsets),
-            n_iterations, torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "tpcg_fused_dia")
-        trace.count("launch.fused_dia")
+            n_iterations)
     return x, hist
 
 
@@ -171,8 +162,8 @@ def fused_cg_dia_rows_cplx(offsets: Sequence[int], values: torch.Tensor,
             raise ValueError(
                 f"n={n} with {len(offsets)} diagonals needs "
                 f"{fused_dia_smem_bytes(n, offsets)} bytes of shared memory "
-                f"(limit {SMEM_PER_BLOCK}) or more than {_MAX_ROWS} rows: "
-                "use the streaming kernel (tpcg_torch.ops.stream_cg_dia)")
+                f"(limit {_tiles.BLOCK_SHARED}) or more than {_MAX_ROWS} "
+                "rows: use the streaming kernel (tpcg_torch.ops.stream_cg_dia)")
         return _launch(offsets, values, b, x0, n_iterations)
     if b.device.type == "cpu":
         return fused_cg_dia_rows_cplx_plain(offsets, values, b, x0,

@@ -38,7 +38,6 @@ import numpy as np
 import torch
 
 from . import _build
-from .. import trace
 from ..device import resolve_device, upload
 
 _INT32_MAX = 2**31 - 1
@@ -125,23 +124,19 @@ def routed_matvec_plain(row_ptr: torch.Tensor, col: torch.Tensor,
 
 
 def _launch(row_ptr, col, val, x, out):
-    lib = _build.load()
     n, nnz, ldx = row_ptr.numel() - 1, col.numel(), x.shape[-1]
     row_ptr, col, val, x = (t.contiguous() for t in (row_ptr, col, val, x))
     y = torch.empty_like(x) if out is None else out
     if n == 0 or ldx == 0:
         return y
-    with torch.cuda.device(x.device), trace.span("launch.route_spmv"):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with _build.launch("route_spmv", x.device) as run:
         c0 = 0
         while c0 < ldx:
             nc = next(c for c in _COLS if c <= ldx - c0)
-            err = lib.tpcg_route_spmv(
+            run("tpcg_route_spmv",
                 row_ptr.data_ptr(), col.data_ptr(), val.data_ptr(),
                 x.data_ptr(), y.data_ptr(), n, nnz, ldx, c0, nc,
-                int(val.dim() == 2), stream)
-            _build.check(err, "tpcg_route_spmv")
-            trace.count("launch.route_spmv")
+                int(val.dim() == 2))
             c0 += nc
     return y
 

@@ -30,14 +30,12 @@ for the TPU.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from . import _build
-from .. import trace
+from . import _build, _tiles
 from .fused_cg import _cdiv, _hist_row, _pad_for, _rr_grid, _udot_grid
 from .fused_cg_const import split_const_stencil
 
@@ -273,48 +271,37 @@ def stream_layout(nv: int, nh: int, pad: int, tile_rows: int = None,
     with a stencil of reach ``pad`` (defaults: the module's ``TILE_ROWS``,
     ``STAGES``, ``BLOCKS_PER_SM``).
 
-    The state planes' row pitch is nh + pad rounded up to 32 floats
-    (128 B), so every row starts aligned and at least ``pad`` zero columns
-    follow nh.  A tile's halo box starts ``col_halo`` columns left of the
-    tile, so that its rows are 16-byte multiples (TMA's rule).  Bytes a
-    node and RHS per iteration, with h = box / tile - 1 the halo's share:
-    phase A 16 (1 + h) + 8, phase B 8 (1 + h) + 32.  ``smem_bytes`` is the
-    kernel's own formula (``smem_bytes`` in the source)."""
+    The pitch, the column halo and the box are the streaming kernels'
+    (``_tiles``).  Bytes a node and RHS per iteration, with h = box / tile
+    - 1 the halo's share: phase A 16 (1 + h) + 8, phase B 8 (1 + h) + 32.
+    ``smem_bytes`` is the kernel's own formula (``smem_bytes`` in the
+    source)."""
     rows = TILE_ROWS if tile_rows is None else tile_rows
     stages = STAGES if stages is None else stages
-    pitch = -(-(nh + pad) // 32) * 32
-    hc = -(-pad // 4) * 4
-    br, bc = rows + 2 * pad, TILE_COLS + 2 * hc
-    halo = -(-(2 * br * bc) // 32) * 32
+    box = _tiles.box(nv, nh, pad, rows, TILE_COLS)
+    halo = _tiles.round_up(2 * box.rows * box.cols, 32)
     own = 2 * rows * TILE_COLS
     stage = max(2 * halo, halo + 2 * own)
-    tiles = -(-nv // rows) * -(-nh // TILE_COLS)
-    share = br * bc / (rows * TILE_COLS)
-    return StreamLayout(pitch, rows, hc, br, bc, stages,
-                        BLOCKS_PER_SM, tiles, 4 * stages * stage,
-                        16 * share + 8, 8 * share + 32)
+    return StreamLayout(_tiles.pitch(nh, pad), rows, _tiles.col_halo(pad),
+                        box.rows, box.cols, stages, BLOCKS_PER_SM, box.tiles,
+                        4 * stages * stage, 16 * box.share + 8,
+                        8 * box.share + 32)
 
 
 def kernel_limits() -> Tuple[int, int, int]:
     """(max taps, max stencil pad, max RHS in one launch) of the CUDA
     kernel."""
-    taps, pad, rhs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    _build.check(_build.load().tpcg_stream_cg_limits(
-        ctypes.byref(taps), ctypes.byref(pad), ctypes.byref(rhs)),
-        "tpcg_stream_cg_limits")
-    return taps.value, pad.value, rhs.value
+    return _build.query("tpcg_stream_cg_limits")
 
 
-def grid_blocks(nb: int, nv: int, nh: int, pad: int) -> int:
+def grid_blocks(nv: int, nh: int, pad: int, nb: int) -> int:
     """Blocks of one launch of the nb-RHS instance on an (nv, nh) grid on
     the current CUDA device, with :func:`stream_layout`'s tiles: the
     single-RHS grid, whatever nb."""
     lay = stream_layout(nv, nh, pad)
-    blocks = ctypes.c_int()
-    _build.check(_build.load().tpcg_stream_cg_grid(
-        nb, nv, nh, lay.pitch, pad, lay.tile_rows, lay.col_halo, lay.stages,
-        lay.blocks_per_sm, ctypes.byref(blocks)), "tpcg_stream_cg_grid")
-    return blocks.value
+    return _build.query("tpcg_stream_cg_grid", nb, nv, nh, lay.pitch, pad,
+                        lay.tile_rows, lay.col_halo, lay.stages,
+                        lay.blocks_per_sm)[0]
 
 
 def _launch(offsets, grid, taps, strips, bp, x0p, n_iterations,
@@ -323,7 +310,6 @@ def _launch(offsets, grid, taps, strips, bp, x0p, n_iterations,
     (2, B, Nv, Nh) planes bp, once per chunk of at most ``chunk`` RHS (the
     kernel's limit by default), queued with no host sync; returns x
     (2, B, Nv, Nh) and the history (n_iterations + 1, B)."""
-    lib = _build.load()
     nv, nh = grid
     n = nv * nh
     noff = len(offsets)
@@ -339,7 +325,7 @@ def _launch(offsets, grid, taps, strips, bp, x0p, n_iterations,
     dev = bp.device
     m = min(nb, chunk)
     lay = stream_layout(nv, nh, P)
-    with torch.cuda.device(dev), trace.span("launch.stream_const"):
+    with _build.launch("stream_const", dev) as run:
         f32 = dict(dtype=torch.float32, device=dev)
         x = torch.empty_like(bp)
         # state for the largest chunk in the kernel's padded rows, reused by
@@ -347,26 +333,21 @@ def _launch(offsets, grid, taps, strips, bp, x0p, n_iterations,
         r = torch.zeros((m, 2, nv, lay.pitch), **f32)
         d = torch.zeros((2, m, 2, nv, lay.pitch), **f32)
         xw = torch.zeros((m, 2, nv, lay.pitch), **f32)
-        offs = (ctypes.c_int * (2 * noff))(
-            *[int(v) for tap in offsets for v in tap])
-        tap_vals = (ctypes.c_float * (6 * noff))(
-            *[v for t in _taps32(taps) for v in t])
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        offs = _build.ints(v for tap in offsets for v in tap)
+        tap_vals = _build.floats(v for t in _taps32(taps) for v in t)
         hists = []
         for lo in range(0, nb, chunk):
             k = min(chunk, nb - lo)
-            blocks = grid_blocks(k, nv, nh, P)
+            blocks = grid_blocks(nv, nh, P, k)
             hist = torch.empty((n_iterations + 1, k), **f32)
             part = torch.empty((2, k, blocks, 2), **f32)
-            err = lib.tpcg_stream_cg(
+            run("tpcg_stream_cg",
                 bp[:, lo].data_ptr(), x0p[:, lo].data_ptr(),
                 strips.data_ptr(), x[:, lo].data_ptr(), hist.data_ptr(),
                 r.data_ptr(), d.data_ptr(), xw.data_ptr(), part.data_ptr(),
                 k, nb * n, nv, nh, lay.pitch, noff, offs, tap_vals, P,
                 lay.tile_rows, lay.col_halo, lay.stages, n_iterations,
-                blocks, stream)
-            _build.check(err, "tpcg_stream_cg")
-            trace.count("launch.stream_const")
+                blocks)
             hists.append(hist)
     return x, hists[0] if len(hists) == 1 else torch.cat(hists, dim=1)
 

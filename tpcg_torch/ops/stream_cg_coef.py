@@ -39,16 +39,13 @@ blocks); every other step is float32, in JAX's order.
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from . import _build
-from .. import trace
-from ._device_limits import (BLOCK_RESERVED, BLOCK_SHARED, SM_SHARED,
-                             STATIC_SHARED)
+from . import _build, _tiles
 from .fused_cg import _pad_for
 from .stream_cg import cocg_planes_plain
 
@@ -147,11 +144,7 @@ def stream_cg_coef_planes_batched_fat_plain(offsets: Sequence[Offset],
 def kernel_limits() -> Tuple[int, int, int]:
     """(max offsets, max stencil pad, max RHS in one launch) of the CUDA
     kernel."""
-    noff, pad, nb = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    _build.check(_build.load().tpcg_stream_coef_limits(
-        ctypes.byref(noff), ctypes.byref(pad), ctypes.byref(nb)),
-        "tpcg_stream_coef_limits")
-    return noff.value, pad.value, nb.value
+    return _build.query("tpcg_stream_coef_limits")
 
 
 # The kernel's tile and rings (csrc/stream_cg_coef.cu), from the sweep of
@@ -191,8 +184,11 @@ def _ring_bytes(rows, pad, hc, noff, stages, coef_stages):
     """The kernel's ``smem_bytes``: coefficient slots of 2 noff tile
     planes, state slots of two halo boxes (both planes, 32-float
     multiples)."""
-    box = -(-(2 * (rows + 2 * pad) * (TILE_COLS + 2 * hc)) // 32) * 32
+    box = _tiles.round_up(2 * (rows + 2 * pad) * (TILE_COLS + 2 * hc), 32)
     return 4 * (coef_stages * 2 * noff * rows * TILE_COLS + stages * 2 * box)
+
+
+_SHRINK = (("coef_stages", 1, _tiles.one_less), ("rows", 2, _tiles.half))
 
 
 def coef_layout(nv: int, nh: int, pad: int, nb: int, noff: int = None,
@@ -204,41 +200,32 @@ def coef_layout(nv: int, nh: int, pad: int, nb: int, noff: int = None,
     nodes (defaults: the module's ``TILE_ROWS``, ``STAGES``,
     ``COEF_STAGES``, ``BLOCKS_PER_SM``).
 
-    The state planes' row pitch is nh + pad rounded up to 32 floats
-    (128 B), so every row starts aligned and at least ``pad`` zero columns
-    follow nh; the coefficient planes are copied to the same pitch.  A
-    tile's halo box starts ``col_halo`` columns left of the tile, so that its
-    rows are 16-byte multiples (TMA's rule).  Where the rings would pass a
-    block's shared memory (large pads and offset counts), the layout drops
-    to one coefficient slot, then halves the tile, down to two rows.  The
-    tile, the rings and so the grid do not depend on nb: every RHS of a
-    launch gives the bits of its own one-RHS launch, and a launch takes
-    ``MAX_RHS`` RHS at every pad.  Bytes a node and RHS per iteration, with
-    h = box / tile - 1 the halo's share: phase A 16 (1 + h) + 16 +
-    8 noff / nb, phase B 48 (the pitch's zero columns not counted)."""
+    The pitch, the column halo and the box are the streaming kernels'
+    (``_tiles``); the coefficient planes are copied to the same pitch.
+    Where the rings would pass a block's shared memory (large pads and
+    offset counts), the layout drops to one coefficient slot, then halves
+    the tile, down to two rows.  The tile, the rings and so the grid do not
+    depend on nb: every RHS of a launch gives the bits of its own one-RHS
+    launch, and a launch takes ``MAX_RHS`` RHS at every pad.  Bytes a node
+    and RHS per iteration, with h = box / tile - 1 the halo's share: phase
+    A 16 (1 + h) + 16 + 8 noff / nb, phase B 48 (the pitch's zero columns
+    not counted)."""
     noff = min(MAX_OFF, (2 * pad + 1) ** 2) if noff is None else noff
-    rows = TILE_ROWS if tile_rows is None else tile_rows
     stages = STAGES if stages is None else stages
-    cst = COEF_STAGES if coef_stages is None else coef_stages
-    pitch = -(-(nh + pad) // 32) * 32
-    hc = -(-pad // 4) * 4
-    while (STATIC_SHARED + _ring_bytes(rows, pad, hc, noff, stages, cst)
-           > BLOCK_SHARED):
-        if cst > 1:
-            cst -= 1
-        elif rows > 2:
-            rows //= 2
-        else:
-            raise ValueError(f"no ring of {stages} slots fits a block at pad "
-                             f"{pad} with {noff} offsets")
-    smem = _ring_bytes(rows, pad, hc, noff, stages, cst)
-    blocks = min(BLOCKS_PER_SM,
-                 SM_SHARED // (smem + BLOCK_RESERVED + STATIC_SHARED))
-    br, bc = rows + 2 * pad, TILE_COLS + 2 * hc
-    tiles = -(-nv // rows) * -(-nh // TILE_COLS)
-    share = br * bc / (rows * TILE_COLS)
-    return CoefLayout(pitch, rows, hc, br, bc, stages, cst, blocks, MAX_RHS,
-                      tiles, smem, 16 * share + 16 + 8 * noff / nb, 48.0)
+    hc = _tiles.col_halo(pad)
+    fit, smem = _tiles.shrink(
+        functools.partial(_ring_bytes, pad=pad, hc=hc, noff=noff,
+                          stages=stages),
+        dict(rows=TILE_ROWS if tile_rows is None else tile_rows,
+             coef_stages=COEF_STAGES if coef_stages is None else coef_stages),
+        _SHRINK, f"no ring of {stages} slots fits a block at pad {pad} "
+        f"with {noff} offsets")
+    box = _tiles.box(nv, nh, pad, fit["rows"], TILE_COLS)
+    return CoefLayout(_tiles.pitch(nh, pad), fit["rows"], hc, box.rows,
+                      box.cols, stages, fit["coef_stages"],
+                      _tiles.blocks_per_sm(smem, BLOCKS_PER_SM), MAX_RHS,
+                      box.tiles, smem, 16 * box.share + 16 + 8 * noff / nb,
+                      48.0)
 
 
 def pad_rows(t: torch.Tensor, pitch: int) -> torch.Tensor:
@@ -247,18 +234,15 @@ def pad_rows(t: torch.Tensor, pitch: int) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, pitch - t.shape[-1]))
 
 
-def grid_blocks(nb: int, nv: int, nh: int, pad: int, noff: int) -> int:
+def grid_blocks(nv: int, nh: int, pad: int, nb: int, noff: int) -> int:
     """Blocks of one launch of the nb-RHS instance on an (nv, nh) grid on
     the current CUDA device, with :func:`coef_layout`'s tiles: the one-RHS
     grid, whatever nb (one block a tile, at most as many as the card holds
     at once)."""
     lay = coef_layout(nv, nh, pad, nb, noff)
-    blocks = ctypes.c_int()
-    _build.check(_build.load().tpcg_stream_coef_grid(
-        nb, nv, nh, lay.pitch, pad, noff, lay.tile_rows, lay.col_halo,
-        lay.stages, lay.coef_stages, lay.blocks_per_sm,
-        ctypes.byref(blocks)), "tpcg_stream_coef_grid")
-    return blocks.value
+    return _build.query("tpcg_stream_coef_grid", nb, nv, nh, lay.pitch, pad,
+                        noff, lay.tile_rows, lay.col_halo, lay.stages,
+                        lay.coef_stages, lay.blocks_per_sm)[0]
 
 
 def _launch(offsets, coefp, bp, x0p, n_iterations):
@@ -266,7 +250,6 @@ def _launch(offsets, coefp, bp, x0p, n_iterations):
     (2, B, Nv, Nh) planes bp, once per chunk of at most the layout's RHS a
     launch, queued with no host sync; returns x (2, B, Nv, Nh) and the
     history (n_iterations + 1, B)."""
-    lib = _build.load()
     noff, nv, nh = coefp.shape[1:]
     n = nv * nh
     nb = bp.shape[1]
@@ -279,18 +262,16 @@ def _launch(offsets, coefp, bp, x0p, n_iterations):
     dev = bp.device
     lay = coef_layout(nv, nh, P, nb, noff)
     chunk = lay.rhs_per_launch
-    with torch.cuda.device(dev), trace.span("launch.stream_coef"):
+    with _build.launch("stream_coef", dev) as run:
         f32 = dict(dtype=torch.float32, device=dev)
         # the coefficient planes at the kernel's pitch, once a solve
         cpad = pad_rows(coefp, lay.pitch).contiguous()
         x = torch.empty_like(bp)
-        offs = (ctypes.c_int * (2 * noff))(
-            *[int(v) for o in offsets for v in o])
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        offs = _build.ints(v for o in offsets for v in o)
         hists = []
         for lo in range(0, nb, chunk):
             k = min(chunk, nb - lo)
-            blocks = grid_blocks(k, nv, nh, P, noff)
+            blocks = grid_blocks(nv, nh, P, k, noff)
             # state in the kernel's padded rows, zero past column nh
             r = torch.zeros((k, 2, nv, lay.pitch), **f32)
             q = torch.zeros_like(r)
@@ -299,15 +280,13 @@ def _launch(offsets, coefp, bp, x0p, n_iterations):
             hist = torch.empty((n_iterations + 1, k), **f32)
             part = torch.empty((2, blocks, k, 2), dtype=torch.float64,
                                device=dev)
-            err = lib.tpcg_stream_coef(
+            run("tpcg_stream_coef",
                 bp[:, lo].data_ptr(), x0p[:, lo].data_ptr(), cpad.data_ptr(),
                 x[:, lo].data_ptr(), hist.data_ptr(), r.data_ptr(),
                 q.data_ptr(), d.data_ptr(), xw.data_ptr(), part.data_ptr(),
                 k, nb * n, nv, nh, lay.pitch, noff, offs, P, lay.tile_rows,
                 lay.col_halo, lay.stages, lay.coef_stages, n_iterations,
-                blocks, stream)
-            _build.check(err, "tpcg_stream_coef")
-            trace.count("launch.stream_coef")
+                blocks)
             hists.append(hist)
     return x, hists[0] if len(hists) == 1 else torch.cat(hists, dim=1)
 

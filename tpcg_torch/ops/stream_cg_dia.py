@@ -40,13 +40,12 @@ Public surface as in the JAX module: ``stream_cg_dia`` /
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, _tiles
 from .. import trace
 from ..device import upload
 from .cplx import cdiv, udot_planes
@@ -60,10 +59,10 @@ _MAX_RHS = 8
 _LATCH_ITERS = 256
 # the kernel's tiles: at least this many rows, at most one tile an SM
 TILE_ROWS_MIN = 512
-# shared memory an H100 block may use, and a bound on the kernel's static
-# part (its reductions and scalars); the rest holds the window, each
-# thread's ring of values (8 diagonals of 2 rows, 384 threads) and the taps
-SMEM_PER_BLOCK = 232_448
+# a bound on the kernel's static shared memory (its reductions and
+# scalars); the rest of the block's (_tiles.BLOCK_SHARED) holds the window,
+# each thread's ring of values (8 diagonals of 2 rows, 384 threads) and the
+# taps
 _STATIC_SMEM = 1280
 RING_BYTES = 4 * 8 * 2 * 384
 # cluster mode: at most this many blocks, ahead of each one's window the
@@ -171,7 +170,7 @@ def dia_layout(n: int, offsets, nb: int, planes: int, sms: int,
     ``cluster``, for probes and tests: 0 takes the cooperative layout, C a
     cluster of n over C rows rounded up to 32 a block (whether or not it
     fits; the kernel refuses what does not)."""
-    budget = SMEM_PER_BLOCK - _STATIC_SMEM
+    budget = _tiles.BLOCK_SHARED - _STATIC_SMEM
     if cluster is None:
         rows = cluster_tile_rows(n, sms)
         if cluster_smem(rows, offsets, _MAX_RHS, planes) <= budget:
@@ -321,17 +320,12 @@ def stream_cg_dia_rows_cplx_plain(offsets: Sequence[int],
 
 def kernel_limits() -> Tuple[int, int]:
     """(max RHS per launch, max diagonals) of the CUDA kernel."""
-    rhs, diags = ctypes.c_int(), ctypes.c_int()
-    _build.check(_build.load().tpcg_stream_dia_limits(ctypes.byref(rhs),
-                                                       ctypes.byref(diags)),
-                 "tpcg_stream_dia_limits")
-    return rhs.value, diags.value
+    return _build.query("tpcg_stream_dia_limits")
 
 
 def _launch(offsets, values, b, x0, n_iterations):
     """Launch the CUDA kernel on the current stream of b's device; values
     (P, ndiag, n), b/x0 (P, B, n) with B within the kernel's limit."""
-    lib = _build.load()
     planes, ndiag, n = values.shape
     nb = b.shape[1]
     max_rhs, max_diags = kernel_limits()
@@ -344,20 +338,19 @@ def _launch(offsets, values, b, x0, n_iterations):
     dev = b.device
     cplx = int(planes == 2)
     kernel = "stream_dia_cplx" if cplx else "stream_dia"
-    with torch.cuda.device(dev), trace.span("launch." + kernel):
+    with _build.launch(kernel, dev) as run:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         lay = dia_layout(n, offsets, nb, planes, sms)
-        grid = ctypes.c_int()
 
-        def query():
-            _build.check(lib.tpcg_stream_dia_grid(
-                cplx, nb, n, ndiag, P, lay.tile_rows, int(lay.staged),
-                lay.cluster, ctypes.byref(grid)), "tpcg_stream_dia_grid")
-        query()
-        if lay.cluster and not grid.value:
+        def grid_of(lay):
+            return _build.query("tpcg_stream_dia_grid", cplx, nb, n, ndiag,
+                                P, lay.tile_rows, int(lay.staged),
+                                lay.cluster)[0]
+        grid = grid_of(lay)
+        if lay.cluster and not grid:
             # the card cannot hold the cluster: the cooperative layout
             lay = dia_layout(n, offsets, nb, planes, sms, cluster=0)
-            query()
+            grid = grid_of(lay)
         f32 = dict(dtype=torch.float32, device=dev)
         offs = upload(torch.tensor([int(o) for o in offsets],
                                    dtype=torch.int32), dev)
@@ -371,17 +364,14 @@ def _launch(offsets, values, b, x0, n_iterations):
         dpad = part = None
         if not lay.cluster:
             dpad = torch.empty(planes * nb * (n + 2 * P) + 4, **f32)
-            part = torch.empty((2, grid.value, nb, 2), **f32)
-        err = lib.tpcg_stream_dia(
+            part = torch.empty((2, grid, nb, 2), **f32)
+        run("tpcg_stream_dia",
             cplx, values.data_ptr(), offs.data_ptr(), b.data_ptr(),
             x0.data_ptr(), x.data_ptr(), hist.data_ptr(), r.data_ptr(),
             q.data_ptr(), None if dpad is None else dpad.data_ptr(),
             None if part is None else part[0].data_ptr(),
             None if part is None else part[1].data_ptr(), n, ndiag, nb, P,
-            n_iterations, lay.tile_rows, int(lay.staged), lay.cluster,
-            grid.value, torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "tpcg_stream_dia")
-        trace.count("launch." + kernel)
+            n_iterations, lay.tile_rows, int(lay.staged), lay.cluster, grid)
         if lay.staged:
             trace.count("staged." + kernel)
         if lay.cluster:

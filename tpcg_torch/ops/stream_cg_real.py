@@ -43,16 +43,14 @@ to the same alpha and beta at full size (``stream_cg_sym``'s finding).
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, _tiles
 from .. import trace
-from ._device_limits import (BLOCK_RESERVED, BLOCK_SHARED, SM_SHARED,
-                             STATIC_SHARED)
 from .fused_cg import _pad_for
 from .fused_cg_const import group_of, tap_groups
 from .stream_cg_coef import pad_rows
@@ -294,11 +292,7 @@ def stream_cg_real_coef_planes_plain(offsets, coefp, bp, x0p,
 
 def kernel_limits() -> Tuple[int, int]:
     """(max taps, max stencil pad) of the CUDA kernel."""
-    taps, pad = ctypes.c_int(), ctypes.c_int()
-    _build.check(_build.load().tpcg_stream_real_limits(ctypes.byref(taps),
-                                                       ctypes.byref(pad)),
-                 "tpcg_stream_real_limits")
-    return taps.value, pad.value
+    return _build.query("tpcg_stream_real_limits")
 
 
 # The kernel's tiles and rings (csrc/stream_cg_real.cu), from the sweeps of
@@ -343,9 +337,12 @@ def _ring_bytes(rows, pad, hc, noff, coef, stages, coef_stages):
     """The kernel's ``smem_bytes``: state slots of two halo boxes (phase A:
     r and d_old), and in coef mode coefficient slots of the tile's noff
     planes; each box rounded up to 32 floats."""
-    box = -(-((rows + 2 * pad) * (TILE_COLS + 2 * hc)) // 32) * 32
-    cbox = -(-(noff * rows * TILE_COLS) // 32) * 32 if coef else 0
+    box = _tiles.round_up((rows + 2 * pad) * (TILE_COLS + 2 * hc), 32)
+    cbox = _tiles.round_up(noff * rows * TILE_COLS, 32) if coef else 0
     return 4 * ((coef_stages if coef else 0) * cbox + stages * 2 * box)
+
+
+_SHRINK = (("coef_stages", 1, _tiles.one_less), ("rows", 1, _tiles.half))
 
 
 def real_layout(nv: int, nh: int, pad: int, noff: int, coef: bool,
@@ -358,12 +355,9 @@ def real_layout(nv: int, nh: int, pad: int, noff: int, coef: bool,
     ``SMALL_GRID_NODES`` nodes, ``COEF_TILE_ROWS``, ``COEF_STAGES`` and
     ``COEF_BLOCKS_PER_SM`` in coef mode, ``STAGES`` in both).
 
-    The state planes' row pitch is nh + pad rounded up to 32 floats
-    (128 B), so every row starts aligned and at least ``pad`` zero columns
-    follow nh; coef mode's planes are copied to the same pitch
-    (:func:`pad_real_planes`).  A halo box starts ``col_halo`` columns left
-    of its tile and ``pad`` rows above it, so that its rows are 16-byte
-    multiples (TMA's rule).  Where the rings would pass a block's shared
+    The pitch, the column halo and the box are the streaming kernels'
+    (``_tiles``); coef mode's planes are copied to the same pitch
+    (:func:`pad_real_planes`).  Where the rings would pass a block's shared
     memory (large pads and tap counts), the layout drops to one coefficient
     slot, then halves the tile's rows: every pad and tap count the kernel
     takes (:func:`kernel_limits`: 8 and 16) runs.  Bytes a node per
@@ -382,25 +376,18 @@ def real_layout(nv: int, nh: int, pad: int, noff: int, coef: bool,
         cst = 0
         cap = SMALL_BLOCKS_PER_SM if small else BLOCKS_PER_SM
     stages = STAGES if stages is None else stages
-    pitch = -(-(nh + pad) // 32) * 32
-    hc = -(-pad // 4) * 4
-    while (STATIC_SHARED + _ring_bytes(rows, pad, hc, noff, coef, stages, cst)
-           > BLOCK_SHARED):
-        if cst > 1:
-            cst -= 1
-        elif rows > 1:
-            rows //= 2
-        else:
-            raise ValueError(f"no ring of {stages} slots fits a block at pad "
-                             f"{pad} with {noff} taps")
-    smem = _ring_bytes(rows, pad, hc, noff, coef, stages, cst)
-    blocks = min(cap, SM_SHARED // (smem + BLOCK_RESERVED + STATIC_SHARED))
-    br, bc = rows + 2 * pad, TILE_COLS + 2 * hc
-    tiles = -(-nv // rows) * -(-nh // TILE_COLS)
-    share = br * bc / (rows * TILE_COLS)
-    return RealLayout(pitch, rows, TILE_COLS, hc, br, bc, stages, cst,
-                      blocks, tiles, smem,
-                      8 * share + 8 + (4 * noff if coef else 0), 24.0)
+    hc = _tiles.col_halo(pad)
+    fit, smem = _tiles.shrink(
+        functools.partial(_ring_bytes, pad=pad, hc=hc, noff=noff, coef=coef,
+                          stages=stages),
+        dict(rows=rows, coef_stages=cst), _SHRINK,
+        f"no ring of {stages} slots fits a block at pad {pad} with {noff} "
+        f"taps")
+    box = _tiles.box(nv, nh, pad, fit["rows"], TILE_COLS)
+    return RealLayout(_tiles.pitch(nh, pad), fit["rows"], TILE_COLS, hc,
+                      box.rows, box.cols, stages, fit["coef_stages"],
+                      _tiles.blocks_per_sm(smem, cap), box.tiles, smem,
+                      8 * box.share + 8 + (4 * noff if coef else 0), 24.0)
 
 
 def pad_real_planes(offsets: Sequence[Offset],
@@ -421,12 +408,9 @@ def grid_blocks(nv: int, nh: int, pad: int, noff: int, coef: bool) -> int:
     with :func:`real_layout`'s tiles (one block a tile, at most as many as
     the card holds at once)."""
     lay = real_layout(nv, nh, pad, noff, coef)
-    blocks = ctypes.c_int()
-    _build.check(_build.load().tpcg_stream_real_grid(
-        nv, nh, lay.pitch, pad, noff, int(coef), lay.tile_rows,
-        lay.col_halo, lay.stages, lay.coef_stages, lay.blocks_per_sm,
-        ctypes.byref(blocks)), "tpcg_stream_real_grid")
-    return blocks.value
+    return _build.query("tpcg_stream_real_grid", nv, nh, lay.pitch, pad,
+                        noff, int(coef), lay.tile_rows, lay.col_halo,
+                        lay.stages, lay.coef_stages, lay.blocks_per_sm)[0]
 
 
 def _launch(offsets, operand, taps, bp, x0p, n_iterations, cpad=None):
@@ -435,7 +419,6 @@ def _launch(offsets, operand, taps, bp, x0p, n_iterations, cpad=None):
     (``operand`` the coefficient planes; ``cpad`` the planes at the
     kernel's pitch, :func:`pad_real_planes`, or None to copy them for this
     launch)."""
-    lib = _build.load()
     nv, nh = bp.shape
     noff = len(offsets)
     P = _pad_for(offsets)
@@ -462,7 +445,7 @@ def _launch(offsets, operand, taps, bp, x0p, n_iterations, cpad=None):
         operand = cpad
     else:
         operand = operand.contiguous()
-    with torch.cuda.device(dev), trace.span("launch.stream_real"):
+    with _build.launch("stream_real", dev) as run:
         blocks = grid_blocks(nv, nh, P, noff, coef)
         f32 = dict(dtype=torch.float32, device=dev)
         x = torch.empty_like(bp)
@@ -473,19 +456,15 @@ def _launch(offsets, operand, taps, bp, x0p, n_iterations, cpad=None):
         xw = torch.zeros_like(r)
         d = torch.zeros((2, nv, lay.pitch), **f32)
         part = torch.empty((2, blocks), dtype=torch.float64, device=dev)
-        offs = (ctypes.c_int * (2 * noff))(
-            *[int(v) for tap in offsets for v in tap])
-        tap_vals = (ctypes.c_float * (3 * noff))(*[v for t in taps for v in t])
-        groups = (ctypes.c_int * noff)(*group_of(taps[0]))
-        err = lib.tpcg_stream_real(
+        offs = _build.ints(v for tap in offsets for v in tap)
+        tap_vals = _build.floats(v for t in taps for v in t)
+        groups = _build.ints(group_of(taps[0]))
+        run("tpcg_stream_real",
             bp.data_ptr(), x0p.data_ptr(), operand.data_ptr(), x.data_ptr(),
             hist.data_ptr(), r.data_ptr(), q.data_ptr(), d.data_ptr(),
             xw.data_ptr(), part.data_ptr(), nv, nh, lay.pitch, noff, offs,
             tap_vals, groups, int(coef), P, lay.tile_rows, lay.col_halo,
-            lay.stages, lay.coef_stages, n_iterations, blocks,
-            torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "tpcg_stream_real")
-        trace.count("launch.stream_real")
+            lay.stages, lay.coef_stages, n_iterations, blocks)
     return x, hist
 
 

@@ -49,16 +49,14 @@ Two deliberate differences from JAX:
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, _tiles
 from .. import trace
-from ._device_limits import (BLOCK_RESERVED, BLOCK_SHARED, SM_SHARED,
-                             STATIC_SHARED)
 from .fused_cg import _pad_for
 from .stream_cg import cocg_planes_plain
 from .stream_cg_coef import pad_rows
@@ -195,11 +193,7 @@ def stream_cg_sym_planes_plain(half_offsets: Sequence[Offset],
 
 def kernel_limits() -> Tuple[int, int]:
     """(max half offsets, max stencil pad) of the CUDA kernel."""
-    nh1, pad = ctypes.c_int(), ctypes.c_int()
-    _build.check(_build.load().tpcg_stream_sym_limits(ctypes.byref(nh1),
-                                                      ctypes.byref(pad)),
-                 "tpcg_stream_sym_limits")
-    return nh1.value, pad.value
+    return _build.query("tpcg_stream_sym_limits")
 
 
 # The kernel's tile and rings (csrc/stream_cg_sym.cu), from the sweep of
@@ -239,9 +233,13 @@ def _ring_bytes(rows, cols, pad, hc, nh1, stages, coef_stages):
     box rows of 2 nh1 planes, state slots of two halo boxes (both planes);
     each box rounded up to 32 floats."""
     bc = cols + 2 * hc
-    box = -(-(2 * (rows + 2 * pad) * bc) // 32) * 32
-    cbox = -(-((rows + pad) * 2 * nh1 * bc) // 32) * 32
+    box = _tiles.round_up(2 * (rows + 2 * pad) * bc, 32)
+    cbox = _tiles.round_up((rows + pad) * 2 * nh1 * bc, 32)
     return 4 * (coef_stages * cbox + stages * 2 * box)
+
+
+_SHRINK = (("coef_stages", 1, _tiles.one_less), ("rows", 2, _tiles.half),
+           ("cols", 64, _tiles.half), ("rows", 1, _tiles.half))
 
 
 def sym_layout(nv: int, nh: int, pad: int, nh1: int, tile_rows: int = None,
@@ -251,50 +249,35 @@ def sym_layout(nv: int, nh: int, pad: int, nh1: int, tile_rows: int = None,
     module's ``TILE_ROWS``, ``STAGES``, ``COEF_STAGES``,
     ``BLOCKS_PER_SM``).
 
-    The state planes' row pitch is nh + pad rounded up to 32 floats
-    (128 B), so every row starts aligned and at least ``pad`` zero columns
-    follow nh; the half planes are copied to the same pitch
-    (:func:`pad_sym_planes`).  A box starts ``col_halo`` columns left of
-    its tile, so that its rows are 16-byte multiples (TMA's rule); the
-    coefficient box also starts ``pad`` rows above the tile, for the
-    mirrored terms c_s(n - s).  Where the rings would pass a block's shared
-    memory (large pads and half-plane counts), the layout drops to one
-    coefficient slot, halves the tile down to two rows, narrows it to 64
-    columns, then to one row: every pad and half-plane count the kernel
-    takes (:func:`kernel_limits`: 8 and 16) runs.  Bytes a node per iteration, with h_s and h_c the
-    halo's shares of a state and a coefficient box (box / tile - 1):
-    phase A 16 (1 + h_s) + 32 + 8 nh1 (1 + h_c), phase B 24 (the kernel
-    defers x += alpha d' into the next phase A; the pitch's zero columns
-    not counted)."""
-    rows = TILE_ROWS if tile_rows is None else tile_rows
+    The pitch, the column halo and the state box are the streaming
+    kernels' (``_tiles``); the half planes are copied to the same pitch
+    (:func:`pad_sym_planes`); the coefficient box also starts ``pad`` rows
+    above the tile, for the mirrored terms c_s(n - s).  Where the rings
+    would pass a block's shared memory (large pads and half-plane counts),
+    the layout drops to one coefficient slot, halves the tile down to two
+    rows, narrows it to 64 columns, then to one row: every pad and
+    half-plane count the kernel takes (:func:`kernel_limits`: 8 and 16)
+    runs.  Bytes a node per iteration, with h_s and h_c the halo's shares
+    of a state and a coefficient box (box / tile - 1): phase A 16 (1 + h_s)
+    + 32 + 8 nh1 (1 + h_c), phase B 24 (the kernel defers x += alpha d'
+    into the next phase A; the pitch's zero columns not counted)."""
     stages = STAGES if stages is None else stages
-    cst = COEF_STAGES if coef_stages is None else coef_stages
-    cols = TILE_COLS
-    pitch = -(-(nh + pad) // 32) * 32
-    hc = -(-pad // 4) * 4
-    while (STATIC_SHARED + _ring_bytes(rows, cols, pad, hc, nh1, stages, cst)
-           > BLOCK_SHARED):
-        if cst > 1:
-            cst -= 1
-        elif rows > 2:
-            rows //= 2
-        elif cols > 64:
-            cols = 64
-        elif rows > 1:
-            rows = 1
-        else:
-            raise ValueError(f"no ring of {stages} slots fits a block at pad "
-                             f"{pad} with {nh1} half planes")
-    smem = _ring_bytes(rows, cols, pad, hc, nh1, stages, cst)
-    blocks = min(BLOCKS_PER_SM,
-                 SM_SHARED // (smem + BLOCK_RESERVED + STATIC_SHARED))
-    br, bc = rows + 2 * pad, cols + 2 * hc
-    tiles = -(-nv // rows) * -(-nh // cols)
-    share_s = br * bc / (rows * cols)
-    share_c = (rows + pad) * bc / (rows * cols)
-    return SymLayout(pitch, rows, cols, hc, br, bc, rows + pad, stages, cst,
-                     blocks, tiles, smem,
-                     16 * share_s + 32 + 8 * nh1 * share_c, 24.0)
+    hc = _tiles.col_halo(pad)
+    fit, smem = _tiles.shrink(
+        functools.partial(_ring_bytes, pad=pad, hc=hc, nh1=nh1,
+                          stages=stages),
+        dict(rows=TILE_ROWS if tile_rows is None else tile_rows,
+             cols=TILE_COLS,
+             coef_stages=COEF_STAGES if coef_stages is None else coef_stages),
+        _SHRINK, f"no ring of {stages} slots fits a block at pad {pad} "
+        f"with {nh1} half planes")
+    rows, cols = fit["rows"], fit["cols"]
+    box = _tiles.box(nv, nh, pad, rows, cols)
+    share_c = (rows + pad) * box.cols / (rows * cols)
+    return SymLayout(_tiles.pitch(nh, pad), rows, cols, hc, box.rows,
+                     box.cols, rows + pad, stages, fit["coef_stages"],
+                     _tiles.blocks_per_sm(smem, BLOCKS_PER_SM), box.tiles,
+                     smem, 16 * box.share + 32 + 8 * nh1 * share_c, 24.0)
 
 
 def pad_sym_planes(half_offsets: Sequence[Offset],
@@ -315,19 +298,15 @@ def grid_blocks(nv: int, nh: int, pad: int, nh1: int) -> int:
     with :func:`sym_layout`'s tiles (one block a tile, at most as many as the
     card holds at once)."""
     lay = sym_layout(nv, nh, pad, nh1)
-    blocks = ctypes.c_int()
-    _build.check(_build.load().tpcg_stream_sym_grid(
-        nv, nh, lay.pitch, pad, nh1, lay.tile_rows, lay.tile_cols,
-        lay.col_halo, lay.stages, lay.coef_stages, lay.blocks_per_sm,
-        ctypes.byref(blocks)), "tpcg_stream_sym_grid")
-    return blocks.value
+    return _build.query("tpcg_stream_sym_grid", nv, nh, lay.pitch, pad, nh1,
+                        lay.tile_rows, lay.tile_cols, lay.col_halo,
+                        lay.stages, lay.coef_stages, lay.blocks_per_sm)[0]
 
 
 def _launch(half_offsets, cplanes, bp, x0p, n_iterations, cpad):
     """Launch the CUDA kernel on the current stream of bp's device; cpad:
     the half planes at the kernel's pitch (:func:`pad_sym_planes`), or None
     to copy them for this launch (a full copy of the half planes)."""
-    lib = _build.load()
     _, nh1, nv, nh = cplanes.shape
     P = _pad_for(half_offsets)
     max_half, max_pad = kernel_limits()
@@ -345,7 +324,7 @@ def _launch(half_offsets, cplanes, bp, x0p, n_iterations, cpad):
         raise ValueError(f"cpad must be contiguous float32 (2, {nh1}, {nv}, "
                          f"{lay.pitch}) on {dev}, got {tuple(cpad.shape)} "
                          f"{cpad.dtype} on {cpad.device}")
-    with torch.cuda.device(dev), trace.span("launch.stream_sym"):
+    with _build.launch("stream_sym", dev) as run:
         blocks = grid_blocks(nv, nh, P, nh1)
         f32 = dict(dtype=torch.float32, device=dev)
         x = torch.empty_like(bp)
@@ -356,17 +335,13 @@ def _launch(half_offsets, cplanes, bp, x0p, n_iterations, cpad):
         xw = torch.zeros_like(r)
         d = torch.zeros((2, 2, nv, lay.pitch), **f32)
         part = torch.empty((2, blocks, 2), dtype=torch.float64, device=dev)
-        offs = (ctypes.c_int * (2 * nh1))(
-            *[int(v) for o in half_offsets for v in o])
-        err = lib.tpcg_stream_sym(
+        offs = _build.ints(v for o in half_offsets for v in o)
+        run("tpcg_stream_sym",
             bp.data_ptr(), x0p.data_ptr(), cpad.data_ptr(), x.data_ptr(),
             hist.data_ptr(), r.data_ptr(), q.data_ptr(), d.data_ptr(),
             xw.data_ptr(), part.data_ptr(), nv, nh, lay.pitch, nh1, offs, P,
             lay.tile_rows, lay.tile_cols, lay.col_halo, lay.stages,
-            lay.coef_stages, n_iterations, blocks,
-            torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "tpcg_stream_sym")
-        trace.count("launch.stream_sym")
+            lay.coef_stages, n_iterations, blocks)
     return x, hist
 
 

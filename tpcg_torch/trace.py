@@ -21,7 +21,9 @@ The counters the program keeps:
 * ``launch.<kernel>``: launches of each hand-written kernel (``stream_dia``,
   ``stream_dia_cplx``, ``fused_cg``, ``fused_const``, ``fused_dia``,
   ``stream_const``, ``stream_coef``, ``stream_sym``, ``stream_real``,
-  ``route_spmv``);
+  ``route_spmv``), counted in one place, ``ops._build.launch``, once for
+  each call into the library that succeeded, inside the span
+  ``tpcg.launch.<kernel>`` that the same function opens;
 * ``staged.stream_dia``, ``staged.stream_dia_cplx``: launches of kernel A
   (``csrc/stream_cg_dia.cu``) whose blocks staged their window of the
   direction in shared memory (a ``launch.*`` count too; not itself one);
