@@ -99,11 +99,14 @@ Phases, in order; the first failure exits non-zero:
      card, as phase 8: Poisson and the 7-point FE stencil (const mode) and
      Poisson with a variable diagonal (coef mode) cut to 256 x 256,
      300 x 700, 1031 x 1024, 600 x 1000, the odd width 513 x 1027 and the
-     uneven tiles of 700 x 901, 40 iterations from a seeded x0 and RHS; a
-     16-tap pad-8 stencil (the kernel's limits) in both modes, 16
-     iterations; a 2-RHS ``stream-real`` plan; 2 I over 400 iterations in
-     both modes; the kernel's registers (neither instance may spill) and
-     ``real_layout`` at pads 1, 2 and 8;
+     uneven tiles of 700 x 901, 40 iterations from a seeded x0 and RHS;
+     the parabolic_fem cell's operator (``parabolic_stencil(725,
+     diag=6)``) and Poisson at 725 x 725, which run the one-wave resident
+     layout, 100 iterations, x and the history gated bit-equal to the plain
+     version; a 16-tap pad-8 stencil (the kernel's limits) in both modes,
+     16 iterations; a 2-RHS ``stream-real`` plan; 2 I over 400 iterations
+     in both modes; the kernel's registers (no instance may spill) and
+     ``card_layout`` at 2048 x 2048, pads 1, 2 and 8;
  13. the planner's ``stream-real`` path at full size, as phase 9: Poisson
      (``problems.poisson``) and a seeded normal RHS at N=1024 x 5000 (it
      converges: the float64 relative residual is gated at 1e-3), 2048, 2049
@@ -112,11 +115,12 @@ Phases, in order; the first failure exits non-zero:
      class); Poisson with the variable diagonal c[0] += 0.3 U(0, 1) (coef
      mode) at N=1024 x 5000 (gated as Poisson) and 4096 x 1000; beside
      N=2048 the coef kernel on Poisson's own planes, off the main path
-     (JAX's benchmarks/exp_realstream.py:34-74 configuration).  Only
-     ``stream_cg_real`` may move; each prints the rates of the kernel's own
-     bytes (``real_layout``) and of the 24 B floor (plus 4 B a tap in coef
-     mode); row 14's cell (N=4096) against the kernel's time before its
-     redesign (PERF.md, row 14);
+     (JAX's benchmarks/exp_realstream.py:34-74 configuration); the
+     parabolic_fem cell's operator at N=725 x 5000, each launch counted by
+     ``resident.stream_real``.  Only ``stream_cg_real`` may move; each
+     prints the rates of the kernel's own bytes (``card_layout``) and of the
+     24 B floor (plus 4 B a tap in coef mode); row 14's cell (N=4096)
+     against the kernel's time before its redesign (PERF.md, row 14);
  14. the ``l2-const`` path (forced, as in JAX): helm_fe(N, 12, eps=12) at
      N=128 x 5000 and N=512 x 1000, B=1 and B=2 (plane waves), with phase
      4's gates against the plain version (the residual gated at N=128, B=1)
@@ -1305,24 +1309,28 @@ ROW14_MS = 348.203
 
 
 def real_layout_of(S, prepared):
-    """csrc/stream_cg_real.cu's layout for the stencil S in the mode
-    ``prepared`` names."""
+    """The layout a launch of csrc/stream_cg_real.cu runs for the stencil S
+    in the mode ``prepared`` names on this card."""
     from tpcg_torch.ops import stream_cg_real as tsr
     from tpcg_torch.ops.fused_cg import _pad_for
-    return tsr.real_layout(*S.grid, _pad_for(S.offsets), len(S.offsets),
-                           prepared[0] == "coef")
+    return tsr.card_layout(*S.grid, _pad_for(S.offsets), len(S.offsets),
+                           prepared[0] == "coef")[0]
 
 
 def real_stencil(dev, kind, nv, nh):
     """A real nv x nh stencil: ``poisson`` (5-point, diagonal 4), ``fe`` (the
-    parabolic_fem-class 7-point stencil, diagonal 8) or ``vardiag`` (Poisson
-    with c[0] += 0.3 U(0, 1) from seed 2); taps that leave the grid are
-    zero.  Square grids come from the entry points (``problems.poisson``,
+    parabolic_fem-class 7-point stencil, diagonal 8), ``parabolic_fem``
+    (square only: the same stencil with diagonal 6, the benchmark cell
+    parabolic_fem.stencil_calls' operator) or ``vardiag`` (Poisson with
+    c[0] += 0.3 U(0, 1) from seed 2); taps that leave the grid are zero.
+    Square grids come from the entry points (``problems.poisson``,
     ``parabolic_stencil``)."""
     from tpcg_torch.problems import parabolic_stencil, poisson
     from tpcg_torch.sparse import Stencil2D
     if nv == nh and kind in ("poisson", "vardiag"):
         S = poisson(nv, device=dev)
+    elif kind == "parabolic_fem":
+        S = parabolic_stencil(nv, device=dev, diag=6.0)
     elif nv == nh:
         S = parabolic_stencil(nv, device=dev)
     else:
@@ -1393,6 +1401,30 @@ def phase_real_compare(dev):
                      f"({kind} {nv}x{nh})")
             worst = max(worst, err)
 
+    # the one-wave resident layout (const mode, one tile a block, x, r and
+    # q in registers) at the parabolic_fem cell's grid: bit for bit the
+    # plain version over 100 iterations
+    for kind, seed in (("parabolic_fem", 9), ("poisson", 10)):
+        S = real_stencil(dev, kind, 725, 725)
+        prepared = tsr.prepare_real(S)
+        lay = real_layout_of(S, prepared)
+        b, x0 = real_rhs(dev, 725, 725, seed)
+        xk, hk = real_run(S, prepared, b, x0, 100)
+        xk2, hk2 = real_run(S, prepared, b, x0, 100)
+        xp, hp = real_run(S, prepared, b, x0, 100, plain=True)
+        torch.cuda.synchronize()
+        _, err, lim, _ = dia_close(xk, hk, xp, hp)
+        same = torch.equal(xk, xk2) and torch.equal(hk, hk2)
+        plain = torch.equal(xk, xp) and torch.equal(hk, hp)
+        print(f"compare stream_cg_real {kind} ({prepared[0]}) 725x725 100 "
+              f"it: {lay}; max|x err| {err:.3e}, repeat bit-equal {same}, x "
+              f"and history bit-equal to plain {plain}")
+        if not (lay.resident and same and plain):
+            fail(f"stream_cg_real's resident layout at 725x725 ({kind}) is "
+                 f"not bit-equal to its plain version (resident "
+                 f"{lay.resident})")
+        worst = max(worst, err)
+
     # the kernel's limits, pad 8 and 16 taps, in both modes
     for mode in ("const", "coef"):
         S = real_limit_stencil(dev, 157, 203, 3, mode == "coef")
@@ -1443,7 +1475,7 @@ def phase_real_compare(dev):
         freeze_check(f"stream_cg_real ({prepared[0]}) 2 I 64x64", xk, hk, xp,
                      hp)
 
-    # the kernel's registers (no spill in either instance) and its layout
+    # the kernel's registers (no spill in any instance) and its layout
     from tpcg_torch.ops import _build
     name = spill = ""
     for line in _build.compiler_report().splitlines():
@@ -1461,11 +1493,11 @@ def phase_real_compare(dev):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for coef in (False, True):
         for pad, noff in ((1, 5), (2, 9), (8, 16)):
-            blocks = tsr.grid_blocks(2048, 2048, pad, noff, coef)
+            lay, blocks = tsr.card_layout(2048, 2048, pad, noff, coef)
             print(f"stream_cg_real layout at 2048 x 2048, "
                   f"{'coef' if coef else 'const'} mode, pad {pad}, {noff} "
-                  f"taps: {tsr.real_layout(2048, 2048, pad, noff, coef)}; "
-                  f"{blocks} blocks of 256 threads ({blocks / sms:g} an SM)")
+                  f"taps: {lay}; {blocks} blocks of 256 threads "
+                  f"({blocks / sms:g} an SM)")
     return worst
 
 
@@ -1491,10 +1523,12 @@ def real_limit_stencil(dev, nv, nh, seed, coef):
 
 
 def phase_real_main(dev, kind, N, iters, nb=1, gate_residual=False,
-                    plain_full=False, also_coef=False):
+                    plain_full=False, also_coef=False, resident=False):
     """The ``stream-real`` path at full size on ``real_stencil(kind, N)``
-    with seeded normal RHS; returns its numbers."""
+    with seeded normal RHS (with ``resident``, every launch in the resident
+    layout); returns its numbers."""
     import tpcg_torch
+    from tpcg_torch import trace
     from tpcg_torch.ops import stream_cg_real as tsr
     t0 = time.perf_counter()
     A = real_stencil(dev, kind, N, N)
@@ -1517,15 +1551,19 @@ def phase_real_main(dev, kind, N, iters, nb=1, gate_residual=False,
     wall = time.perf_counter() - t0
     counts = moved_counts()
     launches = counts.get("stream_cg_real", 0)
+    held = trace.counters().get("resident.stream_real", 0)
     label = f"stream-real {kind} ({prep[0]}) N={N} B={nb}"
     print(f"{label}: n={n} nnz={nnz} path={plan.path} kernel launches "
-          f"{counts}; host s: assembly {t_asm:.3f}, prepare_real "
+          f"{counts}, resident {held}; host s: assembly {t_asm:.3f}, "
+          f"prepare_real "
           f"{t_prep:.3f}, plan + solve {wall:.3f} (plan prepares again; "
           "solve uploads b and downloads x)")
     if (plan.path != "stream-real" or set(counts) != {"stream_cg_real"}
             or launches != nb):
         fail(f"N={N}: the stream-real path did not run its kernel once per "
              "RHS")
+    if resident and held != launches:
+        fail(f"N={N}: {held} of {launches} launches ran resident")
     X = np.asarray(x).reshape(nb, N, N)
     H = np.asarray(hist).reshape(iters + 1, nb)
     if X.dtype != np.float32:
@@ -1594,7 +1632,7 @@ def phase_real_main(dev, kind, N, iters, nb=1, gate_residual=False,
     print(f"time {label} {iters} it: kernel {ms:.3f} ms "
           f"({ms * 1e3 / (nb * iters):.3f} us/it per RHS, {gflops:.2f} GFLOPS "
           f"Table II, all RHS; own {own_b:.2f} B a node "
-          f"(real_layout) at {own:.3f} TB/s, the {24 + tap_bytes} B floor at "
+          f"(card_layout) at {own:.3f} TB/s, the {24 + tap_bytes} B floor at "
           f"{floor_rate:.3f} TB/s); bound {bound_ms:.3f} ms ({bound_by}); "
           f"state streaming floor ({24 + tap_bytes} B a node) "
           f"{floor_ms:.3f} ms"
@@ -2672,7 +2710,9 @@ def main():
             phase_real_main(dev, "poisson", 1024, 1000, nb=2),
             phase_real_main(dev, "fe", 2048, 1000),
             phase_real_main(dev, "vardiag", 1024, 5000, gate_residual=True),
-            phase_real_main(dev, "vardiag", 4096, 1000, plain_full=True)]
+            phase_real_main(dev, "vardiag", 4096, 1000, plain_full=True),
+            phase_real_main(dev, "parabolic_fem", 725, 5000, plain_full=True,
+                            resident=True)]
     print(f"row 14 (stream_cg_real, Poisson N=4096 x 1000): "
           f"{real[4]['ms']:.3f} ms (phase 13) against {ROW14_MS} ms of the "
           f"kernel before its redesign: "

@@ -8,8 +8,9 @@ JSON result print as they do there), then splits the timed calls into the
 spans of ``tpcg_torch.trace``: for each span name the self time (its
 duration less its child spans) in ms a call and the spans a call, averaged
 over the timed calls (the first call, the harness's untimed warm-up under
-the profiler, is left out).  The split prints on stderr as one JSON object,
-and goes to ``--out`` where given.
+the profiler, is left out), and the program's counters a call (``counts``:
+``launch.*``, ``resident.*``, bytes).  The split prints on stderr as one
+JSON object, and goes to ``--out`` where given.
 """
 from __future__ import annotations
 
@@ -25,15 +26,17 @@ from bench_torch.program_spans import self_s  # noqa: E402
 
 
 def split(records) -> dict:
-    """{span name: {"self_ms", "spans"} a call, "calls": n} over the calls
-    after the first."""
+    """{span name: {"self_ms", "spans"} a call, the counters a call,
+    "calls": n} over the calls after the first."""
     by_call = {}
     for rec in records:
         by_call.setdefault(rec.call, []).append(rec)
     calls = [recs for call, recs in by_call.items()
              if recs[0].id == call][1:]
-    out = {}
+    out, counts = {}, {}
     for recs in calls:
+        for name, v in recs[0].counts.items():
+            counts[name] = counts.get(name, 0) + v / len(calls)
         for rec in recs:
             row = out.setdefault(rec.name, {"self_ms": 0.0, "spans": 0})
             row["self_ms"] += self_s(rec, recs) * 1e3
@@ -41,7 +44,7 @@ def split(records) -> dict:
     for row in out.values():
         row["self_ms"] /= len(calls)
         row["spans"] /= len(calls)
-    return {"calls": len(calls), "spans": out}
+    return {"calls": len(calls), "spans": out, "counts": counts}
 
 
 def main() -> int:

@@ -21,7 +21,9 @@ its plane wave; RHS r of a batch is the plane wave times 1 + 0.1j r.
 symmetric class of the smoke's phase 11, helm_fe_var(N, 40, C, rho=0.1)
 with C = 1 + 0.5 U(0, 1) from seed 0 (benchmarks/exp_stream4sym.py:28-38),
 and plane_wave_rhs(N, 40).  ``--kernel real`` probes ``csrc/stream_cg_real.cu``
-in const mode on Poisson (``problems.poisson(N)``), ``--kernel real-coef``
+in const mode on Poisson (``problems.poisson(N)``) and on the
+parabolic_fem.stencil_calls cell's operator (``parabolic_stencil(725,
+diag=6.0)``, "FE 725" in the output), ``--kernel real-coef``
 the same kernel in coef mode on Poisson with c[0] += 0.3 U(0, 1) from seed
 2 (the classes of the smoke's phase 13), each with a standard normal RHS
 from seed 11, one RHS a launch.
@@ -48,7 +50,10 @@ the earlier kernel's tiles) over its time.
 ``split``: const: N = 1024 (1000 iterations), 2048 (500) and 4096 (300),
 one RHS and one launch of NB = 4.  coef: the same sizes at one RHS, and one
 launch of NB = 2 and of NB = 8 at 2048.  sym and real: the same sizes and
-2049 (500).  real-coef: N = 1024 (1000) and 4096 (300).
+2049 (500), and real also FE 725 (1000).  real-coef: N = 1024 (1000) and
+4096 (300).  ``--configs`` runs each of those layouts at every cell of the
+split, ``--edit NAME`` in a build with that edit of ``variants``, and
+``--bounds B`` with launch bounds of B blocks an SM.
 
 ``sweep``: this checkout's kernel at every layout of ``SWEEP_*`` that fits
 the shared memory, at every count of blocks an SM that it allows, first
@@ -58,7 +63,9 @@ also with 512 threads a block): us per RHS-iteration and the split at
 N = 2048 (500 iterations) and 4096 (300), one RHS (coef also NB = 8 at
 2048; sym and real also 2049 x 500), then N = 1024 (1000) for the best few
 of each build.  Each build prints its instances' registers and spills.
-``--configs "R,S,C,m;..."`` (const, real: "R,S,m;...") sweeps those layouts
+``--configs "R,S,C,m;..."`` (const, real: "R,S,m;..."; real: the
+streaming layout at every size, the resident one left out) sweeps those
+layouts
 alone, each also at N = 1024, in the source's own build; ``--edit NAME``
 builds every copy with that edit of ``variants``.
 
@@ -79,9 +86,12 @@ timings: const at N = 1024 x 1000 (B = 1), 2048 x 500 (B = 1 and one
 launch of NB = 8) and 4096 x 1000 (B = 1); coef at N = 4096 x 1000 (B =
 1), 2048 x 500 (B = 1, one launch of NB = 2 and one of NB = 8), 1024 x
 1000 (B = 1) and 2049 x 500 (B = 1); sym at N = 4096 x 1000, 2048 x 500,
-1024 x 1000 and 2049 x 500; real at those and 2896 x 500; real-coef at N =
+1024 x 1000 and 2049 x 500; real at those, 2896 x 500, FE 725 x 1000 and
+Poisson 725 x 1000; real-coef at N =
 4096 x 1000, 2048 x 500 and 1024 x 1000; us per RHS-iteration and the rate
 of the kernel's own bytes.
+
+``--sizes N,...`` keeps a mode's cells of those N (FE 725 is 725).
 
 Every mode prints the card's name and power limit first.
 """
@@ -322,13 +332,17 @@ def sym_problem(N, dev):
             plane_wave_rhs(N, 40.0))
 
 
-def real_problem(N, dev, coef):
+def real_problem(N, dev, coef, fe=False):
     """The smoke's phase-13 classes at N x N: Poisson (const mode) or
-    Poisson with c[0] += 0.3 U(0, 1) from seed 2 (coef mode), and a seeded
-    standard normal RHS."""
+    Poisson with c[0] += 0.3 U(0, 1) from seed 2 (coef mode); with ``fe``
+    the parabolic_fem cell's 7-point FE operator, diagonal 6 (const mode);
+    and a seeded standard normal RHS."""
     import numpy as np
     import torch
-    from tpcg_torch.problems import poisson
+    from tpcg_torch.problems import parabolic_stencil, poisson
+    if fe:
+        return (parabolic_stencil(N, device=dev, diag=6.0),
+                np.random.default_rng(11).standard_normal((N, N)))
     A = poisson(N, device=dev)
     if coef:
         A.coef[0] += torch.from_numpy(
@@ -337,7 +351,7 @@ def real_problem(N, dev, coef):
 
 
 def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
-             configs=None):
+             configs=None, sizes=None):
     sys.path.insert(0, str(tree))
     import ctypes
     import hashlib
@@ -370,6 +384,10 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
         """(phase A, phase B) bytes a node and RHS of the tree's kernel
         (the coefficients' share included, divided over the RHS)."""
         if real:
+            if hasattr(mod, "card_layout"):
+                lay = mod.card_layout(N, N, 1, noff, kernel == "real-coef",
+                                      dev)[0]
+                return lay.bytes_a, lay.bytes_b
             if hasattr(mod, "real_layout"):
                 lay = mod.real_layout(N, N, 1, noff, kernel == "real-coef")
                 return lay.bytes_a, lay.bytes_b
@@ -436,10 +454,12 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
         variants = [(2048, 500, 1), (4096, 300, 1), (1024, 1000, 1)]
         sweep, knobs = SWEEP_CONST, ("TILE_ROWS", "STAGES", "BLOCKS_PER_SM")
     elif kernel == "real":
-        compare = [(4096, 1000, 1), (2048, 500, 1), (1024, 1000, 1),
-                   (2049, 500, 1), (2896, 500, 1)]
-        split = [(1024, 1000, 1), (2048, 500, 1), (2049, 500, 1),
-                 (4096, 300, 1)]
+        # N < 0: the parabolic_fem cell's FE operator at |N|
+        compare = [(-725, 1000, 1), (725, 1000, 1), (4096, 1000, 1),
+                   (2048, 500, 1), (1024, 1000, 1), (2049, 500, 1),
+                   (2896, 500, 1)]
+        split = [(-725, 1000, 1), (1024, 1000, 1), (2048, 500, 1),
+                 (2049, 500, 1), (4096, 300, 1)]
         sweep_nb = [(2048, 500, 1), (2049, 500, 1), (4096, 300, 1)]
         variants = [(2048, 500, 1), (4096, 300, 1), (1024, 1000, 1)]
         sweep, knobs = SWEEP_REAL, ("TILE_ROWS", "STAGES", "BLOCKS_PER_SM")
@@ -476,7 +496,7 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
     elif mode == "variants":
         cells = [c + (None,) for c in variants]
     elif mode == "split":
-        cells = [c + (None,) for c in split]
+        cells = [c + (cf,) for cf in (configs or [None]) for c in split]
     elif configs:
         # the given layouts, at N = 1024 too
         configs = [c for c in configs if fits(mod, kernel, c)]
@@ -490,13 +510,16 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
             own or (c[-1] == min_blocks if threads == 256
                     else c[-1] <= min_blocks))]
         cells = [(N, it, nb, c) for N, it, nb in sweep_nb for c in configs]
+    if sizes:
+        cells = [c for c in cells if abs(c[0]) in sizes]
     defaults = tuple(getattr(mod, k, None) for k in knobs)
     last_N = None
     out = []
 
     def cell(N, iters, nb, config):
         nonlocal last_N, A, prep, b
-        if N != last_N:
+        fe, N, cell_N = N < 0, abs(N), N
+        if cell_N != last_N:
             A = prep = b = None
             torch.cuda.empty_cache()
             if kernel == "const":
@@ -504,7 +527,7 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
                 prep = mod.prepare_stream(A)
                 b = plane_wave_rhs(N, 12.0)
             elif kernel == "real":
-                A, b = real_problem(N, dev, False)
+                A, b = real_problem(N, dev, False, fe)
                 prep = mod.prepare_stream_real(A)
             elif kernel == "real-coef":
                 A, b = real_problem(N, dev, True)
@@ -525,13 +548,15 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
             else:
                 A, b = coef_problem(N, dev)
                 prep = mod.prepare_stream_coef(A)
-            last_N = N
+            last_N = cell_N
         noff = len(prep[0]) if kernel == "sym" else len(A.offsets)
         if config is not None:
             for k, v in zip(knobs, config):
                 setattr(mod, k, v)
             if kernel == "real" and hasattr(mod, "SMALL_GRID_NODES"):
                 mod.SMALL_GRID_NODES = 0  # the configuration at every size
+            if kernel == "real" and hasattr(mod, "resident_layout"):
+                mod.resident_layout = lambda *args: None  # streaming
         tag = tree.name if config is None else " ".join(
             f"{k[0]}{v}" for k, v in zip(knobs, config)) + (
                 f" ({threads} threads, launch bounds {min_blocks})"
@@ -594,7 +619,7 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
         per = 1e3 / (iters * nb)
         digest = hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:12]
         row = dict(tree=tree.name, kernel=kernel, config=config,
-                   bounds=min_blocks, threads=threads, N=N, nb=nb,
+                   bounds=min_blocks, threads=threads, N=N, fe=fe, nb=nb,
                    iters=iters, ms=t, us_rhs_it=t * per, a_us=ta * per,
                    b_us=tb * per,
                    a_tbs=ba * n * nb * iters / (ta * 1e-3) / 1e12,
@@ -602,7 +627,8 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
                    own_b=ba + bb, blocks=blocks,
                    own_tbs=(ba + bb) * n * nb * iters / (t * 1e-3) / 1e12)
         out.append(row)
-        print(f"{tag}: N={N} NB={nb} {iters} it, {blocks} blocks "
+        print(f"{tag}: {'FE ' if fe else ''}N={N} NB={nb} {iters} it, "
+              f"{blocks} blocks "
               f"({blocks / sms:g} an SM): median {t:.3f} ms "
               f"[{min(times):.3f}, {max(times):.3f}] = {t * per:.3f} us per "
               f"RHS-iteration, own {ba + bb:.2f} B a node and RHS at "
@@ -630,11 +656,13 @@ def run_tree(tree, mode, nbar, kernel, min_blocks=2, threads=256,
     return out
 
 
-def sub(tree, mode, nbar, kernel, min_blocks=2, threads=256, configs=None):
+def sub(tree, mode, nbar, kernel, min_blocks=2, threads=256, configs=None,
+        sizes=None):
     cmd = [sys.executable, __file__, "_run", "--tree", str(tree), "--mode",
            mode, "--nbar", str(nbar), "--kernel", kernel, "--bounds",
            str(min_blocks), "--threads", str(threads)] + (
-               ["--configs", configs] if configs else [])
+               ["--configs", configs] if configs else []) + (
+               ["--sizes", sizes] if sizes else [])
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=2400)
     sys.stdout.write(res.stdout)
     sys.stdout.flush()
@@ -651,16 +679,19 @@ def main():
     ap.add_argument("--tree", type=pathlib.Path, default=ROOT)
     ap.add_argument("--mode", dest="inner")
     ap.add_argument("--nbar", type=int)
-    ap.add_argument("--bounds", type=int, default=2)
+    ap.add_argument("--bounds", type=int)
     ap.add_argument("--threads", type=int, default=256)
     ap.add_argument("--configs")
     ap.add_argument("--edit")
+    ap.add_argument("--sizes")
     a = ap.parse_args()
     configs = [tuple(int(v) for v in c.split(","))
                for c in a.configs.split(";")] if a.configs else None
+    sizes = {int(v) for v in a.sizes.split(",")} if a.sizes else None
     if a.mode == "_run":
         rows = run_tree(a.tree.resolve(), a.inner, a.nbar, a.kernel,
-                        a.bounds, a.threads, configs)
+                        2 if a.bounds is None else a.bounds, a.threads,
+                        configs, sizes)
         print("ROWS " + json.dumps(rows))
         return
     import torch
@@ -670,14 +701,21 @@ def main():
     kd = KERNELS[a.kernel]
     tree = a.tree.resolve()
     name = "this" if tree == ROOT else tree.name
+    bounds = kd["default_blocks"] if a.bounds is None else a.bounds
     if a.mode == "split":
-        copy, nbar = stamped_copy(tree, name, a.kernel)
-        sub(copy, a.mode, nbar, a.kernel, kd["default_blocks"])
+        edit = dict(kd["edits"])[a.edit] if a.edit else None
+        copy, nbar = stamped_copy(
+            tree, name + (f"-{a.edit}" if a.edit else "") + (
+                f"-b{bounds}" if bounds != kd["default_blocks"] else ""),
+            a.kernel, bounds, edit=edit)
+        sub(copy, a.mode, nbar, a.kernel, bounds, configs=a.configs,
+            sizes=a.sizes)
     elif a.mode == "variants":
         for name_e, edit in kd["edits"] + kd["edits"][:1]:
             copy, nbar = stamped_copy(tree, f"{name}-{name_e}", a.kernel,
                                       edit=edit)
-            sub(copy, a.mode, nbar, a.kernel, kd["default_blocks"])
+            sub(copy, a.mode, nbar, a.kernel, kd["default_blocks"],
+                sizes=a.sizes)
     elif a.mode == "sweep":
         edit = dict(kd["edits"])[a.edit] if a.edit else None
         builds = kd["builds"][:1] if configs else kd["builds"]
@@ -691,7 +729,8 @@ def main():
         this, nbar_t = stamped_copy(ROOT, "this", a.kernel)
         for t, nb in ((other, nbar_o), (this, nbar_t), (this, nbar_t),
                       (other, nbar_o)):
-            sub(t, "compare", nb, a.kernel, kd["default_blocks"])
+            sub(t, "compare", nb, a.kernel, kd["default_blocks"],
+                sizes=a.sizes)
     print(card_line(), flush=True)
 
 

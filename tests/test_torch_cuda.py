@@ -1766,8 +1766,9 @@ def test_real_kernel_takes_pad8_with_16_taps(dev, mode):
 
 
 def test_real_kernel_does_not_spill(dev):
-    """Both instances of the kernel (const and coef mode) build without
-    spills (-Xptxas -v)."""
+    """The three instances of the kernel (coef mode, const mode streaming
+    and const mode resident, whose x, r and q of 6 nodes a thread sit in
+    registers) build without spills (-Xptxas -v)."""
     from tpcg_torch.ops import _build
     _build.load()
     name, seen = "", []
@@ -1776,10 +1777,79 @@ def test_real_kernel_does_not_spill(dev):
             name = line.split("'")[1]
         elif "spill" in line and "stream_cg_real_kernel" in name:
             seen.append(line.strip())
-    assert len(seen) == 2
+    assert len(seen) == 3
     for line in seen:
         assert "0 bytes spill stores" in line and \
             "0 bytes spill loads" in line, line
+
+
+def _resident_layout(dev, n, noff):
+    """The resident layout of an n x n const-mode grid (pad 1) on this card,
+    or None."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return tsr.resident_layout(n, n, 1, noff, sms, *tsr.resident_limits())
+
+
+def _resident_limit(dev):
+    """The largest N whose N x N grid (5 taps, pad 1) takes the resident
+    layout on this card."""
+    return max(n for n in range(8, 2049)
+               if _resident_layout(dev, n, 5) is not None)
+
+
+def test_resident_limits_are_the_layout_tests(dev):
+    """The kernel's resident limits, tallest tile and blocks an SM, are the
+    ones tests/test_torch_stream_real_layout.py's rule runs with."""
+    assert tsr.resident_limits() == (12, 3)
+
+
+# parabolic_fem's operator and Poisson at 725^2, the smallest grid, a grid
+# below 512^2, 1023^2 (past the limit at 132 SMs), and the sizes each side
+# of the resident limit
+@pytest.mark.parametrize("kind,size,seed", [
+    ("parabolic", 725, 1), ("poisson", 725, 2), ("poisson", 8, 3),
+    ("fe", 511, 4), ("poisson", 1023, 5), ("poisson", "limit", 6),
+    ("poisson", "limit+1", 7)])
+def test_resident_kernel_bit_equal_to_plain(dev, kind, size, seed):
+    """Const mode in the one-wave resident layout (one tile a block, x, r
+    and q in registers) follows cg_real_plain bit for bit over 100
+    iterations from a seeded x0, x and the history, as the streaming
+    layout does past the resident limit."""
+    limit = _resident_limit(dev)
+    n = {"limit": limit, "limit+1": limit + 1}.get(size, size)
+    if kind == "parabolic":
+        S = _parabolic_fem(dev, n)[0]
+    else:
+        S = _real_stencil(dev, kind, n, n)
+    prepared = tsr.prepare_real(S)
+    assert prepared[0] == "const"
+    lay, blocks = tsr.card_layout(n, n, 1, len(S.offsets), False, dev)
+    assert lay.resident == (_resident_layout(dev, n, len(S.offsets))
+                            is not None)
+    if size in ("limit", "limit+1"):
+        assert lay.resident == (size == "limit")
+    assert blocks == lay.tiles if lay.resident else blocks <= lay.tiles
+    b, x0 = _real_rhs(dev, n, n, seed)
+    before = _counted("resident.stream_real")
+    xk, hk = _run_twice(_real_run, S, prepared, b, x0, 100)
+    assert _counted("resident.stream_real") == before + 2 * lay.resident
+    xp, hp = _real_run(S, prepared, b, x0, 100, plain=True)
+    assert torch.equal(hk, hp)
+    assert torch.equal(xk, xp)
+
+
+def test_stencil_cg_counts_resident_launches(dev):
+    """``resident.stream_real`` counts 1 a stencil_cg call on parabolic_fem
+    at 725^2 (one launch, one tile a block) and 0 at 2048^2, whose tiles
+    pass what the card holds at once (the streaming layout)."""
+    for n, resident in ((725, 1), (2048, 0)):
+        S, b = _parabolic_fem(dev, n)
+        for _ in range(2):
+            launches = _counted("launch.stream_real")
+            count = _counted("resident.stream_real")
+            tpcg_torch.stencil_cg(S, b, n_iterations=20)
+            assert _counted("launch.stream_real") == launches + 1
+            assert _counted("resident.stream_real") == count + resident
 
 
 def test_real_plan_copies_coef_planes_once(dev):

@@ -233,3 +233,44 @@ def test_every_wrapper_launches_through_the_seam(fake, kernel):
     spans = [r for r in trace.records() if r.name.startswith("tpcg.launch.")]
     assert [r.name for r in spans] == ["tpcg.launch." + kernel]
     assert spans[0].counts["launch." + kernel] == calls
+
+
+def _stream_real_call(fake, n):
+    """One const-mode launch of the real streaming kernel on Poisson n x n
+    through the fake library; returns the kernel's arguments."""
+    S = poisson(n, device="cpu")
+    taps, strips = stream_cg_real.prepare_stream_real(S)
+    b = torch.ones(S.grid)
+    stream_cg_real._launch(S.offsets, strips, taps, b, torch.zeros_like(b), 3)
+    (_, args), = [c for c in fake.calls if c[0] == "tpcg_stream_real"]
+    return args
+
+
+def test_resident_launch_is_counted_and_allocates_no_q(fake):
+    """16 x 16 at 132 SMs: 16 tiles of one row, one a block (the fake card
+    holds 16 blocks): the launch passes resident 1, no q and no working x,
+    and counts ``resident.stream_real`` beside ``launch.stream_real``."""
+    args = _stream_real_call(fake, 16)
+    q, xw, coef, resident, rows, grid = (args[6], args[8], args[17],
+                                         args[18], args[20], args[-2])
+    assert (q, xw, coef, resident, rows, grid) == (None, None, 0, 1, 1, 16)
+    assert trace.counters() == {"launch.stream_real": 1,
+                                "resident.stream_real": 1}
+
+
+def test_resident_layout_falls_back_where_the_card_holds_fewer(fake,
+                                                              monkeypatch):
+    """Where the occupancy query finds the card cannot hold one block a tile
+    of the resident layout (the grid query gives 0), the launch takes the
+    streaming layout: q and the working x allocated, no resident count."""
+    query = _build.query
+
+    def no_resident(entry, *args):
+        if entry == "tpcg_stream_real_grid" and args[6]:
+            return (0,)
+        return query(entry, *args)
+    monkeypatch.setattr(_build, "query", no_resident)
+    args = _stream_real_call(fake, 16)
+    assert args[6] is not None and args[8] is not None
+    assert (args[18], args[20]) == (0, stream_cg_real.SMALL_TILE_ROWS)
+    assert trace.counters() == {"launch.stream_real": 1}

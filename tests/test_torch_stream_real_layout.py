@@ -15,11 +15,13 @@ cropped, is the operator applied to the unpadded planes, bit for bit (a
 neighbour or a coefficient past column nh - 1 reads the zero columns, as it
 reads 0 outside the grid).
 """
+import types
+
 import numpy as np
 import pytest
 import torch
 
-from tpcg_torch.ops import _tiles
+from tpcg_torch.ops import _build, _tiles
 from tpcg_torch.ops import stream_cg_real as tsr
 from tpcg_torch.sparse import Stencil2D
 from tpcg_torch.trace import counters
@@ -210,3 +212,142 @@ def test_apply_on_padded_rows_equals_unpadded(coef, name, nv, nh):
     assert torch.equal(q_pad[nv - 1, :nh], q[nv - 1])
     assert torch.equal(q_pad[:, 0], q[:, 0])
     assert torch.equal(q_pad[:, nh - 1], q[:, nh - 1])
+
+
+# const mode's streaming layouts at pad 1 with 5 taps, field for field, as
+# they were before the resident mode (and coef mode's, which has none)
+STREAMING = {
+    (2048, False): (2080, 16, 128, 4, 18, 136, 2, 0, 3, 2048, 39424, 17.5625,
+                    24.0, False),
+    (4096, False): (4128, 16, 128, 4, 18, 136, 2, 0, 3, 8192, 39424, 17.5625,
+                    24.0, False),
+    (725, True): (736, 4, 128, 4, 6, 136, 2, 2, 2, 1092, 33792, 40.75, 24.0,
+                  False),
+    (2048, True): (2080, 4, 128, 4, 6, 136, 2, 2, 2, 8192, 33792, 40.75, 24.0,
+                   False),
+    (4096, True): (4128, 4, 128, 4, 6, 136, 2, 2, 2, 32768, 33792, 40.75,
+                   24.0, False),
+}
+
+
+# the kernel's resident limits (kResidentRows, kResidentMinBlocks), which
+# tests/test_torch_cuda.py reads from the built library
+RESIDENT = (12, 3)
+
+
+def _on_card(monkeypatch, sms=132):
+    """``card_layout``'s layout on a card of ``sms`` SMs, without one: the
+    library's limits (``RESIDENT`` for resident mode) and a grid query whose
+    occupancy is the blocks an SM the layout asks for, as an H100's is."""
+    def query(entry, *args):
+        if entry == "tpcg_stream_real_limits":
+            return (16, 8) + RESIDENT
+        nv, nh, resident, rows, per_sm = (args[0], args[1], args[6],
+                                          args[7], args[11])
+        tiles = -(-nv // rows) * -(-nh // tsr.TILE_COLS)
+        held = sms * per_sm
+        return (tiles if tiles <= held else 0 if resident else held,)
+    monkeypatch.setattr(_build, "query", query)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(
+                            multi_processor_count=sms))
+    return lambda *args: tsr.card_layout(*args)[0]
+
+
+@pytest.mark.parametrize("n,coef", sorted(STREAMING))
+def test_streaming_layout_unchanged_where_no_wave_holds_the_grid(
+        monkeypatch, n, coef):
+    """At 2048^2 and 4096^2 const mode has more tiles of the resident mode's
+    12 rows than an H100's 132 SMs hold blocks, and coef mode has no
+    resident mode: the launch's layout is the streaming one, field for
+    field."""
+    lay = _on_card(monkeypatch)(n, n, 1, 5, coef)
+    assert tuple(lay) == STREAMING[n, coef]
+    assert lay == tsr.real_layout(n, n, 1, 5, coef)
+
+
+@pytest.mark.parametrize("n,rows", [(725, 11), (8, 1), (511, 6)])
+def test_resident_layout_at_grids_one_wave_holds(monkeypatch, n, rows):
+    """Below the resident limit (at 132 SMs, 3 blocks an SM: 396 blocks)
+    const mode takes one tile a block: the fewest tile rows whose tiles
+    number at most 396 (725^2: 11 rows, 66 x 6 = 396 tiles, where the
+    streaming layout's 546 tiles of 8 rows left 18 of its 528 blocks two
+    tiles), at most 12; its bytes a node: r and d_old with their halo and
+    d' in phase A, r in phase B."""
+    lay = _on_card(monkeypatch)(n, n, 1, 7, False)
+    assert lay.resident and lay.tile_rows == rows
+    assert lay.blocks_per_sm == RESIDENT[1] == 3
+    assert lay.tiles == -(-n // rows) * -(-n // 128) <= 396
+    if rows > 1:
+        assert -(-n // (rows - 1)) * -(-n // 128) > 396
+    assert lay.smem_bytes == tsr._ring_bytes(rows, 1, 4, 7, False, 2, 0)
+    h = lay.box_rows * lay.box_cols / (rows * lay.tile_cols) - 1
+    assert lay.bytes_a == pytest.approx(8 * (1 + h) + 4)
+    assert lay.bytes_b == 4.0
+    stream = tsr.real_layout(n, n, 1, 7, False)
+    assert (lay.pitch, lay.col_halo, lay.box_rows, lay.box_cols) == (
+        stream.pitch, 4, rows + 2, 136)
+
+
+@pytest.mark.parametrize("sms", [1, 8, 66, 114, 132])
+@pytest.mark.parametrize("pad", [0, 1, 2, 8])
+def test_resident_tiles_never_pass_the_co_resident_blocks(monkeypatch, sms,
+                                                          pad):
+    """Wherever the launch takes the resident layout, its tiles number at
+    most the blocks the card holds at once (SMs times the kernel's blocks
+    an SM), those blocks fit an SM's shared memory, and its tiles are at
+    most the kernel's 12 rows; no fewer rows would do.  Elsewhere the
+    layout is the streaming one."""
+    layout = _on_card(monkeypatch, sms)
+    noff = 16 if pad == 8 else 5
+    for nv in (1, 7, 100, 512, 725, 1000, 1031, 2048):
+        for nh in (1, 129, 725, 1100, 2049):
+            lay = layout(nv, nh, pad, noff, False)
+            if not lay.resident:
+                assert lay == tsr.real_layout(nv, nh, pad, noff, False)
+                continue
+            assert lay == tsr.resident_layout(nv, nh, pad, noff, sms,
+                                              *RESIDENT)
+            assert lay.tiles <= sms * lay.blocks_per_sm
+            assert lay.blocks_per_sm == RESIDENT[1]
+            per = lay.smem_bytes + _tiles.STATIC_SHARED
+            assert lay.blocks_per_sm * (per + _tiles.BLOCK_RESERVED) \
+                <= _tiles.SM_SHARED
+            assert lay.tile_rows <= RESIDENT[0]
+            if lay.tile_rows > 1:
+                fewer = -(-nv // (lay.tile_rows - 1)) * -(-nh // 128)
+                assert fewer > sms * lay.blocks_per_sm
+
+
+@pytest.mark.parametrize("n,sms", [(1024, 132), (2048, 132), (725, 16)])
+def test_streaming_where_the_rows_pass_the_register_budget(monkeypatch, n,
+                                                           sms):
+    """Where the fewest rows that fit the card's blocks pass the kernel's 12
+    (it keeps x, r and q of 6 nodes a thread in registers), the launch
+    keeps the streaming layout: 1024^2 (21 rows) and 2048^2 at 132 SMs,
+    725^2 on a card of 16."""
+    assert tsr.resident_rows(n, n, RESIDENT[1] * sms, RESIDENT[0]) is None
+    lay = _on_card(monkeypatch, sms)(n, n, 1, 7, False)
+    assert lay == tsr.real_layout(n, n, 1, 7, False) and not lay.resident
+
+
+def test_register_budget_decides_the_fallback():
+    """725^2 needs 11-row tiles at 132 SMs: with a budget of 10 rows the
+    rule finds no resident layout, with 11 it finds one of 11 rows."""
+    assert tsr.resident_layout(725, 725, 1, 7, 132, 10, 3) is None
+    assert tsr.resident_layout(725, 725, 1, 7, 132, 11, 3).tile_rows == 11
+
+
+@pytest.mark.parametrize("per_sm", [3, 6, 12])
+def test_resident_layout_needs_its_blocks_an_sm(per_sm):
+    """The resident layout asks an SM to hold the kernel's blocks an SM at
+    once: where an SM's shared memory holds fewer rings of its tiles, there
+    is none (at 725^2 and pad 8, on 396 / per_sm SMs, rings of 11 rows: 3
+    an SM, not 6 or 12)."""
+    sms = 396 // per_sm
+    assert tsr.resident_rows(725, 725, sms * per_sm, 12) == 11
+    lay = tsr.resident_layout(725, 725, 8, 16, sms, 12, per_sm)
+    if per_sm == 3:
+        assert lay.blocks_per_sm == 3 and lay.tile_rows == 11
+    else:
+        assert lay is None

@@ -97,8 +97,48 @@
 //   * launch bounds of 4 blocks an SM: at most 64 registers a thread, so
 //     that the 4 blocks real_layout asks for below 2048^2 nodes fit an SM;
 //   * offsets into the planes are 64-bit (N = 4096 has 16.8 M nodes).
+//
+// Resident mode (const mode, template argument kResident): where the card
+// holds one block for every tile of the grid at once, each block owns one
+// tile for the whole solve, and each thread keeps x, r and q of its nodes of
+// that tile in registers from r0 to the end.  Phase A is the streaming
+// phase A on that tile, q kept in registers and not stored; phase B is
+// x += alpha d' (d' read from the state slot that phase A left it in) and
+// r -= alpha q on the thread's own nodes, storing only r, which the
+// neighbours' halo boxes read in the next phase A (d' is stored in phase A
+// as before).  No q plane, no working x and no plane-wide sweep: 16 + 8 h B
+// a node and iteration against 40 + 8 h.  x is written once, at the end;
+// the init stages x0's copy at the pitch in the pong d buffer, which
+// iteration 0 overwrites.  The <r, r> partial is summed per thread over its
+// nodes in tile order, then warp, block and blocks in block order, as
+// <d', q> is (the sweep sums each thread's float4s from the planes' ends
+// back): the float64 sums round otherwise, and the float32 scalars nearly
+// always agree with the plain version's, as the sweep's do.
+// What bounds it: a tile of at most kResidentRows (12) rows, kOwn (6) nodes
+// a thread, whose x, r and q take 18 of the 85 registers that
+// kResidentMinBlocks (3) blocks an SM leave a thread (the build must not
+// spill: a card test reads ptxas's report); and one block a tile, so at
+// most as many tiles as the card holds blocks at once.  What is left at
+// 725^2 is latency: two grid barriers, two grid-wide sums and a TMA round
+// trip an iteration, which a grid of a few blocks pays too.
+// tpcg_torch.ops.stream_cg_real.card_layout picks it (resident_layout):
+// the fewest tile rows whose tiles number at most the SMs times
+// kResidentMinBlocks, where those rows are at most kResidentRows and an
+// SM's shared memory holds kResidentMinBlocks rings of them (both bounds
+// reach the wrapper through tpcg_stream_real_limits); the occupancy query
+// of tpcg_stream_real_grid confirms that the card holds one block a tile
+// (else it returns 0 and the wrapper takes the streaming layout).  Grids
+// with more tiles (past 768^2 nodes at 132 SMs) and coef mode stream as
+// above.  Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, Findings;
+// probes/stream_cg_phases.py, the parabolic_fem cell's 725^2 FE operator):
+// 19.5 us an iteration streaming (8-row tiles, 18 of 528 blocks with two),
+// 18.2 with one 9-row tile a block and no other change, 15.7 resident at
+// 3 blocks an SM; at 4 blocks an SM x, r and q of 8 nodes spilled (19.6),
+// of 5 did not (18.0); at 2 with 18-row tiles 19.0; the grid-wide sum's
+// loads issued 8 at a time, or phase A's copies issued before the <r, r>
+// sum, did not help.
 // Tile rows, ring depths and blocks an SM are arguments, chosen by
-// tpcg_torch.ops.stream_cg_real.real_layout from the sweeps of
+// tpcg_torch.ops.stream_cg_real.card_layout from the sweeps of
 // probes/stream_cg_phases.py (--kernel real, real-coef).  The stencil apply,
 // the updates and the divisions use non-contracting operations (__fmul_rn,
 // __fadd_rn, __fdiv_rn) in the order of the plain version, so with equal
@@ -132,9 +172,17 @@ constexpr int kMaxStages = 4;
 constexpr int kMaxCoefStages = 2;
 constexpr int kMaxBox = 256;        // TMA's largest box extent
 // Launch bounds: blocks an SM the kernel must reach, which caps the
-// registers a thread.
+// registers a thread (resident mode: kResidentMinBlocks).
 constexpr int kMinBlocks = 4;
 static_assert(kThreads % kTileCols == 0, "whole tile rows a sweep");
+constexpr int kRowStep = kThreads / kTileCols;  // tile rows a sweep
+// Resident mode: the tallest tile, the nodes a thread keeps in registers
+// there, and the blocks an SM (the wrapper reads the first and the last
+// through tpcg_stream_real_limits).
+constexpr int kResidentRows = 12;
+constexpr int kOwn = kResidentRows / kRowStep;
+constexpr int kResidentMinBlocks = 3;
+static_assert(kResidentRows % kRowStep == 0, "whole sweeps a tile");
 
 struct Params {
   const float* b;       // (nv, nh)                                 read-only
@@ -143,9 +191,10 @@ struct Params {
   float* x;             // (nv, nh)                                 out
   float* hist;          // (n_iterations + 1)                       out
   float* r;             // (nv, pitch)                              scratch
-  float* q;             // (nv, pitch)                              scratch
+  float* q;             // (nv, pitch); null in resident mode       scratch
   float* d;             // (2 ping/pong, nv, pitch)                 scratch
-  float* xw;            // (nv, pitch): the working copy of x       scratch
+  float* xw;            // (nv, pitch): the working copy of x;      scratch
+                        // null in resident mode
   double* part;         // (2 dq/rr, gridDim.x)                     scratch
   int nv, nh, pitch, noff, pad, n_iterations;
   int rows;             // tile rows
@@ -178,7 +227,8 @@ struct Params {
 struct Maps {
   CUtensorMap r;      // halo boxes of r
   CUtensorMap d;      // halo boxes of both d buffers: planes 2
-  CUtensorMap x;      // halo boxes of xw (the init)
+  CUtensorMap x;      // halo boxes of x0's copy at the pitch (the init): xw,
+                      // in resident mode the pong d buffer
   CUtensorMap c;      // (128, rows, noff) boxes of the coefficient planes
 };
 
@@ -328,6 +378,13 @@ struct Walk {
   unsigned cissued;   // coefficient slots issued so far
 };
 
+// Resident mode: the thread's nodes of the block's one tile, node k at tile
+// row tm0 + k kRowStep of the thread's column; x, r and q from the init to
+// the end.
+struct Own {
+  float x[kOwn], r[kOwn], q[kOwn];
+};
+
 __device__ __forceinline__ int tile_row0(const Params& p, int t) {
   return ((blockIdx.x + t * gridDim.x) / p.tiles_h) * p.rows;
 }
@@ -371,11 +428,13 @@ __device__ __forceinline__ void issue_coef(const Params& p, const Maps& m,
 
 // One phase over the block's tiles.  kInit: r0 = b - A x0, accumulating
 // <r0, r0>.  Otherwise: d' = r + beta d_old on the halo, d' and q = A d'
-// stored for the tile's own nodes, accumulating <d', q>.  Returns this
-// thread's partial sum.
-template <bool kCoef, bool kInit>
-__device__ double phase_apply(const Params& p, const Maps& m, Walk& w,
-                              int dbuf, float beta) {
+// stored for the tile's own nodes, accumulating <d', q>.  kResident: the
+// block's one tile; r0 and x0 (the init) or q (otherwise) of the thread's
+// nodes go to `o` (q is not stored).  Returns this thread's partial sum.
+template <bool kCoef, bool kInit, bool kResident>
+__device__ __forceinline__ double phase_apply(const Params& p, const Maps& m,
+                                              Walk& w, int dbuf, float beta,
+                                              Own& o) {
   double acc = 0.0;
   if (threadIdx.x == 0) {
     fence_async();  // state stored before the grid barrier, read by TMA
@@ -389,7 +448,6 @@ __device__ double phase_apply(const Params& p, const Maps& m, Walk& w,
   // node (tm, tj) of the tile: each thread keeps one column, and its rows in
   // order
   const int tj = threadIdx.x % kTileCols, tm0 = threadIdx.x / kTileCols;
-  constexpr int kRowStep = kThreads / kTileCols;
 #pragma unroll 1
   for (int t = 0; t < w.mine; ++t) {
     const int m0 = tile_row0(p, t), gj = tile_col0(p, t) + tj;
@@ -416,25 +474,40 @@ __device__ double phase_apply(const Params& p, const Maps& m, Walk& w,
       fence_async_smem();  // the slot is refilled by TMA later
       __syncthreads();
     }
-    if (gj < p.nh) {
-#pragma unroll 1
-      for (int tm = tm0; tm < rows; tm += kRowStep) {
-        const int gm = m0 + tm;
-        const int si = st + (tm + p.pad) * p.bc + tj + p.hc;
-        const size_t g = static_cast<size_t>(gm) * p.pitch + gj;
-        const float aq = apply_at<kCoef>(
-            p, si, cslot * p.cbox + tm * kTileCols + tj, gm, gj);
-        if (kInit) {
-          const float r =
-              fsub(__ldg(p.b + static_cast<size_t>(gm) * p.nh + gj), aq);
-          p.r[g] = r;
-          acc += static_cast<double>(r) * r;
-        } else {
-          const float dv = ring[si];
-          dn[g] = dv;
-          p.q[g] = aq;
-          acc += static_cast<double>(dv) * aq;
+    // node tm of the thread's column; k its index in `o` (resident mode)
+    const auto node = [&](int tm, int k) {
+      const int gm = m0 + tm;
+      const int si = st + (tm + p.pad) * p.bc + tj + p.hc;
+      const size_t g = static_cast<size_t>(gm) * p.pitch + gj;
+      const float aq = apply_at<kCoef>(
+          p, si, cslot * p.cbox + tm * kTileCols + tj, gm, gj);
+      if (kInit) {
+        const size_t gb = static_cast<size_t>(gm) * p.nh + gj;
+        const float r = fsub(__ldg(p.b + gb), aq);
+        p.r[g] = r;
+        acc += static_cast<double>(r) * r;
+        if (kResident) {
+          o.r[k] = r;
+          o.x[k] = __ldg(p.x0 + gb);
         }
+      } else {
+        const float dv = ring[si];
+        dn[g] = dv;
+        if (kResident)
+          o.q[k] = aq;
+        else
+          p.q[g] = aq;
+        acc += static_cast<double>(dv) * aq;
+      }
+    };
+    if (gj < p.nh) {
+      if constexpr (kResident) {
+#pragma unroll
+        for (int k = 0; k < kOwn; ++k)
+          if (tm0 + k * kRowStep < rows) node(tm0 + k * kRowStep, k);
+      } else {
+#pragma unroll 1
+        for (int tm = tm0; tm < rows; tm += kRowStep) node(tm, 0);
       }
     }
     __syncthreads();  // the slots are free
@@ -481,8 +554,38 @@ __device__ double sweep_update(const Params& p, const float* dn, float a) {
   return acc;
 }
 
-template <bool kCoef>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// Phase B in resident mode: x += alpha d', r -= alpha q on the thread's
+// nodes of the block's one tile, in registers; r stored, for the halo boxes
+// of the next phase A; returns this thread's partial of <r, r> in float64,
+// over its nodes in tile order.  d' is read from the state slot that phase
+// A left it in (`pos` slots consumed so far): no copy refills that slot
+// before the next phase A but one.
+__device__ __forceinline__ double own_update(const Params& p, Own& o,
+                                             unsigned pos, float a) {
+  const int st = p.sring + ((pos - 1) % p.stages) * 2 * p.box;
+  const int tj = threadIdx.x % kTileCols, tm0 = threadIdx.x / kTileCols;
+  const int m0 = tile_row0(p, 0), gj = tile_col0(p, 0) + tj;
+  const int rows = p.nv - m0 < p.rows ? p.nv - m0 : p.rows;
+  double acc = 0.0;
+  if (gj < p.nh) {
+#pragma unroll
+    for (int k = 0; k < kOwn; ++k) {
+      const int tm = tm0 + k * kRowStep;
+      if (tm < rows) {
+        const float dv = ring[st + (tm + p.pad) * p.bc + tj + p.hc];
+        o.x[k] = fadd(o.x[k], fmul(a, dv));
+        o.r[k] = fsub(o.r[k], fmul(a, o.q[k]));
+        acc += static_cast<double>(o.r[k]) * o.r[k];
+        p.r[static_cast<size_t>(m0 + tm) * p.pitch + gj] = o.r[k];
+      }
+    }
+  }
+  return acc;
+}
+
+template <bool kCoef, bool kResident>
+__global__ void __launch_bounds__(kThreads,
+                                  kResident ? kResidentMinBlocks : kMinBlocks)
     stream_cg_real_kernel(Params p, const __grid_constant__ Maps maps) {
   cg::grid_group grid = cg::this_grid();
   __shared__ double red[kWarps];
@@ -499,6 +602,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   w.pos = w.issued = w.cpos = w.cissued = 0;
   double* const part_dq = p.part;
   double* const part_rr = p.part + nblocks;
+  Own own;  // resident mode only
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < p.stages; ++s) mbar_init(full + s);
@@ -506,19 +610,22 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       for (int s = 0; s < p.coef_stages; ++s) mbar_init(cfull + s);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  // init: xw = x0 and d = 0 (the ping buffer, read by iteration 0) on the
-  // grid's nodes; then r0 = b - A x0 and the partials of <r0, r0>
+  // init: x0 copied to the pitch (into xw; in resident mode into the pong
+  // d buffer, which iteration 0 overwrites) and d = 0 (the ping buffer,
+  // read by iteration 0) on the grid's nodes; then r0 = b - A x0 and the
+  // partials of <r0, r0>
+  float* const x0w = kResident ? p.d + plane : p.xw;
   for (int row = blockIdx.x; row < nv; row += nblocks)
     for (int j = threadIdx.x; j < nh; j += kThreads) {
       const size_t g = static_cast<size_t>(row) * p.pitch + j;
-      p.xw[g] = __ldg(p.x0 + static_cast<size_t>(row) * nh + j);
+      x0w[g] = __ldg(p.x0 + static_cast<size_t>(row) * nh + j);
       p.d[g] = 0.f;
     }
   fence_async();
   __syncthreads();  // the mbarriers are initialised
   grid.sync();
-  block_partial(phase_apply<kCoef, true>(p, maps, w, 0, 0.f), red,
-                part_rr + blockIdx.x);
+  block_partial(phase_apply<kCoef, true, kResident>(p, maps, w, 0, 0.f, own),
+                red, part_rr + blockIdx.x);
   grid.sync();
   if (warp == 0) {
     const double t = grid_total(part_rr, nblocks);
@@ -533,8 +640,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   for (int it = 0; it < p.n_iterations; ++it) {
     const int d_old = it & 1;  // d_new is the other buffer
     // phase A: d' = r + beta d, q = A d', partials of <d', q>
-    block_partial(phase_apply<kCoef, false>(p, maps, w, d_old, s_beta), red,
-                  part_dq + blockIdx.x);
+    block_partial(
+        phase_apply<kCoef, false, kResident>(p, maps, w, d_old, s_beta, own),
+        red, part_dq + blockIdx.x);
     grid.sync();
 
     // alpha, bit-identical in every block
@@ -550,8 +658,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     __syncthreads();
 
     // phase B: x += alpha d', r -= alpha q, partials of <r, r>
-    const double pr = sweep_update(
-        p, p.d + static_cast<size_t>(d_old ^ 1) * plane, s_alpha);
+    const double pr =
+        kResident ? own_update(p, own, w.pos, s_alpha)
+                  : sweep_update(
+                        p, p.d + static_cast<size_t>(d_old ^ 1) * plane,
+                        s_alpha);
     fence_async();  // r is read by TMA after the grid barrier
     block_partial(pr, red, part_rr + blockIdx.x);
     grid.sync();
@@ -569,22 +680,40 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     __syncthreads();
   }
 
-  // x = xw on the grid's nodes
-  for (int row = blockIdx.x; row < nv; row += nblocks)
-    for (int j = threadIdx.x; j < nh; j += kThreads)
-      p.x[static_cast<size_t>(row) * nh + j] =
-          __ldcg(p.xw + static_cast<size_t>(row) * p.pitch + j);
+  // x = xw on the grid's nodes; in resident mode each thread's own nodes
+  if constexpr (kResident) {
+    const int tj = threadIdx.x % kTileCols, tm0 = threadIdx.x / kTileCols;
+    const int m0 = tile_row0(p, 0), gj = tile_col0(p, 0) + tj;
+    const int rows = nv - m0 < p.rows ? nv - m0 : p.rows;
+    if (gj < nh) {
+#pragma unroll
+      for (int k = 0; k < kOwn; ++k)
+        if (tm0 + k * kRowStep < rows)
+          p.x[static_cast<size_t>(m0 + tm0 + k * kRowStep) * nh + gj] =
+              own.x[k];
+    }
+  } else {
+    for (int row = blockIdx.x; row < nv; row += nblocks)
+      for (int j = threadIdx.x; j < nh; j += kThreads)
+        p.x[static_cast<size_t>(row) * nh + j] =
+            __ldcg(p.xw + static_cast<size_t>(row) * p.pitch + j);
+  }
 }
 
-const void* kernel_of(int coef) {
-  return coef ? reinterpret_cast<const void*>(stream_cg_real_kernel<true>)
-              : reinterpret_cast<const void*>(stream_cg_real_kernel<false>);
+const void* kernel_of(int coef, int resident) {
+  if (coef)
+    return reinterpret_cast<const void*>(stream_cg_real_kernel<true, false>);
+  if (resident)
+    return reinterpret_cast<const void*>(stream_cg_real_kernel<false, true>);
+  return reinterpret_cast<const void*>(stream_cg_real_kernel<false, false>);
 }
 
 // The tile geometry the caller passes: refuse what the kernel cannot run.
 bool geometry_ok(int nv, int nh, int pitch, int pad, int noff, int coef,
-                 int rows, int hc, int stages, int coef_stages) {
-  return nv >= 1 && nh >= 1 && pad >= 0 && pad <= kMaxPad && noff >= 1 &&
+                 int resident, int rows, int hc, int stages,
+                 int coef_stages) {
+  return (!resident || (!coef && rows <= kResidentRows)) && nv >= 1 &&
+         nh >= 1 && pad >= 0 && pad <= kMaxPad && noff >= 1 &&
          noff <= kMaxTaps && rows >= 1 && rows + 2 * pad <= kMaxBox &&
          hc >= pad && hc % 4 == 0 && kTileCols + 2 * hc <= kMaxBox &&
          pitch % 32 == 0 && pitch >= nh + pad && stages >= 2 &&
@@ -596,8 +725,8 @@ bool geometry_ok(int nv, int nh, int pitch, int pad, int noff, int coef,
 // must opt in, before the occupancy query and the launch).  The runtime
 // refuses more than the card gives a block beside the kernel's static
 // shared memory, so no copy of the card's limit is kept here.
-cudaError_t allow_smem(int coef, size_t bytes) {
-  return cudaFuncSetAttribute(kernel_of(coef),
+cudaError_t allow_smem(int coef, int resident, size_t bytes) {
+  return cudaFuncSetAttribute(kernel_of(coef, resident),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
@@ -606,27 +735,33 @@ cudaError_t allow_smem(int coef, size_t bytes) {
 
 extern "C" {
 
-// Kernel limits: taps per stencil, largest |offset| component.
-int tpcg_stream_real_limits(int* max_taps, int* max_pad) {
+// Kernel limits: taps per stencil, largest |offset| component; resident
+// mode's tallest tile and blocks an SM.
+int tpcg_stream_real_limits(int* max_taps, int* max_pad, int* resident_rows,
+                            int* resident_blocks) {
   *max_taps = kMaxTaps;
   *max_pad = kMaxPad;
+  *resident_rows = kResidentRows;
+  *resident_blocks = kResidentMinBlocks;
   return 0;
 }
 
 // Grid size for an (nv, nh) grid in the given mode with the layout of
-// tpcg_torch.ops.stream_cg_real.real_layout (pitch, tile rows, box halo
+// tpcg_torch.ops.stream_cg_real.card_layout (pitch, tile rows, box halo
 // columns, ring slots) on the current device: one block per tile where the
 // card has room, at most `per_sm_cap` blocks per SM, never more than can be
-// co-resident (a larger cooperative launch is refused).
+// co-resident (a larger cooperative launch is refused).  Resident mode
+// needs one block for every tile: 0 where the card cannot hold them.
 int tpcg_stream_real_grid(int nv, int nh, int pitch, int pad, int noff,
-                          int coef, int rows, int hc, int stages,
-                          int coef_stages, int per_sm_cap, int* grid_out) {
-  if (per_sm_cap < 1 || !geometry_ok(nv, nh, pitch, pad, noff, coef, rows, hc,
-                                     stages, coef_stages))
+                          int coef, int resident, int rows, int hc,
+                          int stages, int coef_stages, int per_sm_cap,
+                          int* grid_out) {
+  if (per_sm_cap < 1 || !geometry_ok(nv, nh, pitch, pad, noff, coef, resident,
+                                     rows, hc, stages, coef_stages))
     return cudaErrorInvalidValue;
   const size_t smem =
       smem_bytes(rows, pad, hc, noff, coef != 0, stages, coef_stages);
-  cudaError_t err = allow_smem(coef, smem);
+  cudaError_t err = allow_smem(coef, resident, smem);
   if (err != cudaSuccess) return err;
   int dev = 0;
   err = cudaGetDevice(&dev);
@@ -638,37 +773,42 @@ int tpcg_stream_real_grid(int nv, int nh, int pitch, int pad, int noff,
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel_of(coef), kThreads, smem);
+      &per_sm, kernel_of(coef, resident), kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   if (per_sm > per_sm_cap) per_sm = per_sm_cap;
   const long long tiles = static_cast<long long>((nv + rows - 1) / rows) *
                           ((nh + kTileCols - 1) / kTileCols);
-  long long g = tiles;
-  if (g > static_cast<long long>(per_sm) * sms) g = per_sm * sms;
-  *grid_out = g < 1 ? 1 : static_cast<int>(g);
+  const long long held = static_cast<long long>(per_sm) * sms;
+  *grid_out = static_cast<int>(tiles <= held ? tiles : resident ? 0 : held);
   return 0;
 }
 
 // b, x0, x: (nv, nh) floats; c: coef mode (noff, nv, pitch), the planes
 // copied to the pitch; const mode (2, noff, nh) bottom/top strips; r, q, xw:
-// (nv, pitch); d: (2, nv, pitch); r, q, d and xw zero past column nh; hist: n_iterations + 1; part:
+// (nv, pitch), q and xw null in resident mode; d: (2, nv, pitch); r, q, d
+// and xw zero past column nh; hist: n_iterations + 1; part:
 // 2 * grid doubles.  offsets: host array of 2 * noff ints (dm, dj), |dm|,
 // |dj| <= pad; taps: host array of 3 * noff floats (c, lc, rc; read in const
 // mode only); group_of: host array of noff ints, the group of each interior
 // tap (-1 for a zero tap), groups numbered in order of first appearance
-// (const mode only).  pitch, rows, hc, stages, coef_stages: the layout of
-// real_layout; grid: from tpcg_stream_real_grid with the same layout.
+// (const mode only).  resident, pitch, rows, hc, stages, coef_stages: the
+// layout of card_layout; grid: from tpcg_stream_real_grid with the same
+// layout (resident mode: one block a tile).
 int tpcg_stream_real(const float* b, const float* x0, const float* c,
                      float* x, float* hist, float* r, float* q, float* d,
                      float* xw, double* part, int nv, int nh, int pitch,
                      int noff, const int* offsets, const float* taps,
-                     const int* group_of, int coef, int pad, int rows, int hc,
-                     int stages, int coef_stages, int n_iterations, int grid,
-                     void* stream) {
+                     const int* group_of, int coef, int resident, int pad,
+                     int rows, int hc, int stages, int coef_stages,
+                     int n_iterations, int grid, void* stream) {
   if (n_iterations < 0 || grid < 1 ||
-      !geometry_ok(nv, nh, pitch, pad, noff, coef, rows, hc, stages,
+      !geometry_ok(nv, nh, pitch, pad, noff, coef, resident, rows, hc, stages,
                    coef_stages))
+    return cudaErrorInvalidValue;
+  const long long tiles = static_cast<long long>((nv + rows - 1) / rows) *
+                          ((nh + kTileCols - 1) / kTileCols);
+  if (resident ? grid != tiles : q == nullptr || xw == nullptr)
     return cudaErrorInvalidValue;
   Params p{};
   p.b = b;
@@ -734,16 +874,17 @@ int tpcg_stream_real(const float* b, const float* x0, const float* c,
   Maps maps{};
   if (!encode(fn, &maps.r, r, nh, nv, 1, pitch, g.bc, g.br, 1) ||
       !encode(fn, &maps.d, d, nh, nv, 2, pitch, g.bc, g.br, 1) ||
-      !encode(fn, &maps.x, xw, nh, nv, 1, pitch, g.bc, g.br, 1) ||
+      !encode(fn, &maps.x, resident ? d + p.plane : xw, nh, nv, 1, pitch,
+              g.bc, g.br, 1) ||
       (coef && !encode(fn, &maps.c, c, nh, nv, noff, pitch, kTileCols, rows,
                        noff)))
     return cudaErrorInvalidValue;
   const size_t smem =
       smem_bytes(rows, pad, hc, noff, coef != 0, stages, coef_stages);
-  cudaError_t err = allow_smem(coef, smem);
+  cudaError_t err = allow_smem(coef, resident, smem);
   if (err != cudaSuccess) return err;
   void* args[] = {&p, &maps};
-  err = cudaLaunchCooperativeKernel(kernel_of(coef), dim3(grid),
+  err = cudaLaunchCooperativeKernel(kernel_of(coef, resident), dim3(grid),
                                     dim3(kThreads), args, smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;

@@ -66,10 +66,10 @@ _SIGNATURES = {
     "tpcg_fused_cg_stencil": (_P,) * 10 + (_I,) * 4 + (_IP, _I, _I, _I, _P),
     "tpcg_fused_cg_const": (_P,) * 13 + (_I,) * 4 + (_IP, _FP, _IP, _I, _I,
                                                    _I, _P),
-    "tpcg_stream_real_limits": (_IP, _IP),
-    "tpcg_stream_real_grid": (_I,) * 11 + (_IP,),
+    "tpcg_stream_real_limits": (_IP,) * 4,
+    "tpcg_stream_real_grid": (_I,) * 12 + (_IP,),
     "tpcg_stream_real": (_P,) * 10 + (_I,) * 4 + (_IP, _FP, _IP) +
-    (_I,) * 8 + (_P,),
+    (_I,) * 9 + (_P,),
     "tpcg_stream_dia_limits": (_IP, _IP),
     "tpcg_stream_dia_grid": (_I,) * 8 + (_IP,),
     "tpcg_stream_dia": (_I,) + (_P,) * 11 + (_I,) * 9 + (_P,),

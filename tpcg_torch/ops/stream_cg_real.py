@@ -17,12 +17,18 @@ device memory, with two operators:
 ``n_iterations`` of CG with these operators.  On a CUDA tensor they launch
 the hand-written kernel ``tpcg_torch/csrc/stream_cg_real.cu`` (one
 persistent cooperative launch per solve, both modes; see the note at the top
-of that file) and raise if it cannot run.  :func:`real_layout` gives its
-tiles, rings and byte counts: TMA-fed halo boxes, the state (q included)
-in rows padded to 32 floats, 40 + 8 h B a node and iteration, plus 4 B a
+of that file) and raise if it cannot run.  :func:`card_layout` gives the
+layout a launch runs, with its tiles, rings and byte counts: in const mode,
+where the card holds one block for every tile of the grid, the resident
+layout (:func:`resident_layout`): one tile a block for the whole solve, x,
+r and q in registers, 16 + 8 h B a node and iteration (the counter
+``resident.stream_real`` of ``tpcg_torch.trace`` counts such launches);
+elsewhere the streaming layout (:func:`real_layout`): TMA-fed halo boxes,
+the state (q included) in rows padded to 32 floats, 40 + 8 h B, plus 4 B a
 tap in coef mode, where the kernel reads the coefficient planes copied to
 its pitch (:func:`pad_real_planes`; the planner makes the copy once a
-plan).  On a CPU tensor they run the ``_plain`` versions, the same
+plan).
+On a CPU tensor they run the ``_plain`` versions, the same
 functions in plain PyTorch, which are also what the kernel is compared
 with on the card.
 
@@ -292,16 +298,27 @@ def stream_cg_real_coef_planes_plain(offsets, coefp, bp, x0p,
 
 def kernel_limits() -> Tuple[int, int]:
     """(max taps, max stencil pad) of the CUDA kernel."""
-    return _build.query("tpcg_stream_real_limits")
+    return _build.query("tpcg_stream_real_limits")[:2]
+
+
+def resident_limits() -> Tuple[int, int]:
+    """(tallest tile, blocks an SM) of the CUDA kernel's resident mode: x, r
+    and q of half the tile's rows' nodes a thread fit the registers that its
+    launch bounds of that many blocks an SM leave."""
+    return _build.query("tpcg_stream_real_limits")[2:]
 
 
 # The kernel's tiles and rings (csrc/stream_cg_real.cu), from the sweeps of
 # probes/stream_cg_phases.py --kernel real and --kernel real-coef on an
 # NVIDIA H100 80GB HBM3 at 700 W (PERF.md, Findings): const mode's tile
 # rows and blocks an SM, and below SMALL_GRID_NODES nodes its smaller tiles
-# (a grid there has too few tiles to share evenly among the blocks); coef
-# mode's tile rows, coefficient ring slots and blocks an SM; the state ring
-# slots of both.
+# and more blocks an SM, which the sweep found faster there (they do not
+# share out evenly: at 725^2 nodes 8-row tiles leave 546 tiles to 528
+# blocks, 18 of them with two, which the others wait for at every
+# barrier); coef mode's tile rows, coefficient ring slots and blocks an SM;
+# the state ring slots of both.  A grid that one wave of blocks holds
+# takes const mode's resident layout instead (resident_layout), whose
+# bounds are the kernel's (resident_limits).
 TILE_ROWS = 16
 BLOCKS_PER_SM = 3
 SMALL_GRID_NODES = 2048 * 2048
@@ -331,6 +348,8 @@ class RealLayout(NamedTuple):
     smem_bytes: int     # the rings' dynamic shared memory
     bytes_a: float      # bytes a node: phase A
     bytes_b: float      # phase B
+    resident: bool      # one tile a block, x, r and q in registers (const
+                        # mode, where the card holds a block a tile)
 
 
 def _ring_bytes(rows, pad, hc, noff, coef, stages, coef_stages):
@@ -345,15 +364,52 @@ def _ring_bytes(rows, pad, hc, noff, coef, stages, coef_stages):
 _SHRINK = (("coef_stages", 1, _tiles.one_less), ("rows", 1, _tiles.half))
 
 
+def resident_rows(nv: int, nh: int, blocks: int, max_rows: int):
+    """The fewest tile rows whose tiles of an (nv, nh) grid number at most
+    ``blocks``, or None where that takes more than ``max_rows`` rows."""
+    per_col = blocks // -(-nh // TILE_COLS)   # tiles down a column of tiles
+    if per_col < 1:
+        return None
+    rows = -(-nv // per_col)
+    return rows if rows <= max_rows else None
+
+
+def resident_layout(nv: int, nh: int, pad: int, noff: int, sms: int,
+                    max_rows: int, per_sm: int):
+    """Const mode's resident layout of an (nv, nh) grid with ``noff`` taps
+    within ``pad`` nodes, on a card of ``sms`` SMs, for a kernel whose
+    resident mode takes tiles of at most ``max_rows`` rows at ``per_sm``
+    blocks an SM (:func:`resident_limits`); None where there is none.  One
+    block a tile: the tiles of the fewest rows (:func:`resident_rows`) that
+    number at most ``sms * per_sm``, where an SM's shared memory holds
+    ``per_sm`` rings of those rows.  Bytes a node 8 (1 + h) + 4 in phase A
+    (r and d_old with their halo, d' written) and 4 in phase B (r
+    written)."""
+    rows = resident_rows(nv, nh, sms * per_sm, max_rows)
+    if rows is None:
+        return None
+    hc = _tiles.col_halo(pad)
+    smem = _ring_bytes(rows, pad, hc, noff, False, STAGES, 0)
+    if _tiles.blocks_per_sm(smem, per_sm) < per_sm:
+        return None
+    box = _tiles.box(nv, nh, pad, rows, TILE_COLS)
+    return RealLayout(_tiles.pitch(nh, pad), rows, TILE_COLS, hc, box.rows,
+                      box.cols, STAGES, 0, per_sm, box.tiles, smem,
+                      8 * box.share + 4, 4.0, True)
+
+
 def real_layout(nv: int, nh: int, pad: int, noff: int, coef: bool,
                 tile_rows: int = None, stages: int = None,
                 coef_stages: int = None) -> RealLayout:
-    """The layout of a launch of ``csrc/stream_cg_real.cu`` on an (nv, nh)
+    """The streaming layout of ``csrc/stream_cg_real.cu`` on an (nv, nh)
     grid with ``noff`` taps within ``pad`` nodes, in coef mode or const mode
     (defaults: the module's ``TILE_ROWS`` and ``BLOCKS_PER_SM`` in const
     mode, ``SMALL_TILE_ROWS`` and ``SMALL_BLOCKS_PER_SM`` there below
     ``SMALL_GRID_NODES`` nodes, ``COEF_TILE_ROWS``, ``COEF_STAGES`` and
     ``COEF_BLOCKS_PER_SM`` in coef mode, ``STAGES`` in both).
+
+    A launch runs it in coef mode, and in const mode where the card cannot
+    hold the resident layout (:func:`card_layout`).
 
     The pitch, the column halo and the box are the streaming kernels'
     (``_tiles``); coef mode's planes are copied to the same pitch
@@ -387,7 +443,8 @@ def real_layout(nv: int, nh: int, pad: int, noff: int, coef: bool,
     return RealLayout(_tiles.pitch(nh, pad), fit["rows"], TILE_COLS, hc,
                       box.rows, box.cols, stages, fit["coef_stages"],
                       _tiles.blocks_per_sm(smem, cap), box.tiles, smem,
-                      8 * box.share + 8 + (4 * noff if coef else 0), 24.0)
+                      8 * box.share + 8 + (4 * noff if coef else 0), 24.0,
+                      False)
 
 
 def pad_real_planes(offsets: Sequence[Offset],
@@ -403,14 +460,34 @@ def pad_real_planes(offsets: Sequence[Offset],
     return pad_rows(coefp, pitch).contiguous()
 
 
-def grid_blocks(nv: int, nh: int, pad: int, noff: int, coef: bool) -> int:
-    """Blocks of one launch on an (nv, nh) grid on the current CUDA device,
-    with :func:`real_layout`'s tiles (one block a tile, at most as many as
-    the card holds at once)."""
+def card_layout(nv: int, nh: int, pad: int, noff: int, coef: bool,
+                dev=None) -> Tuple[RealLayout, int]:
+    """The layout a launch runs on an (nv, nh) grid on CUDA device ``dev``
+    (default the current one), and its blocks: in const mode the resident
+    layout (:func:`resident_layout`) for the card's SMs and the kernel's
+    :func:`resident_limits`, where there is one and the occupancy query
+    finds that the card holds one block for each of its tiles; else the
+    streaming layout (:func:`real_layout`), one block a tile, at most as
+    many as the card holds at once."""
+    def grid_of(lay):
+        return _build.query("tpcg_stream_real_grid", nv, nh, lay.pitch, pad,
+                            noff, int(coef), int(lay.resident), lay.tile_rows,
+                            lay.col_halo, lay.stages, lay.coef_stages,
+                            lay.blocks_per_sm)[0]
+    if not coef:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        lay = resident_layout(nv, nh, pad, noff, sms, *resident_limits())
+        grid = 0 if lay is None else grid_of(lay)
+        if grid:
+            return lay, grid
     lay = real_layout(nv, nh, pad, noff, coef)
-    return _build.query("tpcg_stream_real_grid", nv, nh, lay.pitch, pad,
-                        noff, int(coef), lay.tile_rows, lay.col_halo,
-                        lay.stages, lay.coef_stages, lay.blocks_per_sm)[0]
+    return lay, grid_of(lay)
+
+
+def grid_blocks(nv: int, nh: int, pad: int, noff: int, coef: bool) -> int:
+    """Blocks of one launch on an (nv, nh) grid on the current CUDA device
+    (:func:`card_layout`)."""
+    return card_layout(nv, nh, pad, noff, coef)[1]
 
 
 def _launch(offsets, operand, taps, bp, x0p, n_iterations, cpad=None):
@@ -429,42 +506,48 @@ def _launch(offsets, operand, taps, bp, x0p, n_iterations, cpad=None):
     coef = taps is None
     bp, x0p = bp.contiguous(), x0p.contiguous()
     dev = bp.device
-    lay = real_layout(nv, nh, P, noff, coef)
+    pitch = _tiles.pitch(nh, P)
     if coef:
         # the taps and groups are read in const mode only
         taps = ((0.0,) * noff,) * 3
         if cpad is None:
             cpad = pad_real_planes(offsets, operand)
-        if (tuple(cpad.shape) != (noff, nv, lay.pitch)
+        if (tuple(cpad.shape) != (noff, nv, pitch)
                 or cpad.dtype != torch.float32 or cpad.device != dev
                 or not cpad.is_contiguous()):
             raise ValueError(f"cpad must be contiguous float32 ({noff}, {nv}, "
-                             f"{lay.pitch}) on {dev}, got "
+                             f"{pitch}) on {dev}, got "
                              f"{tuple(cpad.shape)} {cpad.dtype} on "
                              f"{cpad.device}")
         operand = cpad
     else:
         operand = operand.contiguous()
     with _build.launch("stream_real", dev) as run:
-        blocks = grid_blocks(nv, nh, P, noff, coef)
+        lay, blocks = card_layout(nv, nh, P, noff, coef, dev)
         f32 = dict(dtype=torch.float32, device=dev)
         x = torch.empty_like(bp)
         hist = torch.empty((n_iterations + 1,), **f32)
-        # state in the kernel's padded rows, zero past column nh
-        r = torch.zeros((nv, lay.pitch), **f32)
-        q = torch.zeros_like(r)
-        xw = torch.zeros_like(r)
-        d = torch.zeros((2, nv, lay.pitch), **f32)
+        # state in the kernel's padded rows, zero past column nh; in
+        # resident mode q and the working x stay in registers
+        r = torch.zeros((nv, pitch), **f32)
+        q = xw = None
+        if not lay.resident:
+            q = torch.zeros_like(r)
+            xw = torch.zeros_like(r)
+        d = torch.zeros((2, nv, pitch), **f32)
         part = torch.empty((2, blocks), dtype=torch.float64, device=dev)
         offs = _build.ints(v for tap in offsets for v in tap)
         tap_vals = _build.floats(v for t in taps for v in t)
         groups = _build.ints(group_of(taps[0]))
         run("tpcg_stream_real",
             bp.data_ptr(), x0p.data_ptr(), operand.data_ptr(), x.data_ptr(),
-            hist.data_ptr(), r.data_ptr(), q.data_ptr(), d.data_ptr(),
-            xw.data_ptr(), part.data_ptr(), nv, nh, lay.pitch, noff, offs,
-            tap_vals, groups, int(coef), P, lay.tile_rows, lay.col_halo,
+            hist.data_ptr(), r.data_ptr(), None if q is None else q.data_ptr(),
+            d.data_ptr(), None if xw is None else xw.data_ptr(),
+            part.data_ptr(), nv, nh, pitch, noff, offs, tap_vals, groups,
+            int(coef), int(lay.resident), P, lay.tile_rows, lay.col_halo,
             lay.stages, lay.coef_stages, n_iterations, blocks)
+        if lay.resident:
+            trace.count("resident.stream_real")
     return x, hist
 
 
