@@ -9,6 +9,7 @@ it there without the conftest:
 """
 import contextlib
 import ctypes
+import dataclasses
 import importlib
 
 import numpy as np
@@ -2034,3 +2035,90 @@ def test_route_plain_is_deterministic_on_card(dev):
             y2 = trs.routed_matvec_plain(D.row_ptr, D.col, D.val, x)
             torch.cuda.synchronize()
             assert torch.equal(y1, y2), (name, cplx)
+
+
+def _oras_cfg(**kw):
+    """The helm_oras_m4 cell's configuration (M 4, W 34, k 20, CGMaxIT 256,
+    complex64), with ``kw`` changed."""
+    return tpcg_torch.HelmholtzConfig(**{
+        **dict(k=20.0, M_subd=4, W_subd=34, cg_max_it=256, verbose=0), **kw})
+
+
+def test_oras_subsolve_kernel_matches_plain(dev):
+    """The batched subdomain solve of the helm_oras_m4 cell (16 subdomains
+    of 66 x 66, two launches of 8 RHS on kernel A complex) against its plain
+    twin on the CPU over 100 iterations, on the first preconditioner
+    application's input: x within 2e-3 max|x|."""
+    plan = tpcg_torch.plan_hsolver(_oras_cfg(cg_max_it=100), dev)
+    prec = plan.prec
+    b = torch.from_numpy(plan.decomp.crop_grid(plan.b)).to(dev,
+                                                         torch.complex64)
+    r = b - plan.matvec(plan.x0)
+    zb = torch.view_as_real(r.reshape(16, -1)).permute(2, 0, 1).contiguous()
+    before = _counted("launch.stream_dia_cplx")
+    xk = prec.subsolve(zb)
+    torch.cuda.synchronize()
+    assert _counted("launch.stream_dia_cplx") - before == 2
+    sdia = importlib.import_module("tpcg_torch.ops.stream_cg_dia")
+    zc = zb.cpu()
+    xp, _ = sdia.stream_cg_dia_rows_cplx(prec.offsets, prec.values.cpu(), zc,
+                                         torch.zeros_like(zc), 100)
+    xk = xk.cpu().numpy()
+    assert np.isfinite(xk).all()
+    np.testing.assert_allclose(xk, xp.numpy(), rtol=0,
+                               atol=2e-3 * np.abs(xp.numpy()).max())
+
+
+def test_hsolver_on_card_matches_cpu_complex128(dev):
+    """The whole ORAS-FGMRES solve on the card (kernel A subdomain solves,
+    complex64) against the port's complex128 solve on the CPU at the CPU
+    tests' size (M 2, W 8, k 20, CGMaxIT 64): the same iteration count to
+    tol 1e-6, the first 5 residual estimates within 1e-3 of the first (the
+    float32 subdomain solves move the later ones by up to ~2e-3 of their
+    own size)."""
+    cfg = _oras_cfg(M_subd=2, W_subd=8, cg_max_it=64)
+    rc = tpcg_torch.hsolver(cfg, device=dev)
+    r128 = tpcg_torch.hsolver(dataclasses.replace(cfg, dtype="complex128"),
+                              device="cpu")
+    assert rc.converged and rc.iterations == r128.iterations
+    h128 = r128.residual_norms[:5]
+    np.testing.assert_allclose(rc.residual_norms[:5], h128, rtol=0,
+                               atol=1e-3 * h128[0])
+
+
+def test_hsolve_spans_and_counters_of_one_call(dev):
+    """One hsolve call at the helm_oras_m4 cell's size, 3 FGMRES iterations:
+    3 Arnoldi steps and 3 preconditioner applications of 16 subdomain RHS,
+    two launches of kernel A each; b up once with each launch's offsets,
+    the dots of each step and x down, to the byte; the precond and arnoldi
+    spans inside the call's tpcg.hsolve, each halo span inside one of them
+    but the initial residual's."""
+    plan = tpcg_torch.plan_hsolver(_oras_cfg(), dev)
+    b = plane_wave_rhs(165, 20.0).astype(np.complex64)
+    it = 3
+    trace.clear()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        x, h = tpcg_torch.hsolve(plan, b, n_iterations=it)
+    recs, c = trace.records(), trace.counters()
+    assert x.shape == (165, 165) and h.shape == (it + 1,)
+    assert np.isfinite(x).all() and np.isfinite(h).all()
+    assert (c["fgmres.iterations"], c["precond.applies"],
+            c["subsolve.rhs"]) == (it, it, 16 * it)
+    assert _launched(c) == {"launch.stream_dia_cplx": 2 * it}
+    state = 16 * 66 * 66 * 8
+    assert c["h2d_bytes"] == state + 2 * it * 7 * 4
+    # ||r0|| (float32), then each step's k + 1 dots and h_sub (complex64)
+    assert c["d2h_bytes"] == 4 + sum((k + 2) * 8 for k in range(it)) + state
+    assert recs[0].name == "tpcg.hsolve" and recs[0].counts == c
+    assert {r.call for r in recs} == {recs[0].id}
+    names = [r.name for r in recs]
+    assert names.count("tpcg.precond") == it
+    assert names.count("tpcg.arnoldi") == it
+    by_id = {r.id: r for r in recs}
+    for r in recs:
+        if r.name in ("tpcg.precond", "tpcg.arnoldi"):
+            assert r.parent == recs[0].id
+    halo = [by_id[r.parent].name for r in recs if r.name == "tpcg.halo"]
+    assert halo == ["tpcg.hsolve"] + ["tpcg.precond", "tpcg.arnoldi"] * it

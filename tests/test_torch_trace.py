@@ -239,3 +239,53 @@ def test_traced_bench_run_reads_the_spans(name):
     # the warm-up request's call is not a timed one
     tops = [r for r in trace.records() if r.parent is None]
     assert len(tops) == result["attempted"] + 1
+
+
+def test_traced_oras_run_reads_its_spans():
+    """The helm_oras cell traced on the CPU at its ``cpu_test`` size: the
+    calls' spans hold 7 precond and 7 arnoldi spans each, and nothing is
+    launched or copied; ``precond_ms.host`` and ``arnoldi_ms.host``, which
+    read kernel A's device time, give None where no kernel ran on a card,
+    and in an untraced run."""
+    from bench_torch import run, spec
+    from bench_torch.metrics import arnoldi_ms, precond_ms
+    cell = spec.cell("helm_oras_m4.source_calls")
+    cfg = {**cell.config, **cell.config["cpu_test"]}
+    cell = dataclasses.replace(cell, config=cfg)
+    result, _ = run.measure(cell, 2**32 + 9, 0.3, True, torch.device("cpu"))
+    assert result["correct"], result["checks"]
+    got = {k: v["value"] for k, v in result["metrics"].items()}
+    assert "precond_ms.host" not in got and "arnoldi_ms.host" not in got
+    assert got["launches.host"] == 0 and got["copy_mb.host"] == 0
+    tops = [r for r in trace.records() if r.parent is None]
+    assert [r.name for r in tops] == ["tpcg.hsolve"] * (
+        result["attempted"] + 1)
+    names = [r.name for r in trace.records()]
+    assert names.count("tpcg.precond") == names.count("tpcg.arnoldi") == \
+        cfg["n_iterations"] * len(tops)
+
+    class Untraced:
+        trace = None
+    assert precond_ms.read(Untraced()) is None
+    assert arnoldi_ms.read(Untraced()) is None
+
+
+def test_oras_readers_split_a_request_at_kernel_a():
+    """``precond_ms`` sums kernel A's device time inside each request span
+    (clipped to it, other kernels left out) and ``arnoldi_ms`` takes the
+    rest of the request; both are means over the requests, in ms."""
+    from bench_torch.metrics import arnoldi_ms, precond_ms
+    from bench_torch.trace import Trace
+    kern = "void stream_dia_kernel<true, 8, false, true>(Params)"
+    # request 1: 3 + 1.5 ms of kernel A; request 2: 1.5 + 6 ms
+    device = [(0.001, 0.004, kern), (0.004, 0.005, "gather_kernel"),
+              (0.0085, 0.0115, kern),
+              (0.013, 0.019, kern), (0.019, 0.0195, "gather_kernel")]
+    spans = [(0.0, 0.010), (0.010, 0.020)]
+
+    class Ctx:
+        trace = Trace(device, [], spans)
+    assert precond_ms.read(Ctx()) == pytest.approx(6.0)
+    assert arnoldi_ms.read(Ctx()) == pytest.approx(4.0)
+    Ctx.trace = Trace([d for d in device if d[2] != kern], [], spans)
+    assert precond_ms.read(Ctx()) is None and arnoldi_ms.read(Ctx()) is None

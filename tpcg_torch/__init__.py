@@ -16,6 +16,9 @@ from .ops.stream_cg_coef import stream_cg_coef              # noqa: F401
 from .sparse import (DiaMatrix, EllMatrix, Stencil2D,         # noqa: F401
                      to_device_matrix)
 from .ops.route_spmv import DeviceRouted                     # noqa: F401
+from .parallel import (hsolver, hsolve, plan_hsolver,         # noqa: F401
+                       HSolverPlan)
+from .utils.config import HelmholtzConfig                     # noqa: F401
 from . import reference                                       # noqa: F401
 from . import problems                                        # noqa: F401
 

@@ -13,8 +13,16 @@
     ``tpcg_torch.cg(routing=)`` and ``tpcg.cg(routing=)`` both load.  Host
     only (numpy, or the repository's C++ table code).
 
-The ``helmholtz`` subcommand of ``tpcg.cli`` is not ported yet (ROADMAP
-queue 1 item 12); it says so and exits non-zero.
+``python -m tpcg_torch.cli helmholtz <M_s> <W_s> <UseCG> [CGMaxIT] [--device DEV]``
+    ==  ``tpcg.cli helmholtz`` (the reference's ``__main__``,
+    ``p_h-PY_C-CL-multi-GPU.py:3639-3718``): the ORAS-FGMRES solve of the
+    plane-wave Helmholtz problem at k = 20 on M_s x M_s subdomains of width
+    W_s (overlap (W_s-2)/2), CGMaxIT subdomain COCG iterations (default 256),
+    on DEV (default ``cuda:0``; exits non-zero if it is absent).  It prints
+    each FGMRES residual estimate, the iterations, the true residual and the
+    time an iteration.  UseCG may list modes (``2,0``); only 2, the batched
+    subdomain solve, is ported: another mode prints why and the sweep goes
+    on, as the reference's does.  No output file is written.
 """
 from __future__ import annotations
 
@@ -23,11 +31,6 @@ import time
 
 import numpy as np
 import torch
-
-_NOT_PORTED = {
-    "helmholtz": "ROADMAP queue 1 item 12 (tpcg/parallel/)",
-}
-
 
 def _device_present(device) -> bool:
     dev = torch.device(device)
@@ -38,15 +41,22 @@ def _device_present(device) -> bool:
     return (dev.index or 0) < torch.cuda.device_count()
 
 
+def _pop_device(argv):
+    """(device, the other arguments), or (None, None) when ``--device`` has
+    no value."""
+    if "--device" not in argv:
+        return "cuda:0", argv
+    i = argv.index("--device")
+    if i + 1 == len(argv):
+        print("--device needs a value", file=sys.stderr)
+        return None, None
+    return argv[i + 1], argv[:i] + argv[i + 2:]
+
+
 def run_cg_cli(argv):
-    device = "cuda:0"
-    if "--device" in argv:
-        i = argv.index("--device")
-        if i + 1 == len(argv):
-            print("--device needs a value", file=sys.stderr)
-            return 1
-        device = argv[i + 1]
-        argv = argv[:i] + argv[i + 2:]
+    device, argv = _pop_device(argv)
+    if device is None:
+        return 1
     if len(argv) != 4:
         print("Usage: tpcg_torch cg <input matrix file> <number of RHS> "
               "<is complex> <number of iterations> [--device DEV]",
@@ -79,6 +89,53 @@ def run_cg_cli(argv):
     for r in range(n_rhs):
         print(f"rhs {r}: final residual {hist[-1, r]:.6e}")
     print(f"solve time (incl. build): {dt:.3f}s")
+    return 0
+
+
+def run_helmholtz_cli(argv):
+    device, argv = _pop_device(argv)
+    if device is None:
+        return 1
+    if len(argv) not in (3, 4):
+        print("Usage: tpcg_torch helmholtz <M_s> <W_s> <UseCG> [CGMaxIT] "
+              "[--device DEV]", file=sys.stderr)
+        return 1
+    m_s, w_s = int(argv[0]), int(argv[1])
+    cgs = [int(v) for v in argv[2].split(",")]
+    cg_max_it = int(argv[3]) if len(argv) == 4 else 256
+    if not _device_present(device):
+        print(f"device {device} is not available", file=sys.stderr)
+        return 1
+    from .parallel.hsolver import hsolver
+    from .utils.config import HelmholtzConfig
+
+    kkk = 20.0
+    ol = (w_s - 2) // 2
+    print(f"N= {(w_s - 1) * m_s + 1} k= {kkk} M_s= {m_s} W_s= {w_s} "
+          f"OL= {ol}")
+    print("One-level AS preconditioner")
+    print("----> setting epsilon=k^beta: ", kkk)
+    for cg_mode in cgs:
+        print(f"=== UseCG={cg_mode}, CGMaxIT={cg_max_it}, on {device}")
+        steps = []
+
+        def count(res):
+            steps.append(res)
+            print(len(steps), "--", res, flush=True)
+        try:
+            cfg = HelmholtzConfig(k=kkk, M_subd=m_s, W_subd=w_s, OL=ol,
+                                  use_cg=cg_mode, cg_max_it=cg_max_it,
+                                  verbose=10)
+            t1 = time.time()
+            res = hsolver(cfg, device=device, callback=count)
+            t2 = time.time()
+        except NotImplementedError as ex:   # the sweep goes on (:3715-3718)
+            print(ex)
+            continue
+        print("  residual norm:", res.true_residual,
+              " ####it:", res.iterations)
+        print("Total time:", t2 - t1, "(", (t2 - t1) / 60, "minutes )")
+        print("Aver. time per iter:", res.time_per_it)
     return 0
 
 
@@ -124,11 +181,8 @@ def main(argv=None):
         return run_cg_cli(rest)
     if cmd == "route":
         return run_route_cli(rest)
-    if cmd in _NOT_PORTED:
-        print(f"{cmd}: not ported to tpcg_torch yet, see "
-              f"{_NOT_PORTED[cmd]}; the JAX package runs it: "
-              f"python -m tpcg.cli {cmd}", file=sys.stderr)
-        return 2
+    if cmd == "helmholtz":
+        return run_helmholtz_cli(rest)
     print(f"unknown command {cmd!r}", file=sys.stderr)
     print(__doc__)
     return 1

@@ -36,7 +36,10 @@ The counters the program keeps:
 * ``plan.<path>``: plans of the stencil planner (``ops.auto``) by the path
   each took (``plan.stream-real``, ``plan.eager``, ...);
 * ``h2d_bytes``, ``d2h_bytes``: bytes copied from host to device and back
-  by ``device.upload`` and ``device.download``.
+  by ``device.upload`` and ``device.download``;
+* ``fgmres.iterations``, ``precond.applies``, ``subsolve.rhs``: the
+  ORAS-FGMRES solver's Arnoldi steps, preconditioner applications and
+  subdomain RHS solved (``tpcg_torch.parallel``).
 
 The state is the process's, for one thread: spans opened by two threads at
 once would nest into each other.
