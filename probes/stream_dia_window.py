@@ -11,6 +11,7 @@ Run from the root of a checkout on a machine with an NVIDIA GPU:
     python3 probes/stream_dia_window.py variants
     python3 probes/stream_dia_window.py floor
     python3 probes/stream_dia_window.py cluster
+    python3 probes/stream_dia_window.py clusters
 
 ``freeze``: kernel A at m_t1's n and offsets, B = 1, 2, 4 and 8 RHS a
 launch, on the benchmark's stand-in ``banded_spd(97578, 50)`` (every RHS
@@ -58,6 +59,15 @@ block's slot completing on its mbarrier.  us a phase.
 ``cluster``: helm_fem at 1 and 8 RHS as the cooperative grid and as one
 cluster of 4, 8 and 16 blocks (``dia_layout(cluster=C)``), us an
 iteration in turns, then each one's phases from the ``split`` build.
+
+``clusters``: the ORAS block (the subdomain operator of the helm_oras_m4
+cell, ``SchwarzPrec.values``: n 4,356, 7 diagonals, complex) at 16 RHS as
+one launch of G = 16 / k clusters side by side, k = 1, 2, 4 and 8 RHS a
+cluster (``cluster_split`` forced), in turns: us an iteration (slope) and
+the time of a 256-iteration solve (the cell's, one preconditioner
+application), beside G and the clusters of the k-RHS instance the card
+holds at once (``tpcg_stream_dia_grid``); then that count for k = 1..8
+and the rule's own (k, G).
 
 ``variants``: edited copies of the kernel's source (threads a block, rows
 a thread takes through one pass of the taps, diagonals of values in
@@ -800,18 +810,74 @@ def variants(args):
                               "us_per_it": us}), flush=True)
 
 
+# RHS a cluster of the ``clusters`` sweep, and the batch
+CLUSTER_RHS, ORAS_RHS = (1, 2, 4, 8), 16
+
+
+def clusters(args):
+    """The ORAS block at 16 RHS as G clusters of k RHS side by side in
+    one launch, k of ``CLUSTER_RHS``, in turns."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    import tpcg_torch
+    tsd = importlib.import_module("tpcg_torch.ops.stream_cg_dia")
+    card = _card()
+    dev = torch.device("cuda:0")
+    cfg = tpcg_torch.HelmholtzConfig(k=20.0, M_subd=4, W_subd=34,
+                                     cg_max_it=256, verbose=0)
+    prec = tpcg_torch.plan_hsolver(cfg, dev).prec
+    offs, vals = prec.offsets, prec.values
+    n = vals.shape[2]
+    rng = np.random.default_rng(11)
+    b = torch.from_numpy(rng.standard_normal((2, ORAS_RHS, n)).astype(
+        np.float32)).to(dev)
+    x0 = torch.zeros_like(b)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lay = tsd.dia_layout(n, offs, 1, 2, sms)
+
+    def active(k):
+        return tsd._grid_of(dev, offs, n, 2, k, lay)[1]
+    rule = tsd.cluster_split
+
+    def run(iters):
+        return tsd.stream_cg_dia_rows_cplx(offs, vals, b, x0, iters)
+    times = {}
+    try:
+        for k in CLUSTER_RHS + CLUSTER_RHS[::-1]:
+            tsd.cluster_split = lambda nrhs, act, k=k: (k, -(-nrhs // k))
+            us, _ = _slope(run)
+            run(256)
+            ms = [_time(run, 256)[0] for _ in range(REPS)]
+            times.setdefault(k, []).append((us, float(np.median(ms))))
+    finally:
+        tsd.cluster_split = rule
+    for k, rows in times.items():
+        print(json.dumps({"probe": "clusters", "card": card, "case": "oras",
+                          "n": n, "ndiag": len(offs), "nrhs": ORAS_RHS,
+                          "k": k, "G": -(-ORAS_RHS // k),
+                          "co_resident": active(k),
+                          "layout": tsd.dia_layout(n, offs, k, 2,
+                                                   sms)._asdict(),
+                          "us_per_it": [u for u, _ in rows],
+                          "ms_256_it": [m for _, m in rows]}), flush=True)
+    print(json.dumps({"probe": "clusters_rule", "card": card,
+                      "co_resident": {k: active(k) for k in range(1, 9)},
+                      "rule_k_G": rule(ORAS_RHS, active)}), flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=["freeze", "rule", "compare", "time",
                                      "split", "table", "variants",
-                                     "floor", "cluster"])
+                                     "floor", "cluster", "clusters"])
     ap.add_argument("--tree", default=None)
     args = ap.parse_args(argv)
     if args.mode == "compare" and args.tree is None:
         ap.error("compare needs --tree")
     {"freeze": freeze, "rule": rule, "compare": compare, "time": time_tree,
      "split": split, "table": table, "variants": variants,
-     "floor": floor, "cluster": cluster}[args.mode](args)
+     "floor": floor, "cluster": cluster,
+     "clusters": clusters}[args.mode](args)
 
 
 if __name__ == "__main__":

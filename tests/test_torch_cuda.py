@@ -329,8 +329,10 @@ def test_stream_dia_cplx_indefinite_random_rhs(dev):
 
 
 def test_stream_dia_chunks_past_its_rhs_limit(dev):
-    """Nine RHS: two launches of 5 and 4 (balanced, no zero padding), each
-    RHS equal to its single-RHS launch bit for bit."""
+    """Nine RHS on the cooperative grid: two launches of 5 and 4
+    (balanced, no zero padding), each RHS equal to its single-RHS launch
+    bit for bit.  (Cluster mode, this band's rule, takes them in one
+    launch: test_stream_dia_clusters_side_by_side.)"""
     max_rhs, _ = tsd.kernel_limits()
     assert max_rhs == 8
     D = _dia(_small_band(False), np.float32, dev)
@@ -338,14 +340,15 @@ def test_stream_dia_chunks_past_its_rhs_limit(dev):
     b = _rhs(D.n, 9, False, dev)
     x0 = torch.zeros_like(b)
     before = _counted("launch.stream_dia")
-    xk, hk = tsd.stream_cg_dia_rows(offs, vals, b, x0, 30)
-    assert _counted("launch.stream_dia") == before + 2
-    with pytest.raises(ValueError):
-        tsd._launch(offs, vals[None], b[None], x0[None], 30)
+    with _dia_layout(0):
+        xk, hk = tsd.stream_cg_dia_rows(offs, vals, b, x0, 30)
+        assert _counted("launch.stream_dia") == before + 2
+        with pytest.raises(ValueError):
+            tsd._launch(offs, vals[None], b[None], x0[None], 30)
+        x1, h1 = tsd.stream_cg_dia_rows(offs, vals, b[4:5], x0[4:5], 30)
     xp, hp = tsd.stream_cg_dia_rows_plain(offs, vals, b, x0, 30)
     for c in range(9):
         _assert_dia_close(xk[c], hk[:, c], xp[c], hp[:, c])
-    x1, h1 = tsd.stream_cg_dia_rows(offs, vals, b[4:5], x0[4:5], 30)
     assert torch.equal(x1[0], xk[4]) and torch.equal(h1[:, 0], hk[:, 4])
 
 
@@ -428,6 +431,77 @@ def test_stream_dia_rhs_bits_do_not_depend_on_the_launch(dev, name):
     assert torch.equal(x1[0], x8[4]) and torch.equal(h1[:, 0], h8[:, 4])
 
 
+def _oras_block(dev):
+    """The helm_oras_m4 cell's subdomain block (66 x 66 nodes, n 4,356, 7
+    diagonals, complex) as kernel A's (offsets, values) on dev."""
+    prec = tpcg_torch.plan_hsolver(_oras_cfg(), dev).prec
+    return prec.offsets, prec.values
+
+
+@pytest.mark.parametrize("name,nrhs,k", [
+    ("oras", 16, None), ("oras", 16, 3), ("far", 3, None), ("far", 9, None),
+    ("far", 9, 2), ("far", 13, None), ("far", 13, 6)])
+def test_stream_dia_clusters_side_by_side(dev, name, nrhs, k):
+    """A batch in cluster mode is one launch of G clusters side by side
+    (``launch.*`` and ``cluster.*`` +1, ``cluster_grid.*`` +G), and each
+    of its RHS equals its own 1-RHS launch bit for bit, x and history: the
+    ORAS block's 16 RHS (9 blocks a cluster) and the far band's 3, 9 and
+    13 (6 blocks), at the rule's k RHS a cluster and at a k forced so that
+    the last cluster is short (16 = 5 x 3 + 1, 9 = 4 x 2 + 1, 13 = 2 x 6 +
+    1), the complex 3 and real 6 keeping x, r and q in memory."""
+    if name == "oras":
+        offs, vals = _oras_block(dev)
+        n = vals.shape[2]
+        b = _rhs(n, nrhs, True, dev, seed=6)
+        solve = tsd.stream_cg_dia_rows_cplx
+        kernel, planes = "stream_dia_cplx", 2
+    else:
+        D, _ = _window_case(name, dev)
+        offs, vals = tsd.prepare_dia_rows(D)
+        n = D.n
+        b = _rhs(n, nrhs, False, dev, seed=6)
+        solve = tsd.stream_cg_dia_rows
+        kernel, planes = "stream_dia", 1
+    x0 = 0.1 * _rhs(n, nrhs, planes == 2, dev, seed=7)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lay = tsd.dia_layout(n, offs, 1, planes, sms)
+    assert lay.cluster
+    rule = tsd.cluster_split
+    split = rule(nrhs, lambda kk: tsd._grid_of(dev, offs, n, planes, kk,
+                                               lay)[1])
+    if k is not None:
+        split = (k, -(-nrhs // k))
+        tsd.cluster_split = lambda nb, active: split
+    keys = [p + kernel for p in ("launch.", "cluster.", "cluster_grid.")]
+    before = [_counted(key) for key in keys]
+    try:
+        xk, hk = solve(offs, vals, b, x0, 60)
+    finally:
+        tsd.cluster_split = rule
+    assert [_counted(key) - c for key, c in zip(keys, before)] == [
+        1, 1, split[1]]
+    for c in range(nrhs):
+        x1, h1 = solve(offs, vals, b[..., c:c + 1, :], x0[..., c:c + 1, :],
+                       60)
+        assert torch.equal(x1[..., 0, :], xk[..., c, :]), c
+        assert torch.equal(h1[:, 0], hk[:, c]), c
+
+
+def test_stream_dia_cooperative_band_keeps_its_chunks(dev):
+    """m_t1's band (the cooperative grid, staged) with 16 RHS is still two
+    launches of 8, with no cluster counted."""
+    D, _ = _window_case("m_t1", dev)
+    offs, vals = tsd.prepare_dia_rows(D)
+    b = _rhs(D.n, 16, False, dev, seed=6)
+    keys = ["launch.stream_dia", "staged.stream_dia", "cluster.stream_dia",
+            "cluster_grid.stream_dia"]
+    before = [_counted(key) for key in keys]
+    xk, hk = tsd.stream_cg_dia_rows(offs, vals, b, torch.zeros_like(b), 10)
+    assert [_counted(key) - c for key, c in zip(keys, before)] == [2, 2, 0,
+                                                                   0]
+    assert torch.isfinite(xk).all() and hk.shape == (11, 16)
+
+
 def test_stream_dia_layout_is_the_kernels(dev):
     """dia_layout's shared-memory rule against the kernel's own: at the
     widest band whose window the rule stages, the C side accepts the
@@ -449,11 +523,12 @@ def test_stream_dia_layout_is_the_kernels(dev):
                                       sms).staged
             lay = tsd.dia_layout(n, (0, pad, -pad), nb, planes, sms)
             assert lay.tiles <= sms
-            grid = ctypes.c_int()
+            grid, active = ctypes.c_int(), ctypes.c_int()
             tsd._build.check(lib.tpcg_stream_dia_grid(
                 planes - 1, nb, n, 3, pad, lay.tile_rows, 1, 0,
-                ctypes.byref(grid)), "tpcg_stream_dia_grid")
-            assert grid.value == lay.tiles
+                ctypes.byref(grid), ctypes.byref(active)),
+                "tpcg_stream_dia_grid")
+            assert grid.value == lay.tiles and active.value == 0
 
 
 def test_stream_dia_cluster_rule_is_the_kernels(dev):
@@ -475,11 +550,12 @@ def test_stream_dia_cluster_rule_is_the_kernels(dev):
                 lo, hi = (mid, hi) if lay.cluster else (lo, mid)
             lay = tsd.dia_layout(n, (0, lo, -lo), 8, planes, sms)
             assert lay.cluster == lay.tiles <= tsd.MAX_CLUSTER
-            grid = ctypes.c_int()
+            grid, active = ctypes.c_int(), ctypes.c_int()
             tsd._build.check(lib.tpcg_stream_dia_grid(
                 planes - 1, 8, n, 3, lo, lay.tile_rows, 0, lay.cluster,
-                ctypes.byref(grid)), "tpcg_stream_dia_grid")
-            assert grid.value == lay.cluster
+                ctypes.byref(grid), ctypes.byref(active)),
+                "tpcg_stream_dia_grid")
+            assert grid.value == lay.cluster and active.value >= 1
             wider = tsd.dia_layout(n, (0, lo + 1, -lo - 1), 8, planes, sms)
             assert not wider.cluster
             past = lo + 1
@@ -488,7 +564,7 @@ def test_stream_dia_cluster_rule_is_the_kernels(dev):
                 past += 1
             assert lib.tpcg_stream_dia_grid(
                 planes - 1, 8, n, 3, past, lay.tile_rows, 0, lay.cluster,
-                ctypes.byref(grid)) != 0
+                ctypes.byref(grid), ctypes.byref(active)) != 0
 
 
 @pytest.mark.parametrize("name,nb,cluster", [
@@ -2046,7 +2122,8 @@ def _oras_cfg(**kw):
 
 def test_oras_subsolve_kernel_matches_plain(dev):
     """The batched subdomain solve of the helm_oras_m4 cell (16 subdomains
-    of 66 x 66, two launches of 8 RHS on kernel A complex) against its plain
+    of 66 x 66, one launch of kernel A complex, clusters side by side)
+    against its plain
     twin on the CPU over 100 iterations, on the first preconditioner
     application's input: x within 2e-3 max|x|."""
     plan = tpcg_torch.plan_hsolver(_oras_cfg(cg_max_it=100), dev)
@@ -2058,7 +2135,7 @@ def test_oras_subsolve_kernel_matches_plain(dev):
     before = _counted("launch.stream_dia_cplx")
     xk = prec.subsolve(zb)
     torch.cuda.synchronize()
-    assert _counted("launch.stream_dia_cplx") - before == 2
+    assert _counted("launch.stream_dia_cplx") - before == 1
     sdia = importlib.import_module("tpcg_torch.ops.stream_cg_dia")
     zc = zb.cpu()
     xp, _ = sdia.stream_cg_dia_rows_cplx(prec.offsets, prec.values.cpu(), zc,
@@ -2089,7 +2166,8 @@ def test_hsolver_on_card_matches_cpu_complex128(dev):
 def test_hsolve_spans_and_counters_of_one_call(dev):
     """One hsolve call at the helm_oras_m4 cell's size, 3 FGMRES iterations:
     3 Arnoldi steps and 3 preconditioner applications of 16 subdomain RHS,
-    two launches of kernel A each; b up once with each launch's offsets,
+    one launch of kernel A each, G clusters side by side; b up once with
+    each launch's offsets,
     the dots of each step and x down, to the byte; the precond and arnoldi
     spans inside the call's tpcg.hsolve, each halo span inside one of them
     but the initial residual's."""
@@ -2106,9 +2184,18 @@ def test_hsolve_spans_and_counters_of_one_call(dev):
     assert np.isfinite(x).all() and np.isfinite(h).all()
     assert (c["fgmres.iterations"], c["precond.applies"],
             c["subsolve.rhs"]) == (it, it, 16 * it)
-    assert _launched(c) == {"launch.stream_dia_cplx": 2 * it}
+    assert _launched(c) == {"launch.stream_dia_cplx": it}
+    assert c["cluster.stream_dia_cplx"] == it
+    # G clusters side by side a launch, as the card holds them
+    offs, vals = plan.prec.offsets, plan.prec.values
+    n = vals.shape[2]
+    lay = tsd.dia_layout(n, offs, 1, 2, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    _, g = tsd.cluster_split(16, lambda k: tsd._grid_of(dev, offs, n, 2, k,
+                                                        lay)[1])
+    assert c["cluster_grid.stream_dia_cplx"] == it * g
     state = 16 * 66 * 66 * 8
-    assert c["h2d_bytes"] == state + 2 * it * 7 * 4
+    assert c["h2d_bytes"] == state + it * 7 * 4
     # ||r0|| (float32), then each step's k + 1 dots and h_sub (complex64)
     assert c["d2h_bytes"] == 4 + sum((k + 2) * 8 for k in range(it)) + state
     assert recs[0].name == "tpcg.hsolve" and recs[0].counts == c

@@ -63,6 +63,8 @@ def fake(monkeypatch):
     is ``STREAM`` and the card has 132 SMs."""
     lib = FakeLib()
     monkeypatch.setattr(_build, "load", lambda: lib)
+    # kernel A's grid answers are kept a process: none from another fake
+    stream_cg_dia._grid.cache_clear()
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",

@@ -122,7 +122,18 @@
 //     block's shared memory; it never reads the launch's RHS count, so a
 //     RHS's bits do not depend on the launch.  The host checks that the
 //     card can hold such a cluster (cudaOccupancyMaxActiveClusters), and
-//     else runs the cooperative launch.
+//     else runs the cooperative launch;
+//   * a batch of more RHS than one cluster takes runs as G clusters side by
+//     side in one launch, a grid of (C, G) blocks: cluster y = blockIdx.y
+//     owns RHS [y NB, y NB + NB) of the batch's nb_all.  The last cluster
+//     may own fewer: its missing RHS read b and x0 as zeros, and their
+//     state lands in x, r, q and hist laid out for G NB RHS, of which the
+//     host keeps the first nb_all, so no pass of an iteration tests for
+//     them (such tests cost 3-15% an iteration on the H100).  No cluster
+//     reads another's memory or waits for it, so each RHS gives the bits
+//     of its own 1-RHS launch.  The host takes the fewest RHS a cluster
+//     whose G clusters the card holds at once (ops/stream_cg_dia.py::
+//     cluster_split), so no cluster waits for a second wave.
 // wgmma has no place here: there is no matrix product.  TMA bulk copies
 // of the values, issued by one thread into a ring the block shares, were
 // slower than the threads' own rings (the block waits at a barrier every
@@ -163,17 +174,44 @@ enum { kHaloBar, kDqBar, kRrBar, kBars = 4 };
 struct Params {
   const float* vals;  // (P, ndiag, n)                      read-only
   const int* offs;    // (ndiag)                            read-only
-  const float* b;     // (P, nb, n)                         read-only
-  const float* x0;    // (P, nb, n)                         read-only
-  float* x;           // (P, nb, n)                         out
-  float* hist;        // (n_iterations + 1, nb)             out
-  float* r;           // (P, nb, n)                         scratch
-  float* q;           // (P, nb, n)                         scratch
-  float* dpad;        // (P, nb, n + 2 pad)                 scratch
-  float2* part_dq;    // (nb, gridDim.x) partials <d,q>     scratch (not in
-  float2* part_rr;    // (nb, gridDim.x) partials <r,r>     cluster mode)
+  const float* b;     // (P, nb_all, n)                     read-only
+  const float* x0;    // (P, nb_all, n)                     read-only
+  float* x;           // (P, span, n)                       out
+  float* hist;        // (n_iterations + 1, span)           out
+  float* r;           // (P, span, n)                       scratch (null
+  float* q;           // (P, span, n)                       where resident)
+  float* dpad;        // (P, nb, n + 2 pad)                 scratch (not in
+  float2* part_dq;    // (nb, gridDim.x) partials <d,q>     cluster mode)
+  float2* part_rr;    // (nb, gridDim.x) partials <r,r>
   int n, ndiag, pad, n_iterations;
   int tile_rows;      // rows of a block's tile (the last tile may be shorter)
+  // RHS of the batch in b and x0; x, r, q and hist hold span RHS, gridDim.y
+  // nb in cluster mode, else nb = nb_all
+  int nb_all;
+};
+
+// A block's RHS of the batch: cluster y = blockIdx.y owns RHS [base, base
+// + NB) of the state's span = gridDim.y NB (x, r, q, hist), of which those
+// below the batch's nb_all are in b and x0 (a short last cluster's missing
+// RHS read zeros there).  Cooperative: the launch's NB RHS, constants.
+template <int NB, bool CLUSTER>
+struct Slice {
+  int base, all, span;
+  __device__ __forceinline__ explicit Slice(const Params& p)
+      : base(CLUSTER ? static_cast<int>(blockIdx.y) * NB : 0),
+        all(CLUSTER ? p.nb_all : NB),
+        span(CLUSTER ? static_cast<int>(gridDim.y) * NB : NB) {}
+  // element i of RHS b (of the slice), plane c, in x, r, q: (P, span, n)
+  __device__ __forceinline__ size_t at(int c, int b, int i, int n) const {
+    return static_cast<size_t>(c * span + base + b) * n + i;
+  }
+  // the same in b and x0, (P, all, n), where the RHS is in the batch
+  __device__ __forceinline__ size_t at_in(int c, int b, int i, int n) const {
+    return static_cast<size_t>(c * all + base + b) * n + i;
+  }
+  __device__ __forceinline__ bool has(int b) const {
+    return !CLUSTER || base + b < all;
+  }
 };
 
 // Floats a (plane, RHS) row of the window takes: the tile and pad rows each
@@ -553,10 +591,12 @@ __device__ __forceinline__ void apply_rows(const Params& p, const int* s_off,
 // r = b - A d and the partials of <r, r>; the direction in dpad, staged
 // into the window first where STAGED, its copies in flight beside the
 // first diagonals' values; in cluster mode already whole in the window.
+// A missing RHS of the slice reads b as 0.
 template <bool CPLX, int NB, bool STAGED, bool CLUSTER, int R, bool STORE_Q>
 __device__ __forceinline__ void apply_tile(
     const Params& p, const int* s_off, float* win, float* ring,
     const float* vals, const Tile& t, bool resident,
+    const Slice<NB, CLUSTER>& rhs,
     float (&rs)[R][CPLX ? 2 : 1][NB], float (&qs)[R][CPLX ? 2 : 1][NB],
     float2 (&acc)[NB]) {
   constexpr int P = CPLX ? 2 : 1;
@@ -596,8 +636,8 @@ __device__ __forceinline__ void apply_tile(
         const int o = j * kThreads;
 #pragma unroll
         for (int b = 0; b < NB; ++b) {
-          const size_t ir = static_cast<size_t>(b) * n + i;
-          const size_t ii = static_cast<size_t>(NB + b) * n + i;
+          const size_t ir = rhs.at(0, b, i, n);
+          const size_t ii = rhs.at(1, b, i, n);
           if (STORE_Q) {
             const float dr = dir<STAGED || CLUSTER>(w[b] + o);
             qs[j][0][b] = qr[j][b];
@@ -612,11 +652,14 @@ __device__ __forceinline__ void apply_tile(
               acc[b].x += dr * qr[j][b];
             }
           } else {
-            const float rr = __ldg(p.b + ir) - qr[j][b];
+            const bool in = rhs.has(b);
+            const float rr =
+                (in ? __ldg(p.b + rhs.at_in(0, b, i, n)) : 0.f) - qr[j][b];
             rs[j][0][b] = rr;
             if (!resident) p.r[ir] = rr;
             if (CPLX) {
-              const float ri = __ldg(p.b + ii) - qi[j][b];
+              const float ri =
+                  (in ? __ldg(p.b + rhs.at_in(1, b, i, n)) : 0.f) - qi[j][b];
               rs[j][P - 1][b] = ri;
               if (!resident) p.r[ii] = ri;
               acc[b].x += rr * rr - ri * ri;
@@ -653,6 +696,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_dia_kernel(Params p) {
   const int n = p.n, pad = p.pad;
   const size_t pn = static_cast<size_t>(n) + 2 * pad;
   const int nblocks = gridDim.x;
+  const Slice<NB, CLUSTER> rhs(p);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   // the block's tile of rows [t0, t1); its window rows [t0 - pad, t1 + pad)
   Tile tile;
@@ -677,10 +721,8 @@ __global__ void __launch_bounds__(kThreads, 1) stream_dia_kernel(Params p) {
   const uint32_t part_bytes = NB * nblocks * sizeof(float2);
   const uint32_t halo_bytes =
       (min(pad, t0) + min(pad, n - t1)) * P * NB * sizeof(float);
-  // element i of RHS b, plane c: in (P, NB, n) and in dpad
-  auto at = [&](int c, int b, int i) {
-    return static_cast<size_t>(c * NB + b) * n + i;
-  };
+  // element i of RHS b, plane c: in x, r, q and in dpad
+  auto at = [&](int c, int b, int i) { return rhs.at(c, b, i, n); };
   auto pad_at = [&](int c, int b, int i) {
     return static_cast<size_t>(c * NB + b) * pn + pad + i;
   };
@@ -768,7 +810,8 @@ __global__ void __launch_bounds__(kThreads, 1) stream_dia_kernel(Params p) {
         for (int c = 0; c < P; ++c) {
 #pragma unroll
           for (int b = 0; b < NB; ++b) {
-            const float v = __ldg(p.x0 + at(c, b, i));
+            const float v =
+                rhs.has(b) ? __ldg(p.x0 + rhs.at_in(c, b, i, n)) : 0.f;
             xs[j][c][b] = v;
             if (!resident) p.x[at(c, b, i)] = v;
             store_d(c, b, i, v);
@@ -784,7 +827,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_dia_kernel(Params p) {
   {
     float2 acc[NB];
     apply_tile<CPLX, NB, STAGED, CLUSTER, R, false>(
-        p, s_off, win, ring, vals, tile, resident, rs, qs, acc);
+        p, s_off, win, ring, vals, tile, resident, rhs, rs, qs, acc);
     block_partials<NB, CLUSTER>(acc, red, CLUSTER ? slot_rr : p.part_rr,
                                 bars + kRrBar);
   }
@@ -797,7 +840,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_dia_kernel(Params p) {
     if (lane == 0) {
       const float2 dl = make_float2(t.x, CPLX ? 2.f * t.y : 0.f);
       s_delta[warp] = dl;
-      if (blockIdx.x == 0) p.hist[warp] = hist_of<CPLX>(dl);
+      if (blockIdx.x == 0) p.hist[rhs.base + warp] = hist_of<CPLX>(dl);
     }
   }
   for (int i0 = first; i0 < t1; i0 += G * kThreads) {
@@ -823,7 +866,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_dia_kernel(Params p) {
     {
       float2 acc[NB];
       apply_tile<CPLX, NB, STAGED, CLUSTER, R, true>(
-          p, s_off, win, ring, vals, tile, resident, rs, qs, acc);
+          p, s_off, win, ring, vals, tile, resident, rhs, rs, qs, acc);
       block_partials<NB, CLUSTER>(acc, red, CLUSTER ? slot_dq : p.part_dq,
                                   bars + kDqBar);
     }
@@ -926,7 +969,8 @@ __global__ void __launch_bounds__(kThreads, 1) stream_dia_kernel(Params p) {
         const float2 keep = done ? dl : dn;
         s_delta[warp] = keep;
         if (blockIdx.x == 0)
-          p.hist[static_cast<size_t>(it + 1) * NB + warp] = hist_of<CPLX>(keep);
+          p.hist[static_cast<size_t>(it + 1) * rhs.span + rhs.base + warp] =
+              hist_of<CPLX>(keep);
       }
     }
     __syncthreads();
@@ -1050,11 +1094,11 @@ cudaError_t instance(int cplx, int nb, int n, int ndiag, int pad,
                               static_cast<int>(*smem));
 }
 
-// A cluster launch of `cluster` blocks, one cluster.
-cudaLaunchConfig_t cluster_config(int cluster, size_t smem, void* stream,
-                                  cudaLaunchAttribute* attr) {
+// A cluster launch of `clusters` clusters of `cluster` blocks side by side.
+cudaLaunchConfig_t cluster_config(int cluster, int clusters, size_t smem,
+                                  void* stream, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
+  cfg.gridDim = dim3(cluster, clusters);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -1082,12 +1126,14 @@ int tpcg_stream_dia_limits(int* max_rhs, int* max_diags) {
 // rows, every block co-resident (a larger cooperative launch is refused).
 // staged: the window's shared memory must fit the block's, or the call
 // returns cudaErrorInvalidValue.  cluster (the tiles' count, at most 16):
-// the launch as one cluster, whose shared memory must fit the same way;
-// grid 0 where the card cannot hold such a cluster, and the caller takes
-// the cooperative layout.
+// the launch as clusters of that many blocks, whose shared memory must fit
+// the same way; clusters_out: how many clusters of the nb-RHS instance the
+// card holds at once (cudaOccupancyMaxActiveClusters), and grid 0 where it
+// holds none, and the caller takes the cooperative layout.  (Cooperative:
+// clusters_out 0.)
 int tpcg_stream_dia_grid(int cplx, int nb, int n, int ndiag, int pad,
                          int tile_rows, int staged, int cluster,
-                         int* grid_out) {
+                         int* grid_out, int* clusters_out) {
   KernelFn fn = nullptr;
   size_t smem = 0;
   cudaError_t err = instance(cplx, nb, n, ndiag, pad, tile_rows, staged,
@@ -1097,19 +1143,21 @@ int tpcg_stream_dia_grid(int cplx, int nb, int n, int ndiag, int pad,
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const int g = (n + tile_rows - 1) / tile_rows;
+  *clusters_out = 0;
   if (cluster) {
     int launch = 0, active = 0;
     err = cudaDeviceGetAttribute(&launch, cudaDevAttrClusterLaunch, dev);
     if (err != cudaSuccess) return err;
     if (launch) {
       cudaLaunchAttribute attr;
-      const cudaLaunchConfig_t cfg = cluster_config(cluster, smem, nullptr,
+      const cudaLaunchConfig_t cfg = cluster_config(cluster, 1, smem, nullptr,
                                                     &attr);
       err = cudaOccupancyMaxActiveClusters(
           &active, reinterpret_cast<const void*>(fn), &cfg);
       if (err != cudaSuccess) return err;
     }
     *grid_out = active >= 1 ? g : 0;
+    *clusters_out = active;
     return 0;
   }
   int sms = 0, coop = 0, per_sm = 0;
@@ -1127,25 +1175,32 @@ int tpcg_stream_dia_grid(int cplx, int nb, int n, int ndiag, int pad,
 }
 
 // vals: (cplx ? 2 : 1, ndiag, n); offs: device array of ndiag ints with
-// |offs[k]| <= pad; b, x0, x, r, q: (cplx ? 2 : 1, nb, n); dpad:
-// (cplx ? 2 : 1, nb, n + 2 pad) and 4 floats of slack; hist:
-// (n_iterations + 1, nb); part_dq and part_rr: grid * nb * 2 floats each,
-// 8-byte aligned (dpad, part_dq and part_rr unused, and may be null, in
-// cluster mode).  tile_rows, staged, cluster: the layout of
-// ops/stream_cg_dia.py::dia_layout; grid: from tpcg_stream_dia_grid with
-// the same layout.
+// |offs[k]| <= pad; b, x0: (cplx ? 2 : 1, nb_all, n); x, r, q:
+// (cplx ? 2 : 1, clusters nb, n); dpad: (cplx ? 2 : 1, nb, n + 2 pad) and
+// 4 floats of slack; hist: (n_iterations + 1, clusters nb), of which the
+// first nb_all RHS are the batch's; part_dq and part_rr: grid * nb * 2 floats
+// each, 8-byte aligned (dpad, part_dq and part_rr unused, and may be null,
+// in cluster mode; r and q too where every tile is resident).  tile_rows,
+// staged, cluster: the layout of ops/stream_cg_dia.py::dia_layout; grid:
+// from tpcg_stream_dia_grid with the same layout.  clusters: cluster mode's
+// clusters side by side, nb RHS each (the last may have fewer), for the
+// nb_all RHS of the batch, at most the count tpcg_stream_dia_grid gave;
+// cooperative: 1, and nb_all = nb.
 int tpcg_stream_dia(int cplx, const float* vals, const int* offs,
                     const float* b, const float* x0, float* x, float* hist,
                     float* r, float* q, float* dpad, float* part_dq,
                     float* part_rr, int n, int ndiag, int nb, int pad,
                     int n_iterations, int tile_rows, int staged, int cluster,
-                    int grid, void* stream) {
+                    int grid, int clusters, int nb_all, void* stream) {
   KernelFn fn = nullptr;
   size_t smem = 0;
   cudaError_t err = instance(cplx, nb, n, ndiag, pad, tile_rows, staged,
                              cluster, &fn, &smem);
   if (err != cudaSuccess) return err;
-  if (n_iterations < 0 || grid != (n + tile_rows - 1) / tile_rows)
+  if (n_iterations < 0 || grid != (n + tile_rows - 1) / tile_rows ||
+      clusters < 1 || nb_all <= (clusters - 1) * nb ||
+      nb_all > clusters * nb ||
+      (!cluster && (clusters != 1 || nb_all != nb)))
     return cudaErrorInvalidValue;
   Params p;
   p.vals = vals;
@@ -1164,11 +1219,12 @@ int tpcg_stream_dia(int cplx, const float* vals, const int* offs,
   p.pad = pad;
   p.n_iterations = n_iterations;
   p.tile_rows = tile_rows;
+  p.nb_all = nb_all;
   void* args[] = {&p};
   if (cluster) {
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(cluster, smem, stream,
-                                                  &attr);
+    const cudaLaunchConfig_t cfg = cluster_config(cluster, clusters, smem,
+                                                  stream, &attr);
     err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(fn), args);
   } else {
     err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),

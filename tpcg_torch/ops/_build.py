@@ -71,8 +71,8 @@ _SIGNATURES = {
     "tpcg_stream_real": (_P,) * 10 + (_I,) * 4 + (_IP, _FP, _IP) +
     (_I,) * 9 + (_P,),
     "tpcg_stream_dia_limits": (_IP, _IP),
-    "tpcg_stream_dia_grid": (_I,) * 8 + (_IP,),
-    "tpcg_stream_dia": (_I,) + (_P,) * 11 + (_I,) * 9 + (_P,),
+    "tpcg_stream_dia_grid": (_I,) * 8 + (_IP, _IP),
+    "tpcg_stream_dia": (_I,) + (_P,) * 11 + (_I,) * 11 + (_P,),
     "tpcg_fused_dia_limits": (_IP, _IP),
     "tpcg_fused_dia": (_P,) * 6 + (_I,) * 5 + (_P,),
     "tpcg_route_spmv": (_P,) * 5 + (_I,) * 6 + (_P,),

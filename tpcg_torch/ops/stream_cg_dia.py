@@ -8,7 +8,8 @@ in one launch of the hand-written CUDA kernel ``csrc/stream_cg_dia.cu`` on
 a CUDA tensor (see the note at the top of that file), and raise if it
 cannot run; on a CPU tensor they run their plain PyTorch versions
 (``*_plain``), which are also what the kernel is compared with on the card.
-Larger RHS counts are split into balanced chunks, never zero-padded.
+Larger RHS counts are split into balanced chunks, never zero-padded; in
+cluster mode (below) one launch takes them all as clusters side by side.
 
 Layout: the matrix stays in its own row-DIA layout,
 ``values[d, i] = A[i, i + offsets[d]]`` (``DiaMatrix.data``), and the
@@ -19,7 +20,9 @@ once an iteration (:func:`dia_layout`).  A band whose tiles, values and
 windows fit the shared memory of at most 16 blocks runs as one
 thread-block cluster instead (cluster mode): its blocks exchange partials
 and the direction's halo over distributed shared memory, and no grid
-barrier is left.
+barrier is left.  A batch runs as G such clusters in one launch, k RHS
+each (:func:`cluster_split`: the fewest RHS a cluster whose clusters the
+card holds at once), and no cluster waits for another.
 The JAX kernel's column-major ``(nv, 128)`` regrid, its wrap-filled halo,
 its ``_CHUNK = 256`` call splitting with the tail update in XLA, and its
 deferred update exist because of TPU lanes and VMEM; they are not ported.
@@ -40,7 +43,8 @@ Public surface as in the JAX module: ``stream_cg_dia`` /
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+import functools
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +75,11 @@ RING_BYTES = 4 * 8 * 2 * 384
 MAX_CLUSTER = 16
 _CLUSTER_SLOT_BYTES = 2 * MAX_CLUSTER * 8
 _CLUSTER_BAR_BYTES = 4 * 8
+# cluster mode: each of a block's 384 threads takes 3 rows at once, and
+# keeps x, r and q of its rows in registers where planes x RHS x 3 <= 16
+# (the kernel's kThreads, kClusterRows and its resident test)
+_THREADS = 384
+CLUSTER_ROWS = 3
 
 
 def _pad_for(offsets) -> int:
@@ -187,6 +196,30 @@ def dia_layout(n: int, offsets, nb: int, planes: int, sms: int,
     staged = win + fixed <= budget
     return DiaLayout(rows, -(-n // rows), staged,
                      fixed + (win if staged else 0))
+
+
+def cluster_resident(tile_rows: int, nb: int, planes: int) -> bool:
+    """Whether a cluster-mode launch of ``nb`` RHS a cluster keeps x, r
+    and q in registers (the kernel then touches no r or q in memory): the
+    tile is one pass of the threads' 3 rows and their state fits."""
+    return (planes * nb * CLUSTER_ROWS <= 16
+            and tile_rows <= CLUSTER_ROWS * _THREADS)
+
+
+def cluster_split(nrhs: int,
+                  active: Callable[[int], int]) -> Optional[Tuple[int, int]]:
+    """(k, G) of a cluster-mode launch of ``nrhs`` RHS: G = ceil(nrhs / k)
+    clusters side by side, k RHS each (the last may take fewer, and no RHS
+    is padded in or solved twice), for the smallest k (at most 8) whose G
+    clusters the card holds at once; ``active(k)`` is that count for the
+    k-RHS instance (the kernel's occupancy query).  None where even 8 RHS a
+    cluster leave more clusters than that.  The cluster's shape is the
+    layout rule's alone, so each RHS keeps the bits of its 1-RHS launch."""
+    for k in range(1, min(nrhs, _MAX_RHS) + 1):
+        g = -(-nrhs // k)
+        if g <= active(k):
+            return k, g
+    return None
 
 
 def _check_args(offsets, values, b, x0, n_iterations, planes):
@@ -323,59 +356,103 @@ def kernel_limits() -> Tuple[int, int]:
     return _build.query("tpcg_stream_dia_limits")
 
 
+@functools.lru_cache(maxsize=None)
+def _grid(dev, planes, nb, n, ndiag, pad, tile_rows, staged, cluster):
+    """(grid, clusters) of ``tpcg_stream_dia_grid`` for the nb-RHS instance
+    of a layout on ``dev``: the blocks of the grid or of one cluster (0
+    where the card holds no such cluster), and in cluster mode how many
+    such clusters the card holds at once.  It rests on the instance and the
+    card alone, so a process asks once."""
+    with torch.cuda.device(dev):
+        return _build.query("tpcg_stream_dia_grid", int(planes == 2), nb, n,
+                            ndiag, pad, tile_rows, staged, cluster)
+
+
+def _grid_of(dev, offsets, n, planes, nb, lay):
+    return _grid(dev, planes, nb, n, len(offsets), _pad_for(offsets),
+                 lay.tile_rows, int(lay.staged), lay.cluster)
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _launch_rhs(offsets, values, dev) -> int:
+    """The most RHS one launch takes on ``dev``: in cluster mode 8 a cluster
+    times the clusters of the 8-RHS instance that the card holds at once,
+    else the kernel's 8."""
+    planes, _, n = values.shape
+    lay = dia_layout(n, offsets, _MAX_RHS, planes, _sms(dev))
+    if not lay.cluster:
+        return _MAX_RHS
+    return _MAX_RHS * max(1, _grid_of(dev, offsets, n, planes, _MAX_RHS,
+                                      lay)[1])
+
+
 def _launch(offsets, values, b, x0, n_iterations):
     """Launch the CUDA kernel on the current stream of b's device; values
-    (P, ndiag, n), b/x0 (P, B, n) with B within the kernel's limit."""
+    (P, ndiag, n), b/x0 (P, B, n): in cluster mode B RHS as the clusters
+    of :func:`cluster_split`, at most :func:`_launch_rhs`; else B within
+    the kernel's limit."""
     planes, ndiag, n = values.shape
     nb = b.shape[1]
-    max_rhs, max_diags = kernel_limits()
-    if nb > max_rhs or ndiag > max_diags:
-        raise ValueError(f"kernel takes at most {max_rhs} RHS and "
-                         f"{max_diags} diagonals per launch, got {nb} and "
-                         f"{ndiag}")
     values, b, x0 = values.contiguous(), b.contiguous(), x0.contiguous()
     P = _pad_for(offsets)
     dev = b.device
     cplx = int(planes == 2)
     kernel = "stream_dia_cplx" if cplx else "stream_dia"
     with _build.launch(kernel, dev) as run:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        lay = dia_layout(n, offsets, nb, planes, sms)
-
-        def grid_of(lay):
-            return _build.query("tpcg_stream_dia_grid", cplx, nb, n, ndiag,
-                                P, lay.tile_rows, int(lay.staged),
-                                lay.cluster)[0]
-        grid = grid_of(lay)
-        if lay.cluster and not grid:
-            # the card cannot hold the cluster: the cooperative layout
-            lay = dia_layout(n, offsets, nb, planes, sms, cluster=0)
-            grid = grid_of(lay)
+        max_rhs, max_diags = kernel_limits()
+        sms = _sms(dev)
+        lay = dia_layout(n, offsets, min(nb, max_rhs), planes, sms)
+        # k RHS a cluster (or the launch), G clusters side by side
+        k, clusters = nb, 1
+        if lay.cluster:
+            split = cluster_split(nb, lambda rhs: _grid_of(
+                dev, offsets, n, planes, rhs, lay)[1])
+            if split is None:
+                # the card cannot hold the cluster: the cooperative layout
+                lay = dia_layout(n, offsets, nb, planes, sms, cluster=0)
+            else:
+                k, clusters = split
+                lay = dia_layout(n, offsets, k, planes, sms)
+        if k > max_rhs or ndiag > max_diags:
+            raise ValueError(f"kernel takes at most {max_rhs} RHS and "
+                             f"{max_diags} diagonals per launch, got {nb} "
+                             f"and {ndiag}")
+        grid = _grid_of(dev, offsets, n, planes, k, lay)[0]
         f32 = dict(dtype=torch.float32, device=dev)
         offs = upload(torch.tensor([int(o) for o in offsets],
                                    dtype=torch.int32), dev)
-        x = torch.empty_like(b)
-        hist = torch.empty((n_iterations + 1, nb), **f32)
-        r = torch.empty_like(b)
-        q = torch.empty_like(b)
-        # the padded direction (the window's aligned copies may read 3
-        # floats past its end) and the partials; in cluster mode both stay
-        # in shared memory
-        dpad = part = None
+        # x, r, q and the history hold the G k RHS of the clusters: a
+        # short last cluster's missing ones are solved on zeros and dropped
+        span = k * clusters
+        x = torch.empty((planes, span, n), **f32)
+        hist = torch.empty((n_iterations + 1, span), **f32)
+        # r and q, which the kernel touches only where x, r and q of a
+        # tile do not fit the registers; the padded direction (the
+        # window's aligned copies may read 3 floats past its end) and the
+        # partials, which stay in shared memory in cluster mode
+        r = q = dpad = part_dq = part_rr = None
+        if not (lay.cluster and cluster_resident(lay.tile_rows, k, planes)):
+            r, q = torch.empty_like(x), torch.empty_like(x)
         if not lay.cluster:
             dpad = torch.empty(planes * nb * (n + 2 * P) + 4, **f32)
-            part = torch.empty((2, grid, nb, 2), **f32)
+            part_dq, part_rr = torch.empty((2, grid, nb, 2), **f32)
+        scratch = [None if t is None else t.data_ptr()
+                   for t in (r, q, dpad, part_dq, part_rr)]
         run("tpcg_stream_dia",
             cplx, values.data_ptr(), offs.data_ptr(), b.data_ptr(),
-            x0.data_ptr(), x.data_ptr(), hist.data_ptr(), r.data_ptr(),
-            q.data_ptr(), None if dpad is None else dpad.data_ptr(),
-            None if part is None else part[0].data_ptr(),
-            None if part is None else part[1].data_ptr(), n, ndiag, nb, P,
-            n_iterations, lay.tile_rows, int(lay.staged), lay.cluster, grid)
+            x0.data_ptr(), x.data_ptr(), hist.data_ptr(), *scratch, n, ndiag,
+            k, P, n_iterations, lay.tile_rows, int(lay.staged), lay.cluster,
+            grid, clusters, nb)
         if lay.staged:
             trace.count("staged." + kernel)
         if lay.cluster:
             trace.count("cluster." + kernel)
+            trace.count("cluster_grid." + kernel, clusters)
+    if span > nb:
+        x, hist = x[:, :nb].contiguous(), hist[:, :nb].contiguous()
     return x, hist
 
 
@@ -393,18 +470,23 @@ def _balanced(nrhs: int, cap: int):
 
 
 def _solve(offsets, values, b, x0, n_iterations):
-    """Dispatch on b's device; values (P, ndiag, n), b/x0 (P, B, n), at
-    most 8 RHS (the kernel's limit) per run in balanced chunks."""
+    """Dispatch on b's device; values (P, ndiag, n), b/x0 (P, B, n), in
+    balanced chunks of at most 8 RHS (the kernel's limit) a run, or on a
+    card in cluster mode of :func:`_launch_rhs` (one launch a batch while
+    the card holds its clusters at once)."""
     if b.device.type == "cuda":
         run = _launch
     elif b.device.type == "cpu":
         run = _stream_plain
     else:
         raise ValueError(f"no stream_cg_dia kernel for device {b.device}")
-    if b.shape[1] <= _MAX_RHS:
+    cap = _MAX_RHS
+    if run is _launch and b.shape[1] > cap:
+        cap = _launch_rhs(offsets, values, b.device)
+    if b.shape[1] <= cap:
         return run(offsets, values, b, x0, n_iterations)
     xs, hists = [], []
-    for lo, hi in _balanced(b.shape[1], _MAX_RHS):
+    for lo, hi in _balanced(b.shape[1], cap):
         x, hist = run(offsets, values, b[:, lo:hi], x0[:, lo:hi],
                       n_iterations)
         xs.append(x)
@@ -419,11 +501,13 @@ def stream_cg_dia_rows(offsets: Sequence[int], values: torch.Tensor,
     same device.  Returns ``x`` (B, n) and the history (n_iterations+1, B).
 
     CUDA tensors launch the kernel, at most 8 RHS (the kernel's limit) per
-    launch in balanced chunks; ``tpcg_torch.trace``'s counter
+    launch in balanced chunks, or in cluster mode the batch in one launch
+    of clusters side by side; ``tpcg_torch.trace``'s counter
     ``launch.stream_dia`` counts the launches, ``staged.stream_dia``
-    those that staged the direction in shared memory and
-    ``cluster.stream_dia`` those that ran as one thread-block cluster.  CPU tensors run
-    :func:`stream_cg_dia_rows_plain` in the same chunks."""
+    those that staged the direction in shared memory,
+    ``cluster.stream_dia`` those that ran as thread-block clusters and
+    ``cluster_grid.stream_dia`` their clusters.  CPU tensors run
+    :func:`stream_cg_dia_rows_plain` in chunks of 8."""
     _check_args(offsets, values[None], b[None], x0[None], n_iterations, 1)
     x, hist = _solve(offsets, values[None], b[None], x0[None], n_iterations)
     return x[0], hist
@@ -436,8 +520,9 @@ def stream_cg_dia_rows_cplx(offsets: Sequence[int], values: torch.Tensor,
     (2, B, n) float32 re/im planes.  Returns ``x`` (2, B, n) and the
     history (n_iterations+1, B).  Launches and chunks as
     :func:`stream_cg_dia_rows`; the counters ``launch.stream_dia_cplx``,
-    ``staged.stream_dia_cplx`` and ``cluster.stream_dia_cplx`` count the
-    launches, the staged ones and those that ran as one cluster."""
+    ``staged.stream_dia_cplx``, ``cluster.stream_dia_cplx`` and
+    ``cluster_grid.stream_dia_cplx`` count the launches, the staged ones,
+    those that ran as clusters and their clusters."""
     _check_args(offsets, values, b, x0, n_iterations, 2)
     return _solve(offsets, values, b, x0, n_iterations)
 

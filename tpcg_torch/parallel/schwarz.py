@@ -11,8 +11,8 @@ its RHS (``p_h-PY_C-CL-multi-GPU.py:1919-1933``), ``CGMaxIT`` fixed COCG
 iterations from x0 = 0.  The subdomain solver is kernel A complex
 (``ops/stream_cg_dia.py::stream_cg_dia_rows_cplx``, ``csrc/stream_cg_dia.cu``)
 on the block laid out once as a row-DIA matrix (7 diagonals): on a CUDA
-tensor the kernel, 8 RHS a launch in balanced chunks, on a CPU tensor its
-plain twin, the same recurrence in PyTorch (in float64 planes for a
+tensor the kernel, every subdomain in one launch as thread-block clusters
+side by side, on a CPU tensor its plain twin, the same recurrence in PyTorch (in float64 planes for a
 complex128 state).  The kernel is float32, so on a card the state is
 complex64; ``plan_hsolver`` refuses any other there.
 
